@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels for the perf-critical compute of VersaQ-3D.
+
+- quant_matmul.py: INT8/packed-INT4 tensor-core matmul (the reconfigurable
+  PE array; ``csrc/quant_matmul.cu``)
+- two_stage_attention.py: paper Alg. 1, stats pass + recompute pass in one
+  launch (``csrc/two_stage_attention.cu``)
+
+Each module holds its kernel's wrapper and its plain PyTorch version;
+``ops.py`` holds the public wrappers, ``_build.py`` the nvcc build, and
+``probe.py`` the launch counters.  Importing these modules builds nothing.
+"""
