@@ -26,9 +26,12 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    first micro-batch against a plain-version forward of the same weights.
 
 Any failed check raises, so the script exits non-zero.  The kernels' JSON
-line carries, per kernel, its launches in the served run and times summed
-over those launches: each distinct shape is timed once and weighted by its
-launches.  The last line is ``{"ok": true, "device": {...}}``.
+line carries, per kernel, its launches in the served run; ``ms``,
+``plain_ms``, ``library_ms`` and ``bound_ms`` are isolated timings (each
+distinct shape timed once, L2 flushed) weighted by those launches, and
+``inplace_ms`` is the kernel's device time when the served run's forwards
+are replayed under ``torch.profiler``.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -89,12 +92,15 @@ def main() -> int:
 
     kernels = phase_kernels(torch, dev)
     phase_model(torch, dev)
-    launches, forwards = phase_serve(torch, dev)
+    launches, forwards, inplace = phase_serve(torch, dev)
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         _check(k["launches"] > 0, f"{k['name']} was not launched on the served path")
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):  # per forward -> served run
+        # per-shape medians x launches per forward -> x forwards of the served run
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             k[key] *= forwards
+        k["timing"] = "isolated per-shape medians (L2 flushed) weighted by served-run launches"
+        k["inplace_ms"] = inplace.get(k["name"])  # profiler, replay of the served run
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -235,9 +241,10 @@ def phase_kernels(torch, dev) -> list[dict]:
         pairs = length * (length + 1) / 2 if causal else float(length) * length
         nbytes = (b * hq * length * (dh + 4) + 2 * b * hkv * length * dh + b * hkv * length * 4
                   + 4 * b * hq + 4 * b * hq * length * dh)
-        # QK^T in both stages + P.V (2 ops per multiply-add); one exp per
-        # score per stage
-        bound, by = _bound_ms(nbytes, 6.0 * b * hq * pairs * dh, sfu=2.0 * b * hq * pairs)
+        # the function's own work, not the kernel's: QK^T once and P.V once
+        # (2 ops per multiply-add), and one exp per score (the row max needs
+        # none; p = exp(s - m) then feeds both l and pq)
+        bound, by = _bound_ms(nbytes, 4.0 * b * hq * pairs * dh, sfu=1.0 * b * hq * pairs)
         lib = None
         if nper:  # the yardstick: bf16 SDPA on the dequantized tensors, made once
             qf = (qq.values.float() * qq.scale).to(torch.bfloat16).view(b, hq, length, dh)
@@ -335,7 +342,7 @@ def phase_model(torch, dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(torch, dev) -> dict[str, int]:
+def phase_serve(torch, dev) -> tuple[dict[str, int], int, dict[str, float]]:
     from repro_torch.configs import get_config
     from repro_torch.core.precision.plan import PrecisionPlan
     from repro_torch.kernels import probe
@@ -394,42 +401,49 @@ def phase_serve(torch, dev) -> dict[str, int]:
     print(f"serve: served vs plain-version forward (24 AA pairs) rel L2 {rel}")
     _check(all(v < 1e-3 for v in rel.values()), f"served vs plain forward: {rel}")
     _check(all(math.isfinite(v) for v in rel.values()), "non-finite comparison")
-    profile_forward(torch, lambda: vggt.forward(eng.cfg, served, torch.cat(requests[:2], dim=0)))
-    return counts, calls
+    batches = [torch.cat(requests[i:i + BATCH], dim=0) for i in range(0, len(requests), BATCH)]
+    inplace = profile_forwards(torch, [lambda x=x: vggt.forward(eng.cfg, served, x)
+                                       for x in batches])
+    return counts, calls, inplace
 
 
-def profile_forward(torch, fwd) -> None:
-    """One served forward under torch.profiler: device time of the two
-    kernels, of the PyTorch operators between them, and the device's idle
-    share of the (profiled, so slightly slower) wall time."""
+def profile_forwards(torch, fwds) -> dict[str, float]:
+    """Replay the served run's forwards under torch.profiler.  Prints, per
+    forward, the device time of the two kernels and of the PyTorch
+    operators between them, and the device's idle share of the (profiled,
+    so slightly slower) wall time.  Returns each kernel's in-place device
+    time summed over the forwards (empty if the profiler saw no device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
                                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fwd()
+        for fwd in fwds:
+            fwd()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print("profile: the profiler recorded no device time")
-        return
+        return {}
+    n = len(fwds)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     ours = {}
     for e in kernels:
-        for name in ("quant_matmul_kernel", "two_stage_attention_kernel"):
-            if name in e.name:
+        for name in ("quant_matmul", "two_stage_attention"):
+            if f"{name}_kernel" in e.name:
                 ours[name] = ours.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    print(f"profile: one forward {wall_ms:.1f}ms wall, device busy {busy:.1f}ms "
-          f"(idle {100 * (1 - busy / wall_ms):.1f}%), hand-written kernels "
-          + ", ".join(f"{k} {v:.1f}ms" for k, v in ours.items())
-          + f", everything else {busy - sum(ours.values()):.1f}ms")
+    print(f"profile: {n} forwards, per forward {wall_ms / n:.1f}ms wall, device busy "
+          f"{busy / n:.1f}ms (idle {100 * (1 - busy / wall_ms):.1f}%), hand-written kernels "
+          + ", ".join(f"{k} {v / n:.1f}ms" for k, v in ours.items())
+          + f", everything else {(busy - sum(ours.values())) / n:.1f}ms")
     ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
     for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
-        print(f"  profile op {e.key:32s} calls={e.count:6d} "
-              f"device={e.self_device_time_total / 1e3:9.2f}ms")
+        print(f"  profile op {e.key:32s} calls/forward={e.count / n:7.1f} "
+              f"device/forward={e.self_device_time_total / 1e3 / n:9.2f}ms")
+    return ours
 
 
 if __name__ == "__main__":

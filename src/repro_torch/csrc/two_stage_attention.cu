@@ -31,11 +31,15 @@
 // (key_of below): score column n then holds the key that P.V's k position
 // n needs, and V is staged as a plain transpose.
 //
-// What bounds it.  Besides ~2 * 2 * BH * Lq * Lk * dh int8 operations
-// (0.21 ms for the global attention of vggt-1b at 1,979 TOP/s), every score
-// needs an expf in each stage: 2 * BH * Lq * Lk exponentials, ~0.56 ms at
-// the ~3.9 T/s of the special-function units.  The exponentials bound it,
-// not the tensor cores; the kernel keeps expf accurate (no fast math)
+// What bounds it.  The function needs one exponential per score,
+// BH * Lq * Lk in all: the row max m takes none, and p = exp(s - m) can
+// feed both l and pq.  For the global attention of one vggt-1b scene that
+// is ~0.28 ms at the ~3.9 T/s of the special-function units, against
+// 2 * 2 * BH * Lq * Lk * dh int8 operations (QK^T and P.V, 0.14 ms at
+// 1,979 TOP/s).  The exponentials bound it, not the tensor cores.  This
+// kernel computes l online in stage 1, so it evaluates expf twice per
+// score (plus the rescaling) and the int8 QK^T twice; a stage 1 that keeps
+// only m would halve the exponentials.  expf stays accurate (no fast math)
 // because a rounding difference flips pq.
 #include "mma_s8.cuh"
 
@@ -281,9 +285,10 @@ void launch(const void* qv, const void* qs, const void* kv, const void* ks, cons
 
 }  // namespace
 
-// C entry point (ctypes).  dh must be 32, 64 or 128; q_heads % kv_heads == 0
-// and BH % q_heads == 0 — the Python wrapper checks these.  Returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported dh).
+// C entry point (ctypes).  dh must be 64 (vggt-1b) or 32 (its smoke
+// width); q_heads % kv_heads == 0 and BH % q_heads == 0 — the Python
+// wrapper checks these.  Returns cudaGetLastError() (cudaErrorInvalidValue
+// for an unsupported dh).
 extern "C" int vq_two_stage_attention(const void* qv, const void* qs, const void* kv,
                                       const void* ks, const void* vv, const void* vscale,
                                       void* out, int BH, int Lq, int Lk, int dh, int q_heads,
@@ -295,9 +300,6 @@ extern "C" int vq_two_stage_attention(const void* qv, const void* qs, const void
       break;
     case 64:
       launch<64>(qv, qs, kv, ks, vv, vscale, out, BH, Lq, Lk, q_heads, kv_heads, causal, scale, s);
-      break;
-    case 128:
-      launch<128>(qv, qs, kv, ks, vv, vscale, out, BH, Lq, Lk, q_heads, kv_heads, causal, scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

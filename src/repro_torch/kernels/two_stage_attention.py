@@ -142,7 +142,7 @@ def two_stage_attention(
     _kv_rows(bh, q_heads, kv_heads, bhkv)  # validates the GQA shapes
     hq = q_heads if q_heads is not None and kv_heads is not None else 1
     hkv = kv_heads if q_heads is not None and kv_heads is not None else 1
-    _check(dh in (32, 64, 128), f"head dim {dh} not in (32, 64, 128)")
+    _check(dh in (32, 64), f"head dim {dh} not in (32, 64)")
     _check(qv.dtype == kv.dtype == vv.dtype == torch.int8, "q/k/v values must be int8")
     _check(tuple(vv.shape) == tuple(kv.shape), "kv and vv shapes differ")
     _check(qs.numel() == bh * lq and ks.numel() == bhkv * lk and v_scale.numel() == bh,

@@ -1,13 +1,13 @@
 """Serving-batching machinery for the bucketed engines (port of
 ``repro/serving/batching.py``, in the part ``VGGTEngine`` needs).
 
-* Requests are quantized onto **shape buckets**; the engine keeps one
-  forward function per ``(bucket, masked)`` and counts cache misses as
-  ``compiles`` (the stats schema is shared with the reference).
+* Requests are quantized onto **shape buckets**; the engine counts the
+  first use of each ``(bucket, masked)`` as ``compiles`` (the stats schema
+  is shared with the reference; eager PyTorch compiles nothing).
 * Requests **coalesce** in per-group queues and are flushed into one
   forward when a group fills ``max_batch`` items, when its oldest request
   passes ``max_wait_s`` (``poll()``), or explicitly (``MicroBatchQueue``).
-* Every flush lands in per-bucket **stats**: function-cache misses, calls,
+* Every flush lands in per-bucket **stats**: first uses, calls,
   p50/p95 latency, throughput (``BucketStats`` / ``ServeStats``).
 
 Admission control, the degradation ladder, precision tiers, compiled
@@ -95,7 +95,7 @@ class BucketStats:
     """Per-bucket serving statistics; ``items`` counts the engine's unit
     of work (scenes for VGGT)."""
 
-    compiles: int = 0  # forward-function cache misses
+    compiles: int = 0  # first uses of the bucket (masked and unmasked apart)
     calls: int = 0
     items: int = 0  # real items served
     padded_items: int = 0  # bucket slack (padding waste)

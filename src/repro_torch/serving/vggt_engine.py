@@ -2,8 +2,8 @@
 quantized fast path (port of ``repro/serving/vggt_engine.py``).
 
 * **Shape buckets** — requests are keyed on ``(batch, n_frames,
-  n_patches)``; the batch dim is padded up to a bucket size and each
-  bucket owns one forward function.  With ``pad_patches=True`` the patch
+  n_patches)``; the batch dim is padded up to a bucket size, so a few
+  shapes serve every request.  With ``pad_patches=True`` the patch
   dim is rounded up too (masked out of every attention softmax via
   ``vggt.forward(patch_mask=...)``).
 * **Micro-batching** — ``enqueue`` parks requests in a per-group queue; a
@@ -25,7 +25,6 @@ raises when asked for CUDA on a machine without it.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import time
 from typing import Any, Optional
 
@@ -125,7 +124,7 @@ class VGGTEngine:
         self.max_wait_s = max_wait_s
         self.pad_patches = pad_patches
         self.stats = VGGTServeStats()
-        self._fns: dict[tuple, Any] = {}
+        self._seen: set[tuple[Bucket, bool]] = set()
         self._queue = batching.MicroBatchQueue(self._run, self.max_batch, max_wait_s)
 
     @property
@@ -146,18 +145,15 @@ class VGGTEngine:
         p = next_pow2(patches) if self.pad_patches else patches
         return Bucket(batch=b, frames=frames, patches=p)
 
-    def _bucket_fn(self, bucket: Bucket, masked: bool):
-        """The bucket's forward function; a cache miss counts as one
-        ``compiles`` entry in the bucket's stats.  Masked and unmasked calls
-        are separate entries (the mask-free one keeps the two-stage kernel
-        path live)."""
-        key = (bucket, masked)
-        fn = self._fns.get(key)
-        if fn is None:
+    def _note_first_use(self, bucket: Bucket, masked: bool) -> None:
+        """Count the first use of ``(bucket, masked)`` in the bucket's
+        ``compiles`` field.  Eager PyTorch compiles nothing; the field keeps
+        the reference's stats schema and here means "bucket first use".
+        Masked and unmasked calls count apart (the mask-free one keeps the
+        two-stage kernel path live)."""
+        if (bucket, masked) not in self._seen:
+            self._seen.add((bucket, masked))
             self.stats.bucket(bucket).compiles += 1
-            fn = functools.partial(vggt_mod.forward, self.cfg)
-            self._fns[key] = fn
-        return fn
 
     # ---- request path ----------------------------------------------------
 
@@ -244,14 +240,12 @@ class VGGTEngine:
                 mask_parts.append(torch.ones((slack, frames, bucket.patches), dtype=torch.bool,
                                              device=self.device))
         x = torch.cat(parts, dim=0)
-        fn = self._bucket_fn(bucket, masked)
+        self._note_first_use(bucket, masked)
 
         t0 = time.perf_counter()
         with torch.inference_mode():
-            if masked:
-                out = fn(params, x, patch_mask=torch.cat(mask_parts, dim=0))
-            else:
-                out = fn(params, x)
+            mask = torch.cat(mask_parts, dim=0) if masked else None
+            out = vggt_mod.forward(self.cfg, params, x, patch_mask=mask)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0

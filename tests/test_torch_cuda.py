@@ -70,7 +70,7 @@ def test_quant_matmul_rejects_bad_k(dev):
         (2, 4, 4, 42, 42, 32, False),
         (1, 4, 4, 200, 200, 64, True),
         (1, 4, 2, 130, 130, 64, False),
-        (1, 4, 1, 77, 77, 128, True),
+        (1, 4, 1, 77, 77, 64, True),
         (1, 2, 2, 40, 2100, 64, False),
     ],
 )

@@ -75,13 +75,13 @@ def test_scene_batch_matches_reference():
 
 
 def test_bucket_cache_reuse():
-    """An already-seen (batch, frames, patches) bucket adds no new entry to
-    the function cache."""
+    """An already-seen (batch, frames, patches) bucket is reused: it counts
+    no new first use (the ``compiles`` field of the shared stats schema)."""
     eng = _engine(batch_buckets=(2, 4))
     eng.infer(_scenes(2, seed=0))
-    assert eng.stats.compiles == 1 and len(eng._fns) == 1
+    assert eng.stats.compiles == 1 and len(eng.stats.buckets) == 1
     eng.infer(_scenes(2, seed=1))  # same bucket -> reused
-    assert eng.stats.compiles == 1 and len(eng._fns) == 1 and eng.stats.calls == 2
+    assert eng.stats.compiles == 1 and len(eng.stats.buckets) == 1 and eng.stats.calls == 2
     eng.infer(_scenes(3, seed=2))  # pads into b4
     eng.infer(_scenes(4, seed=3))
     assert eng.stats.compiles == 2
