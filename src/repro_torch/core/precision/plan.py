@@ -82,9 +82,11 @@ class PrecisionPlan:
     ``kernels/quant_matmul`` integer kernel instead of the float emulation
     (the kernel is the hot path).
 
-    ``fuse`` turns on the unified-datapath kernel fusion of the reference
-    (``kernels/fused``); its kernels are not ported yet, so
-    ``core.model_quant.quantize_vggt`` refuses a plan with ``fuse=True``.
+    ``fuse`` turns on the unified-datapath kernel fusion
+    (``kernels/fused``): dense FFN triples collapse to one launch per
+    layer, Q/K/V merge into one prologue-carrying site that absorbs the
+    pre-norm, and output projections run their IDCT/bias epilogue
+    in-kernel.  Fusion implies kernel routing at the fused sites.
     """
 
     default: str = "w4a8"

@@ -11,12 +11,13 @@
 * **Per-head rotations**: V/O projections carry an offline per-head
   Hadamard pair; Q and K get an online per-head WHT (scores invariant).
 
+* **Unified datapath** (§IV-B): ``Prologue``/``Epilogue`` descriptors on
+  a ``QuantLinear`` and the ``FusedFFN`` layer run the surrounding
+  nonlinear work inside one kernel launch (``kernels/fused``), or, off
+  the kernel path, as an emulation in the same op order.
+
 Conventions (orthonormal, block-diagonal): rotated residual x' = x·H;
 DCT-domain output ŷ = y·Dᵀ, so the online IDCT is ŷ·D.
-
-The unified-datapath fusion (``Prologue``/``Epilogue``/``FusedFFN`` and
-their kernels) is not ported yet: :func:`apply_linear` raises
-``NotImplementedError`` on any layer type it does not handle.
 """
 from __future__ import annotations
 
@@ -28,14 +29,20 @@ import torch
 from repro_torch.core import transforms
 from repro_torch.core.quantize import QTensor, quantize_per_token, quantize_weight
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.fused import act_rows as _act_fn
 
 __all__ = [
     "QuantPolicy",
     "QuantLinear",
+    "Prologue",
+    "Epilogue",
+    "FusedFFN",
     "Norm",
     "FoldedNorm",
     "apply_linear",
+    "apply_ffn",
     "apply_norm",
+    "carries_norm",
     "folded_norm_stats",
     "prepare_linear",
     "prepare_linear_fp",
@@ -82,6 +89,32 @@ W4A4 = QuantPolicy(4, 4, "versaq")
 
 
 @dataclasses.dataclass(frozen=True)
+class Prologue:
+    """Unified-datapath prologue descriptor: fold the preceding norm's
+    *statistics* into the site's kernel launch.  The norm runs in
+    FoldedNorm semantics (γ/β already live in the weights); an ``ln``
+    prologue needs the mean-recovery vector in ``QuantLinear.norm_u``.  The
+    site's ``rotate_input`` WHT and the activation quantization always
+    join the fused pass."""
+
+    norm: Optional[str] = None  # None | rms | ln
+    eps: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """Unified-datapath epilogue descriptor: nonlinear work emitted inside
+    the kernel after the IDCT/bias the site already carries — activation,
+    blocked WHT toward the next consumer, and optional re-quantization to
+    INT8/INT4 (per-token scales), which makes the kernel emit integer
+    activations directly."""
+
+    act: str = "none"  # none | gelu | silu
+    wht: bool = False
+    requant_bits: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class QuantLinear:
     """A quantized linear layer in the VersaQ flow.
 
@@ -89,8 +122,11 @@ class QuantLinear:
     the online ops the layer still needs: ``rotate_input`` (blocked WHT on
     x before quantizing), ``idct`` (block IDCT on the output),
     ``use_kernel`` (route the integer matmul through the CUDA kernel
-    instead of the float emulation).  The reference's fusion descriptors
-    (``prologue``, ``epilogue``, ``norm_u``) come with the fused datapath.
+    instead of the float emulation).  ``prologue``/``epilogue`` are the
+    unified-datapath descriptors: with ``use_kernel`` they route the site
+    through the one-launch ``kernels.ops.fused_linear``; without it the
+    same op order runs as the emulation.  ``norm_u`` carries the LayerNorm
+    mean-recovery vector of an ``ln`` prologue.
     """
 
     qw: QTensor
@@ -100,6 +136,9 @@ class QuantLinear:
     idct: bool = False
     dct_block: int = DCT_BLOCK
     use_kernel: bool = False
+    prologue: Optional[Prologue] = None
+    epilogue: Optional[Epilogue] = None
+    norm_u: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +163,29 @@ class FoldedNorm:
     kind: str = "rms"
     u: Optional[torch.Tensor] = None  # Hᵀ1/d for LayerNorm mean recovery
     eps: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedFFN:
+    """A whole (optionally gated) FFN layer on the unified datapath: one
+    kernel launch runs norm prologue → shared activation quantization →
+    gate/up integer matmuls → ``act(g)·u`` → hidden WHT → re-quantization →
+    down integer matmul → IDCT/biases.
+
+    ``norm`` (rms|ln) means the layer *absorbs* its pre-norm: the model
+    code passes the raw residual stream and skips the external
+    ``apply_norm`` (see :func:`carries_norm`).  ``w_gate`` is None for
+    plain FFNs.  When the member sites are not kernel-routed the same op
+    order runs as the emulation.
+    """
+
+    w_up: QuantLinear
+    w_down: QuantLinear
+    w_gate: Optional[QuantLinear] = None
+    norm_u: Optional[torch.Tensor] = None
+    act: str = "gelu"
+    norm: Optional[str] = None
+    norm_eps: float = 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +226,16 @@ def folded_norm_stats(
     return (xf - mu * u * d) * torch.rsqrt(var + eps)
 
 
+def carries_norm(p: Any) -> bool:
+    """True when a fused site absorbs its pre-norm (the layer code must
+    pass the raw residual stream and skip the external ``apply_norm``)."""
+    if isinstance(p, FusedFFN):
+        return p.norm is not None
+    if isinstance(p, dict) and "wqkv" in p:
+        p = p["wqkv"]
+    return isinstance(p, QuantLinear) and p.prologue is not None and p.prologue.norm is not None
+
+
 def _kernel_ready(p: QuantLinear) -> bool:
     return p.use_kernel and p.qw.bits <= 8 and p.a_bits <= 8
 
@@ -172,14 +244,26 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
     """Dispatching linear: plain {"w", "b"} dict or QuantLinear.
 
     A QuantLinear quantizes activations per token at its own ``a_bits``
-    and runs the integer matmul on its own weight format — through the
-    CUDA kernel (``kernels.ops.quant_linear_matmul``) when ``use_kernel``
-    is set, else through the float emulation.  Any other layer type (the
-    reference's fused ``FusedFFN``/descriptor-carrying sites) is not ported
-    yet and raises ``NotImplementedError``.
+    and runs the integer matmul on its own weight format.  ``use_kernel``
+    sites go to the CUDA kernels: a site with ``prologue``/``epilogue``
+    descriptors to the one-launch ``kernels.ops.fused_linear``, any other
+    to ``kernels.ops.quant_linear_matmul``.  Otherwise the float emulation
+    runs the same op order.  A requant epilogue returns a ``QTensor`` and
+    must be called through ``fused_linear`` directly.
     """
     if isinstance(p, QuantLinear):
         dtype = x.dtype
+        fused = p.prologue is not None or p.epilogue is not None
+        if p.epilogue is not None and p.epilogue.requant_bits is not None:
+            raise ValueError(
+                "requant epilogues return QTensors — call kernels.ops.fused_linear directly"
+            )
+        if fused and _kernel_ready(p):
+            return kernel_ops.fused_linear(x, p).to(dtype)
+        if p.prologue is not None and p.prologue.norm is not None:
+            x = folded_norm_stats(
+                x.to(torch.float32), p.prologue.norm, p.norm_u, p.prologue.eps
+            ).to(dtype)
         if p.rotate_input:
             x = online_wht(x)
         if _kernel_ready(p):
@@ -191,6 +275,10 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
             y = transforms.apply_blocked(y, d, p.dct_block)  # ŷ·D cancels offline ·Dᵀ
         if p.bias is not None:
             y = y + p.bias.to(torch.float32)
+        if p.epilogue is not None:  # emulation twin of the kernel epilogue
+            y = _act_fn(y, p.epilogue.act)
+            if p.epilogue.wht:
+                y = online_wht(y)
         return y.to(dtype)
     if not isinstance(p, dict):
         raise NotImplementedError(f"{type(p).__name__} layers are not ported yet")
@@ -198,6 +286,23 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
     if p.get("b") is not None:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def apply_ffn(f: FusedFFN, x: torch.Tensor) -> torch.Tensor:
+    """Apply a :class:`FusedFFN`: one kernel launch when every member site
+    is kernel-routed, else the emulation in the same op order."""
+    dtype = x.dtype
+    members = (f.w_up, f.w_down) + (() if f.w_gate is None else (f.w_gate,))
+    if all(_kernel_ready(ql) for ql in members):
+        return kernel_ops.fused_ffn_apply(x, f).to(dtype)
+    if f.norm is not None:
+        x = folded_norm_stats(x.to(torch.float32), f.norm, f.norm_u, f.norm_eps).to(dtype)
+    u = apply_linear(f.w_up, x)
+    if f.w_gate is not None:
+        h = _act_fn(apply_linear(f.w_gate, x), f.act) * u
+    else:
+        h = _act_fn(u, f.act)
+    return apply_linear(f.w_down, h.to(dtype)).to(dtype)
 
 
 def apply_norm(p: Any, x: torch.Tensor) -> torch.Tensor:
@@ -304,6 +409,9 @@ def prepare_linear(
     head_rot_out: tuple[int, int] | None = None,
     in_block: int | None = None,
     use_kernel: bool = False,
+    prologue: Optional[Prologue] = None,
+    epilogue: Optional[Epilogue] = None,
+    norm_u: Optional[torch.Tensor] = None,
 ) -> QuantLinear:
     """Fuse transforms into a [in, out] weight and quantize (Eq. 7).
 
@@ -316,6 +424,8 @@ def prepare_linear(
     rotated residual domain); the bias is rotated to match.
     ``head_rot_in``/``head_rot_out``: (n_heads, head_dim) per-head Hadamard.
     ``use_kernel``: route this site's matmul through the CUDA kernel.
+    ``prologue``/``epilogue``/``norm_u``: unified-datapath descriptors
+    carried onto the prepared layer (see :class:`QuantLinear`).
     """
     w, b, has_bias = _fuse_weight(
         w,
@@ -340,6 +450,9 @@ def prepare_linear(
         rotate_input=policy.use_wht and rotate_input_online,
         idct=idct,
         use_kernel=use_kernel,
+        prologue=prologue,
+        epilogue=epilogue,
+        norm_u=norm_u,
     )
 
 

@@ -15,7 +15,8 @@
 //
 // Design.  One 256-thread block computes one 128x128 output tile and loops
 // over K in steps of 64 (the TPU's cross-grid-step VMEM accumulator becomes
-// this in-block loop; blocks run in any order).  Eight warps, 4 along M by 2
+// this in-block loop; blocks run in any order).  The tile staging, with the
+// nibble unpacking, is mma_s8.cuh's load_tile/store_tile.  Eight warps, 4 along M by 2
 // along N, each own a 32x64 sub-tile held as int32 accumulators in
 // registers and issue mma.sync.m16n8k32 s8.s8.s32.  The next K step's tiles
 // are fetched into registers while the current one is multiplied (register
@@ -34,88 +35,10 @@
 namespace {
 
 constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;        // K columns (original K index) per step
-constexpr int THREADS = 256;  // 8 warps: 4 (M) x 2 (N), 32x64 each
-constexpr int LDS = BK + 16;  // smem row stride in bytes: conflict-free fragment reads
-
-template <bool PACKED>
-struct Stage {
-  int4 a[2];        // two 16-byte activation chunks
-  uint32_t b[PACKED ? 4 : 8];  // weight words (4 per 4x4 unit)
-};
-
-template <bool PACKED>
-__device__ __forceinline__ void load_stage(Stage<PACKED>& st, const int8_t* __restrict__ xv,
-                                           const uint8_t* __restrict__ wv, int M, int N,
-                                           int K, int m0, int n0, int step, int tid) {
-  // activations: 128 rows x 4 chunks of 16 bytes = 512 chunks, 2 per thread
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * THREADS;
-    const int row = c >> 2, kc = c & 3;
-    int col;
-    bool ok = (m0 + row) < M;
-    if (PACKED) {
-      const int p = step * 32 + (kc & 1) * 16;
-      col = (kc < 2 ? 0 : K / 2) + p;
-      ok = ok && p < K / 2;
-    } else {
-      col = step * BK + kc * 16;
-      ok = ok && col < K;
-    }
-    st.a[i] = ok ? *reinterpret_cast<const int4*>(xv + (size_t)(m0 + row) * K + col)
-                 : make_int4(0, 0, 0, 0);
-  }
-  // weights: 4x4-byte units; lanes run along N (coalesced), then along K
-  const int units = PACKED ? 1 : 2;  // (32 or 64 rows / 4) x (128 / 4) units / 256
-#pragma unroll
-  for (int u = 0; u < units; ++u) {
-    const int id = tid + u * THREADS;
-    const int nq = id & 31, kq = id >> 5;
-    const int n = n0 + 4 * nq;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = (PACKED ? step * 32 : step * BK) + 4 * kq + r;
-      const int kmax = PACKED ? K / 2 : K;
-      st.b[u * 4 + r] = (k < kmax && n < N)
-                            ? *reinterpret_cast<const uint32_t*>(wv + (size_t)k * N + n)
-                            : 0u;
-    }
-  }
-}
-
-template <bool PACKED>
-__device__ __forceinline__ void store_stage(Stage<PACKED>& st, int8_t* As, int8_t* Bs, int tid) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * THREADS;
-    const int row = c >> 2, kc = c & 3;
-    *reinterpret_cast<int4*>(As + row * LDS + kc * 16) = st.a[i];
-  }
-  const int units = PACKED ? 1 : 2;
-#pragma unroll
-  for (int u = 0; u < units; ++u) {
-    const int id = tid + u * THREADS;
-    const int nq = id & 31, kq = id >> 5;
-    uint32_t w[4] = {st.b[u * 4], st.b[u * 4 + 1], st.b[u * 4 + 2], st.b[u * 4 + 3]};
-    vq::transpose4x4_bytes(w);  // w[j] = 4 consecutive K rows of column 4nq+j
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int8_t* dst = Bs + (4 * nq + j) * LDS;
-      if (PACKED) {
-        // low nibble -> local k 4kq..4kq+3, high nibble -> 32 + 4kq..;
-        // per-byte sign extension: ((v ^ 8) - 8) without cross-byte borrow
-        const uint32_t lo = __vsub4((w[j] & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-        const uint32_t hi = __vsub4(((w[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-        *reinterpret_cast<uint32_t*>(dst + 4 * kq) = lo;
-        *reinterpret_cast<uint32_t*>(dst + 32 + 4 * kq) = hi;
-      } else {
-        *reinterpret_cast<uint32_t*>(dst + 4 * kq) = w[j];
-      }
-    }
-  }
-}
+constexpr int BN = vq::TILE_BN;
+constexpr int BK = vq::TILE_BK;          // K columns (original K index) per step
+constexpr int THREADS = vq::TILE_THREADS;  // 8 warps: 4 (M) x 2 (N), 32x64 each
+constexpr int LDS = vq::TILE_LDS;        // smem row stride in bytes
 
 template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
@@ -139,13 +62,14 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
 
-  Stage<PACKED> st;
-  load_stage<PACKED>(st, xv, wv, M, N, K, m0, n0, 0, tid);
+  const int8_t* A = xv + (size_t)m0 * K;
+  vq::TileStage<PACKED, BM> st;
+  vq::load_tile<PACKED, BM>(st, A, M - m0, K, wv, N, n0, 0, tid);
   for (int step = 0; step < steps; ++step) {
     __syncthreads();  // previous step's fragments are consumed
-    store_stage<PACKED>(st, As, Bs, tid);
+    vq::store_tile<PACKED, BM>(st, As, Bs, tid);
     __syncthreads();
-    if (step + 1 < steps) load_stage<PACKED>(st, xv, wv, M, N, K, m0, n0, step + 1, tid);
+    if (step + 1 < steps) vq::load_tile<PACKED, BM>(st, A, M - m0, K, wv, N, n0, step + 1, tid);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
       uint32_t a[2][4];

@@ -4,6 +4,10 @@
   PE array; ``csrc/quant_matmul.cu``)
 - two_stage_attention.py: paper Alg. 1, stats pass + recompute pass in one
   launch (``csrc/two_stage_attention.cu``)
+- fused.py: the unified datapath (§IV-B) — ``fused_matmul``, ``fused_ffn``
+  and ``norm_quant`` (``csrc/fused_matmul.cu``, ``fused_ffn.cu``,
+  ``norm_quant.cu``, sharing ``csrc/fused_rows.cuh``)
+- wht.py: blocked Walsh-Hadamard transform (``csrc/wht.cu``)
 
 Each module holds its kernel's wrapper and its plain PyTorch version;
 ``ops.py`` holds the public wrappers, ``_build.py`` the nvcc build, and

@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quant_matmul", "two_stage_attention")
+SOURCES = ("quant_matmul", "two_stage_attention", "fused_matmul", "fused_ffn", "norm_quant", "wht")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

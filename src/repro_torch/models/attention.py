@@ -6,6 +6,10 @@ Per the paper's Stage-2 flow: Q/K get an online per-head WHT when the
 layer is quantized (scores invariant, distributions smoothed); V carries
 an offline per-head Hadamard folded into W_v/W_o.
 
+A fused tree (``PrecisionPlan(fuse=True)``) carries one ``wqkv`` site
+whose kernel launch absorbs the pre-norm and quantizes the input once for
+all three projections.
+
 Routing follows the reference exactly:
 
 * quantized layers with ``attn_impl="two_stage"`` (and
@@ -180,10 +184,20 @@ def gqa_attention(
         raise NotImplementedError("qk-norm and RoPE are not ported yet (VGGT uses neither)")
     b, lq, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    quantized = isinstance(p["wq"], QuantLinear)
-    q = L.dense(p["wq"], x).reshape(b, lq, h, dh)
-    k = L.dense(p["wk"], x).reshape(b, lq, hkv, dh)
-    v = L.dense(p["wv"], x).reshape(b, lq, hkv, dh)
+    if "wqkv" in p:
+        # unified datapath: one launch runs the absorbed pre-norm (the
+        # caller passed the raw stream — see ``core.versaq.carries_norm``),
+        # the shared per-token quantization and all three projections
+        quantized = isinstance(p["wqkv"], QuantLinear)
+        q, k, v = torch.split(L.dense(p["wqkv"], x), [h * dh, hkv * dh, hkv * dh], dim=-1)
+        q = q.reshape(b, lq, h, dh)
+        k = k.reshape(b, lq, hkv, dh)
+        v = v.reshape(b, lq, hkv, dh)
+    else:
+        quantized = isinstance(p["wq"], QuantLinear)
+        q = L.dense(p["wq"], x).reshape(b, lq, h, dh)
+        k = L.dense(p["wk"], x).reshape(b, lq, hkv, dh)
+        v = L.dense(p["wv"], x).reshape(b, lq, hkv, dh)
     if quantized:
         # paper Stage 2: online per-head WHT on Q/K (scores invariant);
         # V arrives per-head-rotated from the offline W_v fusion

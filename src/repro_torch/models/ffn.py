@@ -1,12 +1,14 @@
 """Dense feed-forward mixers (port of ``repro/models/ffn.py``: dense GLU and
-GELU FFNs; the MoE path is not ported)."""
+GELU FFNs, and the unified datapath's ``FusedFFN``; the MoE path is not
+ported)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.versaq import FusedFFN, apply_ffn, carries_norm
 from repro_torch.models import layers as L
 
-__all__ = ["init_dense_ffn", "dense_ffn"]
+__all__ = ["init_dense_ffn", "dense_ffn", "carries_norm"]
 
 
 def init_dense_ffn(
@@ -25,7 +27,12 @@ def init_dense_ffn(
     }
 
 
-def dense_ffn(p: dict, act: str, x: torch.Tensor) -> torch.Tensor:
+def dense_ffn(p, act: str, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, FusedFFN):
+        # unified datapath: the whole layer (with the norm prologue when
+        # ``carries_norm(p)`` — the caller passes the raw stream) is one
+        # kernel launch; see core/versaq.apply_ffn
+        return apply_ffn(p, x)
     if "w_gate" in p:
         g = L.dense(p["w_gate"], x)
         u = L.dense(p["w_up"], x)

@@ -78,10 +78,11 @@ def init_params(
 
 
 def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_mask=None) -> torch.Tensor:
-    h = L.norm(p["attn_norm"], x)
+    # fused sites absorb their pre-norm (unified-datapath prologue)
+    h = x if F.carries_norm(p["attn"]) else L.norm(p["attn_norm"], x)
     out = A.gqa_attention(p["attn"], cfg, h, causal=False, mode="full", kv_mask=kv_mask)
     x = x + out * p["ls1"].to(out.dtype) if "ls1" in p else x + out
-    h = L.norm(p["ffn_norm"], x)
+    h = x if F.carries_norm(p["ffn"]) else L.norm(p["ffn_norm"], x)
     out = F.dense_ffn(p["ffn"], cfg.act, h)
     x = x + out * p["ls2"].to(out.dtype) if "ls2" in p else x + out
     return x

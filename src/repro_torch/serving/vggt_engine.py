@@ -12,10 +12,13 @@ quantized fast path (port of ``repro/serving/vggt_engine.py``).
   ``flush``.  Results are split back per request, padding sliced off.
 * **Quantized fast path** — ``policy=PrecisionPlan(default="w4a8",
   use_kernel=True)`` serves ``quantize_vggt`` weights with every
-  projection on the ``quant_matmul`` CUDA kernel; ``attn_impl=
-  "two_stage"`` sends unmasked attention through the two-stage kernel.
-  Masked (patch-padded) buckets take the float emulation, as in the
-  reference.
+  projection on the ``quant_matmul`` CUDA kernel; with ``fuse=True`` the
+  unified datapath runs instead: per block one ``fused_matmul`` launch for
+  Q/K/V (LayerNorm absorbed), one for ``wo``, one ``fused_ffn`` for the
+  FFN.  ``attn_impl="two_stage"`` sends unmasked attention through the
+  two-stage kernel.  Masked (patch-padded) buckets take the float
+  attention emulation, as in the reference; their projections still run
+  the kernels.
 * **Quarantine** — a request whose outputs are non-finite fails alone
   with ``NumericFault``; co-batched requests are delivered.
 

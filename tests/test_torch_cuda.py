@@ -94,3 +94,195 @@ def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal):
         qq.values, qq.scale, kq.values, kq.scale, vv, vsq, causal=causal, **gqa
     )
     torch.testing.assert_close(got.reshape(b * h, lq, dh), want, rtol=3e-4, atol=3e-4)
+
+
+# ---------------------------------------------------------------------------
+# unified datapath: fused_matmul, fused_ffn, norm_quant, wht
+# ---------------------------------------------------------------------------
+#
+# Kernel and plain version quantize the same float values, but their sums
+# (norm statistics, the H_128 factor, the IDCT) run in different orders,
+# so an int8 value sitting within an ulp of a rounding boundary may differ
+# by one step (about 1 in 1e5 entries).  Int8 outputs are held to ±1 on at
+# most 0.1% of the entries.  One flipped input entry moves its output row
+# by ~1e-3 relative, so float outputs fed by an in-kernel quantization are
+# held to rel L2 1e-3 against the plain version; against the plain version
+# fed the kernel's own int8 input (norm_quant runs the same device code as
+# fused_matmul's prologue) they are held to 1e-5.
+
+
+def _rel(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30)).item()
+
+
+def _assert_q_close(got, want, what):
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(d.max()) <= 1, what
+    assert int((d > 0).sum()) <= max(2, d.numel() // 1000), (what, int((d > 0).sum()))
+
+
+from repro_torch.core import versaq as tvq  # noqa: E402
+from repro_torch.kernels import fused as fz  # noqa: E402
+from repro_torch.kernels import wht as whtk  # noqa: E402
+
+# (m, k, n, w_bits, a_bits, norm, pro_wht, act, epi_wht, requant, idct, bias, prequant)
+_FM_CASES = [
+    (13, 128, 192, 8, 8, "rms", True, "none", False, None, True, True, False),
+    (130, 256, 256, 4, 8, "ln", True, "gelu", False, None, True, True, False),
+    (77, 128, 256, 4, 4, None, False, "silu", True, 4, False, True, False),
+    (200, 128, 132, 8, 8, None, False, "none", False, None, False, False, True),
+    (33, 512, 512, 4, 8, "ln", True, "gelu", True, 8, True, False, False),
+    (300, 1024, 3072, 4, 8, "ln", True, "none", False, None, True, True, False),
+    (129, 4096, 1024, 4, 8, None, False, "none", False, None, True, True, True),
+]
+
+
+@pytest.mark.parametrize("case", _FM_CASES)
+def test_fused_matmul_matches_plain(dev, case):
+    m, k, n, wb, ab, norm, pwht, act, ewht, rq, idct, has_bias, preq = case
+    rng = np.random.default_rng(m + k + n)
+    x = _normal(rng, (m, k), dev)
+    w = _normal(rng, (k, n), dev) / np.sqrt(k)
+    wq = quantize_weight(w, wb)
+    bias = _normal(rng, (n,), dev) if has_bias else None
+    u = tvq.make_folded_norm("ln", k, device=dev).u if norm == "ln" else None
+    kw = dict(packed=wq.packed, a_bits=ab, norm_kind=norm, pro_wht_block=k if pwht else None,
+              act=act, epi_wht_block=n if ewht else None, requant_bits=rq,
+              dct_block=64 if idct else None)
+    xs = None
+    if preq:
+        xq = quantize_per_token(x, ab)
+        x, xs = xq.values, xq.scale
+        kw.update(norm_kind=None, pro_wht_block=None)
+    args = (x, wq.values, wq.scale.reshape(1, -1), xs, bias, u)
+    with probe.tracking() as log:
+        got = fz.fused_matmul(*args, **kw)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"fused_matmul": 1}
+    want = fz.fused_matmul_plain(*args, **kw)
+    if rq is None:
+        assert got.shape == (m, n) and _rel(got, want) < (1e-5 if preq else 1e-3), _rel(got, want)
+        if not preq:
+            q, s = fz.norm_quant(x, u, norm_kind=norm, wht_block=kw["pro_wht_block"], a_bits=ab)
+            exact = fz.fused_matmul_plain(q, *args[1:3], s, bias, **{**kw, "norm_kind": None})
+            assert _rel(got, exact) < 1e-5, _rel(got, exact)
+    else:
+        _assert_q_close(got[0], want[0], "requant values")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+
+
+# (m, d, dff, w_bits, a_bits, gated, norm, pro_wht, idct, bias)
+_FFN_CASES = [
+    (29, 128, 256, 4, 8, False, "ln", False, True, True),
+    (32, 128, 256, 8, 8, True, "rms", False, True, False),
+    (77, 128, 256, 4, 4, True, None, True, False, False),
+    (300, 1024, 4096, 4, 8, False, "ln", False, True, True),
+]
+
+
+@pytest.mark.parametrize("case", _FFN_CASES)
+def test_fused_ffn_matches_plain(dev, case):
+    m, d, dff, wb, ab, gated, norm, pwht, idct, has_bias = case
+    rng = np.random.default_rng(m + d + dff)
+    x = _normal(rng, (m, d), dev)
+    wu = quantize_weight(_normal(rng, (d, dff), dev) / np.sqrt(d), wb)
+    wd = quantize_weight(_normal(rng, (dff, d), dev) / np.sqrt(dff), wb)
+    wg = quantize_weight(_normal(rng, (d, dff), dev) / np.sqrt(d), wb) if gated else None
+    bu = _normal(rng, (dff,), dev) if has_bias else None
+    bd = _normal(rng, (d,), dev) if has_bias else None
+    u = tvq.make_folded_norm("ln", d, device=dev).u if norm == "ln" else None
+    args = (x, wu.values, wu.scale.reshape(1, -1), wd.values, wd.scale.reshape(1, -1),
+            None if wg is None else wg.values, None if wg is None else wg.scale.reshape(1, -1),
+            None, bu, bd, u)
+    kw = dict(packed_g=gated and wg.packed, packed_u=wu.packed, packed_d=wd.packed,
+              a_bits_in=ab, a_bits_mid=ab, norm_kind=norm, act="silu" if gated else "gelu",
+              pro_wht_block=d if pwht else None, mid_wht_block=dff, idct_h=idct,
+              idct_out=idct, dct_block=64 if idct else None)
+    with probe.tracking() as log:
+        got = fz.fused_ffn(*args, **kw)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"fused_ffn": 1}
+    want = fz.fused_ffn_plain(*args, **kw)
+    # a ±1 flip of one requantized hidden entry moves its row by ~1e-3
+    assert got.shape == (m, d) and _rel(got, want) < 1e-3, _rel(got, want)
+
+
+@pytest.mark.parametrize("norm", [None, "rms", "ln"])
+@pytest.mark.parametrize("bits,wht,m,d", [(8, True, 21, 256), (4, True, 130, 1024),
+                                          (8, False, 7, 96)])
+def test_norm_quant_matches_plain(dev, norm, bits, wht, m, d):
+    x = _normal(np.random.default_rng(m + d), (m, d), dev)
+    u = tvq.make_folded_norm("ln", d, device=dev).u if norm == "ln" else None
+    kw = dict(norm_kind=norm, wht_block=d if wht else None, a_bits=bits)
+    with probe.tracking() as log:
+        q, s = fz.norm_quant(x, u, **kw)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"norm_quant": 1}
+    wq, ws = fz.norm_quant_plain(x, u, **kw)
+    _assert_q_close(q, wq, "norm_quant values")
+    torch.testing.assert_close(s, ws, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("r,d,block", [(5, 64, None), (37, 256, None), (300, 4096, None),
+                                       (64, 1024, 128), (3, 12, 4)])
+def test_wht_matches_plain(dev, r, d, block):
+    x = _normal(np.random.default_rng(r + d), (r, d), dev)
+    with probe.tracking() as log:
+        got = whtk.wht(x, block=block)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"wht": 1}
+    want = whtk.wht_plain(x, block=block)
+    assert _rel(got, want) < 1e-6, _rel(got, want)
+
+
+def test_fused_ops_wrappers_launch_kernels(dev):
+    """The ops wrappers on CUDA tensors: a norm_quant prologue shared by a
+    pre-quantized fused_linear, and online_wht_2d."""
+    rng = np.random.default_rng(3)
+    x = _normal(rng, (4, 9, 128), dev)
+    ql = tvq.prepare_linear(_normal(rng, (128, 64), dev), tvq.QuantPolicy(8, 8, "rtn"),
+                            use_kernel=True, epilogue=tvq.Epilogue())
+    with probe.tracking() as log:
+        qt = ops.norm_quant_prologue(x, norm="rms", a_bits=8)
+        y = ops.fused_linear(qt, ql)
+        r = ops.online_wht_2d(x)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"norm_quant": 1, "fused_matmul": 1, "wht": 1}
+    assert y.shape == (4, 9, 64) and r.shape == x.shape
+    want = tvq.apply_linear(
+        tvq.QuantLinear(qw=ql.qw), tvq.folded_norm_stats(x, "rms", None, 1e-6))
+    assert _rel(y, want) < 1e-5
+
+
+def test_fused_engine_serves_masked_bucket(dev, monkeypatch):
+    """A patch-padded (masked) bucket under the fused plan: the projections
+    and FFNs still launch their kernels, only the attention takes the
+    emulation.  Held against a plain-version forward of the same padded,
+    masked batch; the bound admits the rare ±1 rounding flips between
+    kernel and plain version that two AA pairs at LayerScale 0.2 amplify
+    (see REL_L2_FUSED in tests/test_torch_vggt.py)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision.plan import PrecisionPlan
+    from repro_torch.models import vggt
+    from repro_torch.serving.vggt_engine import VGGTEngine
+
+    cfg = get_config("vggt-1b-smoke").with_(layerscale_init=0.2)
+    params = vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    eng = VGGTEngine(cfg, params, policy=PrecisionPlan(default="w4a8", fuse=True),
+                     attn_impl="two_stage", batch_buckets=(2,), max_batch=2, pad_patches=True,
+                     device=dev)
+    scenes = _normal(np.random.default_rng(9), (2, 2, 20, cfg.d_model), dev)
+    with probe.tracking() as log:
+        got = eng.infer(scenes)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"fused_matmul": 8, "fused_ffn": 4}
+    padded = torch.nn.functional.pad(scenes, (0, 0, 0, 12))
+    mask = torch.zeros(padded.shape[:3], dtype=torch.bool, device=dev)
+    mask[:, :, :20] = True
+    for name in ("fused_matmul", "fused_ffn"):
+        monkeypatch.setattr(fz, name, getattr(fz, f"{name}_plain"))
+    with torch.inference_mode():
+        want = vggt.forward(eng.cfg, eng.params, padded, patch_mask=mask)
+    for k in ("pose", "points", "depth"):
+        w = want[k] if k == "pose" else want[k][:, :, :20]
+        assert torch.isfinite(got[k]).all() and _rel(got[k], w) < 5e-2, (k, _rel(got[k], w))

@@ -1,9 +1,11 @@
 """VGGT end to end, PyTorch port vs the JAX package, at ``vggt-1b-smoke``:
 weight bridge, ``quantize_vggt`` leaf parity, forward parity (fp, W4A8
-with the flash emulation, and the slice's plan —
-``PrecisionPlan(default="w4a8", use_kernel=True)`` with two-stage
-attention — through the kernels' plain versions on the CPU and the Pallas
-kernels in interpret mode on the JAX side), and the kernel routing.
+with the flash emulation, the unfused plan
+``PrecisionPlan(default="w4a8", use_kernel=True)`` and the fused plan
+``PrecisionPlan(default="w4a8", use_kernel=True, fuse=True)``, with
+two-stage attention — through the kernels' plain versions on the CPU and
+the Pallas kernels in interpret mode on the JAX side), and the kernel
+routing.
 
 LayerScale is raised to 0.2 (the config's 1e-5 would let the attention
 blocks barely move the outputs, and the parity would not test them).
@@ -42,6 +44,15 @@ REL_L2 = 1e-3
 # and the two AA pairs amplify that one ±1 step to 6.5e-3 on the masked
 # scene's pose.
 REL_L2_MASKED = 1e-2
+# The fused plan's bound.  Its plain versions follow the Pallas kernel
+# bodies, whose H_128 dot (inside the blocked WHT) and LayerNorm sums XLA
+# and PyTorch add up in different orders; the ~1e-7 differences flip about
+# one in 2e5 per-token activation roundings by one step (a few per
+# forward), and two AA pairs at LayerScale 0.2 amplify one flip up to ~2e-2
+# on the 9-value pose (seed 0: flash 1.9e-2 on pose and 2.7e-3 on
+# points/depth, two-stage and masked 5e-7; seeds 0-3 at most 1.9e-2).  A
+# layout or fold error moves every output by O(1).
+REL_L2_FUSED = 5e-2
 # ±1 rounding flips allowed in the quantized integer weights (0 observed at
 # this seed; the bound leaves room for summation-order noise across
 # backends without admitting a real layout or fold error, which flips far
@@ -70,7 +81,9 @@ def _setup():
 def _policies(name):
     if name == "w4a8":
         return jvq.W4A8, tvq.W4A8
-    return JPlan(default="w4a8", use_kernel=True), PrecisionPlan(default="w4a8", use_kernel=True)
+    fuse = name == "fused"
+    return (JPlan(default="w4a8", use_kernel=True, fuse=fuse),
+            PrecisionPlan(default="w4a8", use_kernel=True, fuse=fuse))
 
 
 def _scenes(b=1, s=2, p=16, seed=0):
@@ -99,11 +112,23 @@ def test_convert_round_trip():
     assert tp["blocks"]["frame"]["attn"]["wq"]["w"].shape == (2, 128, 128)  # stacked groups
 
 
+def _desc(d):
+    return None if d is None else dataclasses.asdict(d)
+
+
 def _compare_trees(jt, tt, path, flips):
-    if isinstance(jt, jvq.QuantLinear):
+    if isinstance(jt, jvq.FusedFFN):
+        assert isinstance(tt, tvq.FusedFFN), path
+        assert (jt.act, jt.norm, jt.norm_eps) == (tt.act, tt.norm, tt.norm_eps), path
+        for f in ("w_up", "w_down", "w_gate", "norm_u"):
+            _compare_trees(getattr(jt, f), getattr(tt, f), f"{path}.{f}", flips)
+    elif isinstance(jt, jvq.QuantLinear):
         assert isinstance(tt, tvq.QuantLinear), path
         for f in ("a_bits", "rotate_input", "idct", "dct_block", "use_kernel"):
             assert getattr(jt, f) == getattr(tt, f), (path, f)
+        assert _desc(jt.prologue) == _desc(tt.prologue), path
+        assert _desc(jt.epilogue) == _desc(tt.epilogue), path
+        _compare_trees(jt.norm_u, tt.norm_u, path + ".norm_u", flips)
         jq, tq = jt.qw, tt.qw
         assert (jq.bits, jq.packed, jq.pack_axis) == (tq.bits, tq.packed, tq.pack_axis), path
         jv, tv = torch.as_tensor(np.asarray(jq.values)), tq.values
@@ -134,29 +159,50 @@ def _compare_trees(jt, tt, path, flips):
         np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-5, err_msg=path)
 
 
-@pytest.mark.parametrize("policy", ["w4a8", "plan"])
+@pytest.mark.parametrize("policy", ["w4a8", "plan", "fused"])
 def test_quantize_vggt_leaf_parity(policy):
     """Every leaf of the quantized tree: integers equal except ±1 flips
     (at most MAX_INT_FLIPS in the whole tree), scales and biases to 1e-5,
-    static flags equal."""
+    static flags and fusion descriptors equal."""
     jcfg, cfg, jp, tp = _setup()
     jpol, tpol = _policies(policy)
     flips = []
     _compare_trees(j_quantize_vggt(jcfg, jp, jpol), quantize_vggt(cfg, tp, tpol), "q", flips)
-    assert len(flips) == 2 * 6  # frame + global blocks, 6 projection sites each
+    # frame + global blocks: 6 projection sites each, or wqkv, wo, w_up, w_down fused
+    assert len(flips) == 2 * (4 if policy == "fused" else 6)
     assert sum(flips) <= MAX_INT_FLIPS, flips
 
 
-def test_fused_plan_refused():
+@pytest.mark.parametrize("fuse", [True, False])
+def test_fused_tree_structure(fuse):
+    """``fuse=True`` merges Q/K/V into one kernel-routed ``wqkv`` that
+    absorbs the LayerNorm (``ln`` prologue + stacked ``norm_u``), gives
+    ``wo`` an in-kernel epilogue and turns each FFN into a ``FusedFFN``
+    with ``norm="ln"`` — ``fuse`` alone implies kernel routing."""
     _, cfg, _, tp = _setup()
-    with pytest.raises(NotImplementedError):
-        quantize_vggt(cfg, tp, PrecisionPlan(default="w4a8", fuse=True))
+    qp = quantize_vggt(cfg, tp, PrecisionPlan(default="w4a8", fuse=fuse))
+    for blk in ("frame", "global"):
+        at, ff = qp["blocks"][blk]["attn"], qp["blocks"][blk]["ffn"]
+        assert ("wqkv" in at) == fuse and ("wq" in at) != fuse
+        assert tvq.carries_norm(at) == fuse and tvq.carries_norm(ff) == fuse
+        if not fuse:
+            assert at["wo"].epilogue is None and not at["wo"].use_kernel
+            continue
+        qkv = at["wqkv"]
+        assert qkv.use_kernel and qkv.prologue == tvq.Prologue(norm="ln")
+        assert qkv.epilogue == tvq.Epilogue() and qkv.qw.shape[-1] == 3 * cfg.d_model
+        assert qkv.norm_u.shape == (cfg.n_layers, cfg.d_model)
+        assert at["wo"].use_kernel and at["wo"].epilogue == tvq.Epilogue()
+        assert at["wo"].prologue is None
+        assert isinstance(ff, tvq.FusedFFN) and ff.norm == "ln" and ff.act == "gelu"
+        assert ff.w_gate is None and ff.w_down.rotate_input and ff.w_up.idct
 
 
 @pytest.mark.parametrize(
     "policy,impl,masked",
     [(None, "flash", False), ("w4a8", "flash", False), ("plan", "two_stage", False),
-     ("plan", "two_stage", True)],
+     ("plan", "two_stage", True), ("fused", "flash", False), ("fused", "two_stage", False),
+     ("fused", "two_stage", True)],
 )
 def test_forward_matches_reference(policy, impl, masked):
     jcfg, cfg, jp, tp = _setup()
@@ -176,24 +222,28 @@ def test_forward_matches_reference(policy, impl, masked):
     for k in ("pose", "points", "depth", "conf"):
         assert tuple(to[k].shape) == tuple(jo[k].shape), k
         assert torch.isfinite(to[k]).all(), k
-    bound = REL_L2_MASKED if masked else REL_L2
+    bound = REL_L2_FUSED if policy == "fused" else REL_L2_MASKED if masked else REL_L2
     for k in ("pose", "points", "depth"):
         assert _rel(to[k].numpy(), jo[k]) < bound, (k, _rel(to[k].numpy(), jo[k]))
 
 
 @pytest.mark.parametrize(
     "policy,impl,masked,want",
-    [("plan", "two_stage", False, (24, 4)), ("plan", "two_stage", True, (24, 0)),
-     ("plan", "flash", False, (24, 0)), ("w4a8", "two_stage", False, (0, 4))],
+    [("plan", "two_stage", False, (24, 4, 0, 0)), ("plan", "two_stage", True, (24, 0, 0, 0)),
+     ("plan", "flash", False, (24, 0, 0, 0)), ("w4a8", "two_stage", False, (0, 4, 0, 0)),
+     ("fused", "two_stage", False, (0, 4, 8, 4)), ("fused", "two_stage", True, (0, 0, 8, 4))],
 )
 def test_kernel_routing(monkeypatch, policy, impl, masked, want):
     """Which wrappers a forward reaches: 6 projections x 4 blocks go to
     quant_matmul only under use_kernel; the two-stage kernel runs once per
-    block only for unmasked two-stage attention on quantized layers."""
+    block only for unmasked two-stage attention on quantized layers; the
+    fused plan sends wqkv and wo (2 x 4 blocks) to fused_linear and each
+    FFN to fused_ffn_apply, masked or not, and nothing to quant_matmul."""
     _, cfg, _, tp = _setup()
     cfg = cfg.with_(attn_impl=impl)
     qp = quantize_vggt(cfg, tp, _policies(policy)[1])
-    calls = {"mm": 0, "attn": 0}
+    names = ("quant_linear_matmul", "two_stage_mha", "fused_linear", "fused_ffn_apply")
+    calls = dict.fromkeys(names, 0)
 
     def counting(name, fn):
         def wrapped(*a, **kw):
@@ -201,9 +251,26 @@ def test_kernel_routing(monkeypatch, policy, impl, masked, want):
             return fn(*a, **kw)
         return wrapped
 
-    monkeypatch.setattr(ops, "quant_linear_matmul", counting("mm", ops.quant_linear_matmul))
-    monkeypatch.setattr(ops, "two_stage_mha", counting("attn", ops.two_stage_mha))
+    for name in names:
+        monkeypatch.setattr(ops, name, counting(name, getattr(ops, name)))
     x = torch.as_tensor(_scenes())
     mask = torch.ones(x.shape[:3], dtype=torch.bool) if masked else None
     tvggt.forward(cfg, qp, x, patch_mask=mask)
-    assert (calls["mm"], calls["attn"]) == want
+    assert tuple(calls[n] for n in names) == want
+
+
+@pytest.mark.parametrize("impl", ["flash", "two_stage"])
+def test_fused_matches_unfused_forward(impl):
+    """The fused plan against the unfused plan on the same weights, both in
+    the port, with the reference's own config, input shape and bound for
+    this comparison (``vggt-1b-smoke`` at its own LayerScale, 1e-2;
+    ``tests/models/test_fused_model.py``): the two differ only in where
+    the WHT and the quantization round."""
+    jcfg = j_get_config("vggt-1b-smoke")
+    cfg = get_config("vggt-1b-smoke").with_(attn_impl=impl)
+    tp = vggt_params_from_numpy(flatten_jax(jvggt.init_params(jcfg, jax.random.PRNGKey(0))))
+    x = torch.as_tensor(_scenes(b=1, p=24))
+    got = tvggt.forward(cfg, quantize_vggt(cfg, tp, _policies("fused")[1]), x)
+    want = tvggt.forward(cfg, quantize_vggt(cfg, tp, _policies("plan")[1]), x)
+    for k in ("pose", "points", "depth", "tokens"):
+        assert _rel(got[k].numpy(), want[k].numpy()) < 1e-2, k

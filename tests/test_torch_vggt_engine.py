@@ -174,3 +174,40 @@ def test_matches_reference_engine():
             assert got.shape == want.shape
             rel = np.linalg.norm(got - want) / np.linalg.norm(want)
             assert rel < REL_L2, (k, rel)
+
+
+# The fused plan's bound: its plain versions follow the Pallas kernel
+# bodies, whose H_128 dot and LayerNorm sums XLA and PyTorch add in
+# different orders, so a rare per-token rounding may flip by one step
+# (see REL_L2_FUSED in tests/test_torch_vggt.py).  These requests show no
+# flip (at most 9e-7); the bound admits one, not a fold or layout error.
+REL_L2_FUSED = 5e-2
+
+
+@pytest.mark.parametrize("pad_patches", [False, True])
+def test_fused_plan_matches_reference_engine(pad_patches):
+    """The fused plan (``fuse=True``: wqkv with the absorbed LayerNorm, wo
+    and the whole FFN each one kernel launch) served by both engines on
+    the same requests; with ``pad_patches`` the bucket is patch-padded and
+    masked, so only the attention takes the emulation."""
+    jcfg, cfg, jp, tp = _fixture()
+    kw = dict(attn_impl="two_stage", batch_buckets=(2,), max_batch=2, pad_patches=pad_patches)
+    jeng = JVGGTEngine(jcfg, jp, policy=JPlan(default="w4a8", use_kernel=True, fuse=True), **kw)
+    teng = VGGTEngine(cfg, tp, policy=PrecisionPlan(default="w4a8", fuse=True), device="cpu",
+                      **kw)
+    assert "wqkv" in teng.params["blocks"]["frame"]["attn"]
+    patches = 20 if pad_patches else 24
+    requests = [_scenes(1, patches=patches, seed=s) for s in range(3)]
+    jreqs = [jeng.enqueue(jnp.asarray(x)) for x in requests]
+    treqs = [teng.enqueue(x) for x in requests]
+    jeng.flush()
+    teng.flush()
+    assert teng.stats.calls == jeng.stats.calls == 2
+    if pad_patches:
+        assert Bucket(2, 2, 32) in teng.stats.buckets
+    for jr, tr in zip(jreqs, treqs):
+        for k in ("pose", "points", "depth"):
+            got, want = tr.result()[k].numpy(), np.asarray(jr.result()[k])
+            assert got.shape == want.shape
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel < REL_L2_FUSED, (k, rel)
