@@ -19,18 +19,25 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
    ``torch.matmul`` with the blocked Hadamard);
 3. runs vggt-1b width with 2 AA pairs once with the kernels and once with
-   the plain versions, for the unfused W4A8 plan and for the fused one;
-4. serves vggt-1b at full width (random weights from seed 0) with the
-   unfused plan ``PrecisionPlan(default="w4a8", use_kernel=True)`` at
-   ``UNFUSED_PAIRS`` AA pairs, and checks 12 ``quant_matmul`` and 2
-   ``two_stage_attention`` launches per pair per forward;
-5. serves vggt-1b at full width and depth (24 AA pairs) with the fused plan
-   ``PrecisionPlan(default="w4a8", use_kernel=True, fuse=True)``: 96
-   ``fused_matmul``, 48 ``fused_ffn``, 48 ``two_stage_attention`` and 0
-   ``quant_matmul`` launches per forward, finite outputs, the first
-   micro-batch against a plain-version forward (rel L2 < 1e-3) and the
-   served outputs against the unfused plan's on the same weights (rel L2
-   < 1e-2);
+   the plain versions, for the unfused W4A8 plan and for the fused one, and
+   holds each block as in 5;
+4. serves vggt-1b at full width and depth (24 AA pairs, random weights from
+   seed 0) with the unfused plan ``PrecisionPlan(default="w4a8",
+   use_kernel=True)``: 288 ``quant_matmul`` and 48 ``two_stage_attention``
+   launches per forward;
+5. serves the same model with the fused plan ``PrecisionPlan(default="w4a8",
+   use_kernel=True, fuse=True)``: 96 ``fused_matmul``, 48 ``fused_ffn``, 48
+   ``two_stage_attention`` and 0 ``quant_matmul`` launches per forward,
+   finite outputs, the first micro-batch against a plain-version forward
+   (rel L2 < 1e-3) and the served outputs against the unfused plan's on the
+   same weights (rel L2 < 1e-2).  vggt-1b's LayerScale (1e-5) keeps each
+   block's part of those outputs small, and a larger one (0.2) lets the
+   random weights amplify last-bit differences to ~4e-2 on the pose at 2
+   pairs (those of the unfused path, whose matmul is bit-exact), so the
+   paths are also held block by block: every block's two residual branches
+   (attention and FFN, what the block adds to the stream), fed the stream
+   of that forward, against the plain versions (< 1e-3) and against the
+   other plan's block (< 1e-2), which no LayerScale hides or amplifies;
 6. drives ``ops.norm_quant_prologue`` into three pre-quantized
    ``ops.fused_linear`` launches sharing its output (Q/K/V), and
    ``ops.online_wht_2d`` on the FFN hidden's shape.
@@ -68,7 +75,11 @@ PEAK_BYTES = 3.35e12
 PEAK_SFU = 132 * 16 * 1.83e9
 
 S_FRAMES, N_PATCHES, BATCH = 8, 1024, 2
-UNFUSED_PAIRS = 24  # AA pairs of the unfused served path (full depth)
+# A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
+# log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
+# least work of the fused kernels' block IDCT.  Their dense 64x64 product
+# (128 per output) is the kernels' own cost, not the function's.
+IDCT_OPS = (64 // 2 * 6 + 3 * 64 // 2 * 6) / 64
 KERNELS = ("quant_matmul", "two_stage_attention", "fused_matmul", "fused_ffn", "norm_quant",
            "wht")
 
@@ -261,7 +272,7 @@ def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
     e = _Entry("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
                "src/repro/kernels/quant_matmul.py:151")
     for label, k, n, bits, per_pair in cases:
-        nper = per_pair * UNFUSED_PAIRS
+        nper = per_pair * cfg.n_layers
         xq = quantize_per_token(randn(m, k), 8)
         wq = quantize_weight(randn(k, n), bits)
         ws = wq.scale.reshape(1, -1).contiguous()
@@ -356,10 +367,10 @@ FLIP_SHARE = 1e-3
 
 def _fused_ops(m, k, n, *, prologue, idct, wht_block=None, act=False):
     """f32 operations (and special-function results) of one fused linear:
-    the IDCT's 2*64 per output, the prologue's ~5 per input element plus
-    the WHT's log2(block) adds, 3 per output for scale and bias, and the
-    activation's ~8 plus one tanh/exp per output."""
-    f32 = m * n * (3 + (128 if idct else 0) + (8 if act else 0))
+    the IDCT's ``IDCT_OPS`` per output, the prologue's ~5 per input element
+    plus the WHT's log2(block) adds, 3 per output for scale and bias, and
+    the activation's ~8 plus one tanh/exp per output."""
+    f32 = m * n * (3 + (IDCT_OPS if idct else 0) + (8 if act else 0))
     if prologue:
         f32 += m * k * (5 + (math.log2(wht_block) if wht_block else 0))
     return f32, (m * n if act else 0)
@@ -474,6 +485,9 @@ def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
         rel = _rel(torch, got, want)
         _check(rel < 1e-3, f"fused_ffn {label}: rel L2 {rel}")
         del got, want
+        per_sm = fz._blocks_per_sm("fused_ffn", dev, dd, ff, 1)
+        grid = fz.grid_for(dev, -(-mm // fz.BM), per_sm)
+        scratch = grid * fz.BM * (4 * ff + max(dd, ff)) / 1e6
         ms = _time_ms(torch, lambda: fz.fused_ffn(*args, **kw))
         plain = _time_ms(torch, lambda: fz.fused_ffn_plain(*args, **kw), reps=3, warmup=1)
         wbytes = sum(w.values.numel() for w in (wu, wd, wg) if w is not None)
@@ -481,13 +495,14 @@ def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
         mats = 3 if gated else 2
         int8 = 2.0 * mm * dd * ff * (mats - 1) + 2.0 * mm * ff * dd
         f32 = (mm * dd * (5 + (math.log2(dd) if pwht else 0))  # prologue
-               + mm * ff * (mats - 1) * (3 + 128)  # gate/up: scale, IDCT, bias
+               + mm * ff * (mats - 1) * (3 + IDCT_OPS)  # gate/up: scale, IDCT, bias
                + mm * ff * (8 + math.log2(hblock) + 2 + 3)  # act, hidden WHT, requant
-               + mm * dd * (3 + 128))  # down: scale, IDCT, bias
+               + mm * dd * (3 + IDCT_OPS))  # down: scale, IDCT, bias
         bound, by = _bound_ms(nbytes, int8, sfu=mm * ff, f32_ops=f32)
         print(f"fused_ffn {label:12s} M={mm} D={dd} d_ff={ff} W{wb}A{ab} gated={gated} "
               f"norm={norm} input_wht={pwht}: err={err:.3g} rel={rel:.3g} kernel={ms:.4f}ms "
-              f"plain={plain:.4f}ms bound={bound:.4f}ms ({by}) x{nper}/forward")
+              f"plain={plain:.4f}ms bound={bound:.4f}ms ({by}) x{nper}/forward; grid {grid} "
+              f"blocks ({per_sm}/SM), scratch {scratch:.1f} MB")
         e.add(err, nper, ms, plain, bound, by)
     return e.done()
 
@@ -616,9 +631,10 @@ def phase_model(torch, dev) -> None:
     x = _scenes(torch, dev, BATCH, step=100)
     want_launches = {False: {"quant_matmul": 24, "two_stage_attention": 4},
                      True: {"fused_matmul": 8, "fused_ffn": 4, "two_stage_attention": 4}}
+    trees = {}
     for fused in (False, True):
         with torch.inference_mode():
-            qp = quantize_vggt(cfg, params, _plan(fused))
+            qp = trees[fused] = quantize_vggt(cfg, params, _plan(fused))
             with probe.tracking() as log:
                 got = vggt.forward(cfg, qp, x)
             torch.cuda.synchronize()
@@ -634,7 +650,8 @@ def phase_model(torch, dev) -> None:
         print(f"model (vggt-1b width, 2 AA pairs, {BATCH}x{S_FRAMES}x{N_PATCHES}, fused={fused}): "
               f"kernels vs plain rel L2 {rel}; forward kernels={ms:.2f}ms plain={plain:.2f}ms")
         _check(all(v < 1e-3 for v in rel.values()), f"model kernels vs plain: {rel}")
-        del qp
+        check_blocks(torch, cfg, qp, x, f"model fused={fused}",
+                     other=trees[False] if fused else None)
 
 
 # ---------------------------------------------------------------------------
@@ -644,6 +661,7 @@ def phase_model(torch, dev) -> None:
 
 def phase_serve(torch, dev, *, fused: bool, compare: dict | None = None) -> dict:
     from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_vggt
     from repro_torch.kernels import probe
     from repro_torch.models import vggt
     from repro_torch.serving.vggt_engine import VGGTEngine
@@ -652,16 +670,12 @@ def phase_serve(torch, dev, *, fused: bool, compare: dict | None = None) -> dict
     gc.collect()  # an earlier engine (a reference cycle through its queue) must not count
     torch.cuda.empty_cache()
     cfg = get_config("vggt-1b")
-    if not fused:
-        cfg = cfg.with_(n_layers=UNFUSED_PAIRS)
-    params = vggt.init_params(get_config("vggt-1b"), torch.Generator(device=dev).manual_seed(0))
-    if cfg.n_layers != get_config("vggt-1b").n_layers:  # the first pairs of the same weights
-        from repro_torch.tree import tree_map
 
-        params = dict(params, blocks=tree_map(lambda a: a[: cfg.n_layers], params["blocks"]))
-    eng = VGGTEngine(cfg, params, policy=_plan(fused), attn_impl="two_stage", max_batch=BATCH,
+    def weights():  # vggt-1b's random weights, the same for both plans
+        return vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+
+    eng = VGGTEngine(cfg, weights(), policy=_plan(fused), attn_impl="two_stage", max_batch=BATCH,
                      device="cuda")
-    del params
     t0 = time.perf_counter()
     served = eng.params  # quantize once, before the measured requests
     torch.cuda.synchronize()
@@ -704,26 +718,97 @@ def phase_serve(torch, dev, *, fused: bool, compare: dict | None = None) -> dict
     print(eng.stats.format())
 
     # the first micro-batch against a plain-version forward of the same weights
+    first = torch.cat(requests[:2], dim=0)
     with torch.inference_mode(), _PlainKernels():
-        plain = vggt.forward(eng.cfg, served, torch.cat(requests[:2], dim=0))
+        plain = vggt.forward(eng.cfg, served, first)
     got = {k: torch.cat([outs[0][k], outs[1][k]], dim=0) for k in ("pose", "points", "depth")}
     rel = _rel_l2(torch, got, plain)
     print(f"{tag}: served vs plain-version forward ({pairs} AA pairs) rel L2 {rel}")
     _check(all(v < 1e-3 for v in rel.values()), f"{tag}: served vs plain forward: {rel}")
     _check(all(math.isfinite(v) for v in rel.values()), "non-finite comparison")
     del plain
-    if compare is not None and compare["pairs"] == pairs:
+    other = None
+    if compare is not None:
         rels = [_rel_l2(torch, o, c) for o, c in zip(outs, compare["outs"])]
         worst = {k: max(r[k] for r in rels) for k in rels[0]}
         print(f"{tag}: fused vs unfused plan on the same weights, worst request rel L2 {worst}")
         _check(all(v < 1e-2 for v in worst.values()), f"fused vs unfused: {worst}")
-    elif compare is not None:
-        print(f"{tag}: unfused path ran {compare['pairs']} pairs; fused vs unfused not compared")
+        with torch.inference_mode():  # made after the measured run, so its peak memory holds
+            other = quantize_vggt(eng.cfg, weights(), _plan(False))
+    check_blocks(torch, eng.cfg, served, first, tag, other=other)
+    del other
     batches = [torch.cat(requests[i:i + BATCH], dim=0) for i in range(0, len(requests), BATCH)]
     inplace = profile_forwards(torch, [lambda x=x: vggt.forward(eng.cfg, served, x)
                                        for x in batches])
-    return {"counts": counts, "runs": calls, "inplace": inplace, "pairs": pairs,
+    return {"counts": counts, "runs": calls, "inplace": inplace,
             "outs": [{k: o[k] for k in ("pose", "points", "depth")} for o in outs]}
+
+
+def _branches(torch, block, p, cfg, x, kv_mask):
+    """The two residual branches ``block`` (``vggt._block``) adds to the
+    stream ``x`` (the attention output and the FFN output, LayerScale
+    folded in), and the block's output."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import ffn as F
+
+    outs, attn, ffn = [], A.gqa_attention, F.dense_ffn
+
+    def keep(fn):
+        def run(*a, **kw):
+            outs.append(fn(*a, **kw))
+            return outs[-1]
+        return run
+
+    A.gqa_attention, F.dense_ffn = keep(attn), keep(ffn)
+    try:
+        y = block(p, cfg, x, kv_mask=kv_mask)
+    finally:
+        A.gqa_attention, F.dense_ffn = attn, ffn
+    return outs, y
+
+
+def check_blocks(torch, cfg, served, x, tag, other=None) -> None:
+    """One forward of ``served`` on ``x``; at every block, its residual
+    branches with the kernels against the same block with the plain
+    versions (rel L2 < 1e-3) and, given ``other`` (the other plan's tree on
+    the same weights), against that plan's block (< 1e-2), all fed the
+    stream this forward reaches the block with.  A branch's relative error
+    does not shrink with LayerScale, so a wrong block fails here."""
+    from repro_torch.models import vggt
+    from repro_torch.tree import tree_index
+
+    block, calls = vggt._block, []
+    worst = {"plain": [0.0, 0.0], "other": [0.0, 0.0]}
+
+    def checked(p, cfg_, xin, kv_mask=None):
+        i = len(calls)
+        calls.append(i)
+        got, y = _branches(torch, block, p, cfg_, xin, kv_mask)
+        with _PlainKernels():
+            want, _ = _branches(torch, block, p, cfg_, xin, kv_mask)
+        refs = {"plain": want}
+        if other is not None:
+            op = tree_index(other["blocks"], i // 2)["frame" if i % 2 == 0 else "global"]
+            refs["other"], _ = _branches(torch, block, op, cfg_, xin, kv_mask)
+        for name, ref in refs.items():
+            for j in (0, 1):
+                worst[name][j] = max(worst[name][j], _rel(torch, got[j], ref[j]))
+        return y
+
+    vggt._block = checked
+    try:
+        with torch.inference_mode():
+            vggt.forward(cfg, served, x)
+    finally:
+        vggt._block = block
+    _check(len(calls) == 2 * cfg.n_layers, f"{tag}: {len(calls)} blocks checked")
+    print(f"{tag}: per-block residual branches over {len(calls)} blocks, worst rel L2 "
+          f"(attention, FFN): kernels vs plain {worst['plain']}"
+          + ("" if other is None else f", vs the other plan {worst['other']}"))
+    _check(max(worst["plain"]) < 1e-3, f"{tag}: a block's branch vs plain: {worst['plain']}")
+    if other is not None:
+        _check(max(worst["other"]) < 1e-2, f"{tag}: a block's branch vs the other plan: "
+               f"{worst['other']}")
 
 
 def profile_forwards(torch, fwds) -> dict[str, float]:

@@ -13,8 +13,10 @@
 // requantization need the whole d_ff-wide row, and 64 rows of it in f32
 // (1 MiB) are far beyond a block's 227 KB of shared memory.  The TPU
 // kernel held them in VMEM.  Here each 256-thread block walks over 64-row
-// M tiles (a persistent grid, at most a few blocks per SM) and owns a
-// scratch slice of device memory sized by the grid, not by M:
+// M tiles (a persistent grid: at most as many blocks as the SMs hold at
+// once, vq_fused_ffn_blocks_per_sm x SMs; the 144 KB of shared memory at
+// d_ff = 4096 leave one per SM) and owns a scratch slice of device memory
+// sized by that grid, not by M:
 //   1. prologue rows (fused_rows.cuh::prologue_row) -> int8 input + scale;
 //   2. for each 128-column tile of d_ff: gate and up projections
 //      (fused_rows.cuh::ft_project: int8 mma.sync, dequant, IDCT, bias),
@@ -22,17 +24,25 @@
 //   3. one warp per hidden row: WHT + requantization -> int8 hidden (over
 //      the now dead int8 input) + scale;
 //   4. the down projection of the int8 hidden, IDCT, bias -> output.
-// One launch per FFN layer and no [M, d_ff] tensor; the hidden stage is
-// the same code as fused_matmul's full-row epilogue, the down stage the
-// same as its pre-quantized input path.
+// One launch per FFN layer; the hidden stage is the same code as
+// fused_matmul's full-row epilogue, the down stage the same as its
+// pre-quantized input path.  The scratch does not fit in L2: at vggt-1b
+// 132 blocks x 64 rows x 4096 f32 are 138 MB (+ 35 MB of int8) against the
+// 50 MB L2, so the f32 hidden goes through HBM once each way, an
+// [M, d_ff] round trip in all but layout.  16-row tiles, or a 2-CTA
+// cluster splitting the row over distributed shared memory, would keep it
+// on chip; that is later work.
 //
 // What bounds it.  At vggt-1b (M = 16464, D = 1024, d_ff = 4096, W4, ln,
-// plain GELU): the three IDCTs (up over 4096 columns, down over 1024) take
-// 2*M*64*(4096+1024) = 10.8 GFLOP of f32, ~0.16 ms at 67 TFLOP/s; the two
-// int8 matmuls 2*2*M*1024*4096 = 276 GOP, 0.14 ms at 1,979 TOP/s; the
-// bytes (x and out in f32, 4 MiB of weights) 0.04 ms.  The f32 IDCT bounds
-// it.  The f32 hidden round trip through the scratch slice (~540 MB when
-// it misses L2) is this version's own cost, not the function's.
+// plain GELU) the two int8 matmuls, 2*2*M*1024*4096 = 276 GOP, take
+// 0.140 ms at 1,979 TOP/s and bound it.  The three IDCTs (up over 4096
+// columns, down over 1024) are counted at a fast 64-point DCT's 12
+// operations per output, 1.0 GFLOP; with the activation, hidden WHT,
+// requantization and norm the f32 work is ~3 GFLOP, 0.045 ms at 67 TFLOP/s,
+// and the bytes (x and out in f32, 4 MiB of weights) 0.042 ms.  The dense
+// 64x64 IDCT this version runs (128 per output, 10.8 GFLOP, 0.16 ms) and
+// the hidden's HBM round trip (~540 MB, 0.16 ms) are its own costs, not
+// the function's.
 #include "fused_rows.cuh"
 
 namespace {
@@ -144,11 +154,19 @@ __global__ void __launch_bounds__(FT_THREADS) fused_ffn_kernel(Params p) {
 
 }  // namespace
 
+// Blocks of fused_ffn_kernel one SM holds at these widths (the row
+// buffers are max(D, F) floats wide).  Returns a cudaError_t.
+extern "C" int vq_fused_ffn_blocks_per_sm(int D, int F, int idct, int* blocks) {
+  int row_warps;
+  return ft_resident_blocks(fused_ffn_kernel, ft_smem_bytes(D > F ? D : F, idct != 0, &row_warps),
+                            blocks);
+}
+
 // C entry point (ctypes).  wg/wgs/bg are null for a plain FFN; u, biases
 // and dct null where unused.  Requires D, F % 16 == 0 (% 32 for packed
 // weights on that input), F, NO % 4 == 0 (% 64 with the IDCT) and 16-byte
 // aligned rows; the Python wrapper checks these and sizes the scratch for
-// `grid` blocks.  Returns cudaGetLastError().
+// `grid` blocks, at most the resident ones.  Returns cudaGetLastError().
 extern "C" int vq_fused_ffn(const void* x, const void* u, float eps, int norm, int pro_wht,
                             int a_in, const void* wg, const void* wgs, const void* bg,
                             const void* wu, const void* wus, const void* bu, const void* wd,

@@ -12,11 +12,12 @@
 //
 // Design.  The TPU kernel kept whole K and N panels resident in VMEM and
 // gridded over 256-row token tiles.  Here each 256-thread block walks over
-// 64-row M tiles (a persistent grid of at most a few blocks per SM):
+// 64-row M tiles (a persistent grid: one block per tile, at most as many
+// as the SMs hold at once, vq_fused_matmul_blocks_per_sm x SMs):
 //   1. prologue: one warp per row normalizes, rotates and quantizes the
 //      row in a shared-memory row buffer and writes int8 + scale to the
-//      block's own scratch slice in device memory (L2-resident: it is
-//      re-read at once by the same block);
+//      block's own scratch slice in device memory, which the same block
+//      re-reads at once;
 //   2. for each 128-column N tile: int8 mma.sync.m16n8k32 over K (packed
 //      nibbles sign-extended while staging, as in quant_matmul.cu), then
 //      the dequant scale into an f32 tile in shared memory, the 64x64 IDCT
@@ -25,15 +26,22 @@
 //   3. epilogues that need the whole output row (WHT, requantization)
 //      park the f32 row tile in the block's scratch slice and finish it in
 //      a second row pass; the rest store straight to the output.
-// The scratch is sized by the grid, not by M.  Ragged M and N are masked.
+// The scratch is sized by the grid, which is bounded by the SM count, not
+// by M: at wqkv (258 tiles) it is 258 x 64 x 1024 B = 17 MB of int8, within
+// the 50 MB L2 (whether it stays there is not measured).  Ragged M and N
+// are masked.
 //
 // What bounds it.  At vggt-1b's wqkv (M = 16464, K = 1024, N = 3072, W4,
-// ln prologue, IDCT, bias) the IDCT's 2*M*N*64 = 6.5 GFLOP of f32 take
-// ~0.10 ms at 67 TFLOP/s, above the f32 output's 202 MB (0.06 ms at
-// 3.35 TB/s) and the int8 matmul (0.05 ms): the f32 IDCT bounds it.  At
-// wo (N = 1024) it is ~0.03 ms of IDCT against ~0.03 ms of bytes.  This
-// first version runs the IDCT from shared memory with D in registers and
-// the matmul without a TMA/wgmma pipeline; both are later work.
+// ln prologue, IDCT, bias) the bytes bound it: the f32 input (67 MB) and
+// output (202 MB) take 0.081 ms at 3.35 TB/s, above the int8 matmul
+// (104 GOP, 0.052 ms at 1,979 TOP/s).  The IDCT is counted at a fast
+// 64-point DCT's cost (Chen/Loeffler: 192 multiplies and 576 adds per
+// block, 12 operations per output), 0.6 GFLOP; the dense 64x64 product this
+// version runs (128 per output, 6.5 GFLOP, 0.097 ms at 67 TFLOP/s) is its
+// own cost, not the function's.  At wo (N = 1024) the bytes bound it too,
+// 0.040 ms.  This first version runs the dense IDCT from shared memory
+// with D in registers and the matmul without a TMA/wgmma pipeline; a fast
+// IDCT and the pipeline are later work.
 #include "fused_rows.cuh"
 
 namespace {
@@ -135,13 +143,28 @@ __global__ void __launch_bounds__(FT_THREADS) fused_matmul_kernel(Params p) {
   }
 }
 
+// Dynamic shared memory of one block: the row buffers are K floats wide,
+// or N for a full-row epilogue over a wider output.
+int smem_bytes(int N, int K, bool fullrow, bool idct, int* row_warps) {
+  return ft_smem_bytes((fullrow && N > K) ? N : K, idct, row_warps);
+}
+
 }  // namespace
+
+// Blocks of fused_matmul_kernel one SM holds at these widths.  Returns a
+// cudaError_t.
+extern "C" int vq_fused_matmul_blocks_per_sm(int N, int K, int fullrow, int idct, int* blocks) {
+  int row_warps;
+  return ft_resident_blocks(fused_matmul_kernel,
+                            smem_bytes(N, K, fullrow != 0, idct != 0, &row_warps), blocks);
+}
 
 // C entry point (ctypes).  x is null for a pre-quantized input (xq, xs);
 // u, bias, dct, out / out_q+out_s and sh are null where unused.  Requires
 // K % 16 == 0 (W8) or K % 32 == 0 (W4), N % 4 == 0, N % 64 == 0 with idct,
 // and 16-byte aligned rows; the Python wrapper checks these and sizes the
-// scratch for `grid` blocks.  Returns cudaGetLastError().
+// scratch for `grid` blocks, at most the resident ones.  Returns
+// cudaGetLastError().
 extern "C" int vq_fused_matmul(const void* x, const void* xq, const void* xs, const void* u,
                                float eps, int norm, int pro_wht, int a_bits, const void* w,
                                const void* ws, int packed, const void* bias, const void* dct,
@@ -175,9 +198,7 @@ extern "C" int vq_fused_matmul(const void* x, const void* xq, const void* xs, co
   p.M = M;
   p.N = N;
   p.K = K;
-  const bool fullrow = epi_wht > 0 || requant > 0;
-  const int row_w = (fullrow && N > K) ? N : K;
-  const int smem = ft_smem_bytes(row_w, idct != 0, &p.row_warps);
+  const int smem = smem_bytes(N, K, epi_wht > 0 || requant > 0, idct != 0, &p.row_warps);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(fused_matmul_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -391,4 +391,17 @@ inline int ft_smem_bytes(int row_w, bool idct, int* row_warps) {
   return fixed + (rows > FT_GEMM_SMEM ? rows : FT_GEMM_SMEM);
 }
 
+// Opt `kernel` in to `smem` bytes of dynamic shared memory and write how
+// many of its blocks one SM holds at once to *blocks.  The wrappers size
+// the persistent grid, and with it the scratch, by this number times the
+// SM count.  Returns a cudaError_t.
+template <typename Kernel>
+inline int ft_resident_blocks(Kernel kernel, int smem, int* blocks) {
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, FT_THREADS, smem));
+}
+
 }  // namespace vq

@@ -56,7 +56,6 @@ __all__ = [
 LANE = 128
 BM = 64  # rows per M tile of the CUDA kernels (csrc/fused_rows.cuh FT_BM)
 DCT_BLOCK = 64  # the only IDCT block the CUDA kernels take
-BLOCKS_PER_SM = 2  # persistent grid: at most this many blocks per SM
 _NORMS = {None: 0, "rms": 1, "ln": 2}
 _ACTS = {"none": 0, "gelu": 1, "silu": 2}
 
@@ -208,10 +207,25 @@ def _dct_on(device: torch.device) -> torch.Tensor:
     return transforms.dct_matrix(DCT_BLOCK, device=device).contiguous()
 
 
-def grid_for(device: torch.device, tiles: int, per_sm: int = BLOCKS_PER_SM) -> int:
+def grid_for(device: torch.device, tiles: int, per_sm: int) -> int:
     """Blocks of a persistent launch: one per tile, at most ``per_sm`` per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(tiles, per_sm * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(kernel: str, device: torch.device, *widths: int) -> int:
+    """Blocks of ``kernel`` one SM holds at once at these widths (its
+    shared memory and registers decide), from ``vq_<kernel>_blocks_per_sm``."""
+    fn = getattr(_build.load(kernel), f"vq_{kernel}_blocks_per_sm")
+    fn.argtypes = [_I] * len(widths) + [ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    blocks = _I(0)
+    with torch.cuda.device(device):
+        rc = fn(*widths, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"{kernel}: no block fits on an SM (cudaError {rc})")
+    return blocks.value
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -339,7 +353,8 @@ def fused_matmul(x: torch.Tensor, wv: torch.Tensor, ws: torch.Tensor, xs=None, b
     else:
         out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m > 0:
-        grid = grid_for(dev, -(-m // BM))
+        per_sm = _blocks_per_sm("fused_matmul", dev, n, k, int(fullrow), int(dct is not None))
+        grid = grid_for(dev, -(-m // BM), per_sm)
         sq = torch.empty(grid * BM * k, dtype=torch.int8, device=dev)
         ss = torch.empty(grid * BM, dtype=torch.float32, device=dev)
         sh = torch.empty(grid * BM * n if fullrow else 4, dtype=torch.float32, device=dev)
@@ -369,9 +384,10 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
     unrotated-stream flows) → per-token A-quant shared by gate/up →
     gate/up integer matmuls (+IDCT +bias) → ``act(g)·u`` (or ``act(u)``) →
     hidden blocked WHT → requantization at ``a_bits_mid`` → down integer
-    matmul (+IDCT +bias) → f32 [M, d_out].  No [M, d_ff] tensor is made:
-    the kernel keeps each 64-row hidden tile in a scratch slice sized by
-    its grid.
+    matmul (+IDCT +bias) → f32 [M, d_out].  Each block of the kernel keeps
+    its 64-row hidden tile in a scratch slice; the grid, and with it the
+    scratch, is at most the blocks the SMs hold at once (one per SM at
+    d_ff = 4096), whatever M is.
     """
     kw = dict(packed_g=packed_g, packed_u=packed_u, packed_d=packed_d, a_bits_in=a_bits_in,
               a_bits_mid=a_bits_mid, norm_kind=norm_kind, norm_eps=norm_eps, act=act,
@@ -402,7 +418,8 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
     out = torch.empty((m, n_out), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    grid = grid_for(dev, -(-m // BM))
+    per_sm = _blocks_per_sm("fused_ffn", dev, d, dff, int(dct is not None))
+    grid = grid_for(dev, -(-m // BM), per_sm)
     sq = torch.empty(grid * BM * max(d, dff), dtype=torch.int8, device=dev)
     ss = torch.empty(grid * 2 * BM, dtype=torch.float32, device=dev)
     sh = torch.empty(grid * BM * dff, dtype=torch.float32, device=dev)

@@ -258,9 +258,8 @@ def test_fused_engine_serves_masked_bucket(dev, monkeypatch):
     """A patch-padded (masked) bucket under the fused plan: the projections
     and FFNs still launch their kernels, only the attention takes the
     emulation.  Held against a plain-version forward of the same padded,
-    masked batch; the bound admits the rare ±1 rounding flips between
-    kernel and plain version that two AA pairs at LayerScale 0.2 amplify
-    (see REL_L2_FUSED in tests/test_torch_vggt.py)."""
+    masked batch at 1e-3 (this batch reads ~4e-7: no kernel-vs-plain
+    rounding flip reaches the outputs)."""
     from repro_torch.configs import get_config
     from repro_torch.core.precision.plan import PrecisionPlan
     from repro_torch.models import vggt
@@ -285,4 +284,4 @@ def test_fused_engine_serves_masked_bucket(dev, monkeypatch):
         want = vggt.forward(eng.cfg, eng.params, padded, patch_mask=mask)
     for k in ("pose", "points", "depth"):
         w = want[k] if k == "pose" else want[k][:, :, :20]
-        assert torch.isfinite(got[k]).all() and _rel(got[k], w) < 5e-2, (k, _rel(got[k], w))
+        assert torch.isfinite(got[k]).all() and _rel(got[k], w) < 1e-3, (k, _rel(got[k], w))
