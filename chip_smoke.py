@@ -17,7 +17,10 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    FFN, ragged M, causal and GQA attention); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
-   ``torch.matmul`` with the blocked Hadamard);
+   ``torch.matmul`` with the blocked Hadamard); for the two-stage kernel
+   also its registers, shared memory per block and resident blocks per SM,
+   and how many of its int8 probabilities differ from the plain version's
+   (read back through a one-hot V);
 3. runs vggt-1b width with 2 AA pairs once with the kernels and once with
    the plain versions, for the unfused W4A8 plan and for the fused one, and
    holds each block as in 5;
@@ -296,6 +299,48 @@ def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
     return e.done()
 
 
+def _attention_attrs(dh: int) -> dict:
+    """The two-stage kernel's resources at head dim ``dh`` (its scale
+    1/sqrt(dh)), from ``vq_two_stage_attention_attrs``."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("two_stage_attention").vq_two_stage_attention_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn(dh, 1.0 / math.sqrt(dh), out)
+    _check(rc == 0, f"vq_two_stage_attention_attrs: cudaError {rc}")
+    return {"registers": out[0], "smem_per_block": out[1], "blocks_per_sm": out[2],
+            "spill_bytes": out[3]}
+
+
+def _pq_flips(torch, tsa, args) -> tuple[int, int]:
+    """Int8 probabilities ``pq`` of the kernel that differ from the plain
+    version's, over the first head of ``args`` (no GQA).  Head w of one
+    launch reads V = 127 on the diagonal of keys w*dh .. w*dh + dh - 1 and
+    0 elsewhere, with v_scale 1/127, so out[w, r, j] = pq[r, w*dh + j] /
+    (127 l_r): a pq that differs moves its entry by at least 1/127
+    relative, a different rounding of l by ~1e-6.  Returns (differing, all)."""
+    qv, qs, kv, ks = (a[:1] for a in args[:4])
+    lq, lk, dh = qv.shape[1], kv.shape[1], qv.shape[2]
+    nw = -(-lk // dh)
+    keys = torch.arange(lk, device=qv.device)
+    vv = torch.zeros((nw, lk, dh), dtype=torch.int8, device=qv.device)
+    vv[keys // dh, keys, keys % dh] = 127
+
+    def rep(x):
+        return x.expand(nw, *x.shape[1:]).contiguous()
+
+    a = (rep(qv), rep(qs), rep(kv), rep(ks), vv,
+         torch.full((nw, 1, 1), 1 / 127, device=qv.device))
+    got = tsa.two_stage_attention(*a)
+    want = tsa.two_stage_attention_plain(*a)
+    differ = (got - want).abs() > 1e-3 * torch.maximum(got.abs(), want.abs())
+    return int(differ.sum()), lq * lk
+
+
 def _kernel_attention(torch, cfg, randn) -> dict:
     import torch.nn.functional as F
 
@@ -310,6 +355,10 @@ def _kernel_attention(torch, cfg, randn) -> dict:
              ("causal check", 1, 4, 4, 300, True, 0), ("gqa check", 1, 8, 2, 500, False, 0)]
     e = _Entry("two_stage_attention", "src/repro_torch/csrc/two_stage_attention.cu",
                "src/repro/kernels/two_stage_attention.py:210")
+    attrs = _attention_attrs(dh)
+    e.d.update(attrs, pq_flips={})
+    res = (f"regs={attrs['registers']} smem/block={attrs['smem_per_block']}B "
+           f"blocks/SM={attrs['blocks_per_sm']} spill={attrs['spill_bytes']}B")
     for label, b, hq, hkv, length, causal, nper in cases:
         q, k_, v = randn(b * hq, length, dh), randn(b * hkv, length, dh), randn(b * hkv, length, dh)
         qq, kq = quantize_per_token(q, 8), quantize_per_token(k_, 8)
@@ -344,10 +393,13 @@ def _kernel_attention(torch, cfg, randn) -> dict:
             rel = ((ref - tsa.two_stage_attention(*args)).norm() / ref.norm()).item()
             print(f"  two-stage int8 vs bf16 SDPA rel L2 = {rel:.3g}")
             del qf, kf, vf, ref
+            flips, n = _pq_flips(torch, tsa, args)
+            e.d["pq_flips"][label] = [flips, n]
+            print(f"  pq flips vs plain (head 0): {flips} of {n}")
         print(f"two_stage_attention {label:12s} B={b} H={hq} Hkv={hkv} L={length} dh={dh} "
               f"causal={causal}: err={err:.3g} kernel={ms:.4f}ms plain={plain:.4f}ms "
               f"sdpa={'n/a' if lib is None else f'{lib:.4f}ms'} bound={bound:.4f}ms ({by}) "
-              f"x{nper}/forward")
+              f"x{nper}/forward; {res}")
         e.add(err, nper, ms, plain, bound, by, lib)
     return e.done()
 

@@ -1,15 +1,18 @@
 """Two-stage recomputation INT8 attention (paper Alg. 1).
 
-Port of ``repro/kernels/two_stage_attention.py``.  Stage ① streams K tiles
-against each Q tile and keeps only the softmax statistics ``m`` (row max)
-and ``l`` (row sum), Eq. 8-9; stage ② recomputes Q·Kᵀ with the final
-statistics, re-quantizes the probabilities to int8
+Port of ``repro/kernels/two_stage_attention.py``.  The reference's stage ①
+streams K tiles against each Q tile and keeps only the softmax statistics
+``m`` (row max) and ``l`` (row sum), Eq. 8-9; stage ② recomputes Q·Kᵀ with
+the final statistics, re-quantizes the probabilities to int8
 (``pq = round(127·exp(s−m))``, Alg. 1 line 11) and runs an int8 P·V, so
 every output tile is produced once with no rescaling (Eq. 10).
 
 The CUDA kernel (``csrc/two_stage_attention.cu``) runs both stages in one
-launch per call; its source note says what bounds it.  Conventions kept
-from the reference:
+launch per call and computes the same function with one exponential per
+score: its stage ① keeps only ``m``, and its stage ② forms
+``p = exp(s−m)`` once, adds it to ``l`` and rounds it into ``pq`` — as the
+plain version below does.  Its source note says what bounds it.
+Conventions kept from the reference:
 
 * scores dequantize as ``float(s_int) * qs * ks * scale`` in that order,
   with ``scale = 1/sqrt(dh)``;

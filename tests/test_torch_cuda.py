@@ -63,22 +63,39 @@ def test_quant_matmul_rejects_bad_k(dev):
         qm.quant_matmul(xq.values, xq.scale, wq.values, wq.scale, packed=False)
 
 
+# The kernel runs 128-row Q tiles over 64-key tiles and flushes its int32
+# P.V sums every 2048 keys (T_V): Lk 2049/4097 end just past a flush, Lq
+# 129/1029 and a single row leave a ragged Q tile, causal runs at Lq == Lk
+# (the convention the kernel and the plain version share), and an all-zero
+# query row scores 0 against every key, so its l is exactly Lk.
 @pytest.mark.parametrize(
-    "b,h,hkv,lq,lk,dh,causal",
+    "b,h,hkv,lq,lk,dh,causal,zero_row",
     [
-        (1, 2, 2, 64, 64, 64, False),
-        (2, 4, 4, 42, 42, 32, False),
-        (1, 4, 4, 200, 200, 64, True),
-        (1, 4, 2, 130, 130, 64, False),
-        (1, 4, 1, 77, 77, 64, True),
-        (1, 2, 2, 40, 2100, 64, False),
+        (1, 2, 2, 64, 64, 64, False, None),
+        (2, 4, 4, 42, 42, 32, False, None),
+        (1, 4, 4, 200, 200, 64, True, None),
+        (1, 4, 2, 130, 130, 64, False, None),
+        (1, 4, 1, 77, 77, 64, True, None),
+        (1, 2, 2, 40, 2100, 64, False, None),
+        (1, 2, 2, 129, 2049, 64, False, None),
+        (1, 2, 2, 129, 4097, 32, False, None),
+        (1, 2, 2, 1029, 1029, 64, False, None),
+        (1, 4, 4, 1, 300, 64, False, None),
+        (1, 4, 4, 1, 2049, 32, False, None),
+        (2, 4, 1, 129, 1029, 64, False, None),
+        (1, 2, 2, 1029, 1029, 64, True, None),
+        (1, 2, 2, 129, 129, 32, True, None),
+        (1, 2, 2, 130, 2100, 64, False, 5),
+        (1, 2, 2, 33, 4097, 32, False, 0),
     ],
 )
-def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal):
+def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal, zero_row):
     rng = np.random.default_rng(lq * 7 + lk + dh)
     q = _normal(rng, (b, h, lq, dh), dev)
     k = _normal(rng, (b, hkv, lk, dh), dev)
     v = _normal(rng, (b, hkv, lk, dh), dev)
+    if zero_row is not None:
+        q[:, :, zero_row] = 0
     with probe.tracking() as log:
         got = ops.two_stage_mha(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -93,7 +110,11 @@ def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal):
     want = tsa.two_stage_attention_plain(
         qq.values, qq.scale, kq.values, kq.scale, vv, vsq, causal=causal, **gqa
     )
-    torch.testing.assert_close(got.reshape(b * h, lq, dh), want, rtol=3e-4, atol=3e-4)
+    got = got.reshape(b * h, lq, dh)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    if zero_row is not None:  # p = 1 for every key: pq = 127, l = Lk
+        mean = vv.float().sum(dim=1).repeat_interleave(h // hkv, dim=0) / lk * vsq.reshape(-1, 1)
+        torch.testing.assert_close(got[:, zero_row], mean, rtol=1e-6, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------
