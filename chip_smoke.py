@@ -172,25 +172,6 @@ def summarize(kernels: dict[str, dict], paths: dict[str, dict]) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _time_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs; a 64 MB buffer is
-    rewritten before each run so no input stays in the 50 MB L2."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def _bound_ms(nbytes: float, int8_ops: float = 0.0, sfu: float = 0.0,
               f32_ops: float = 0.0) -> tuple[float, str]:
     """The least time for the work: bytes over HBM bandwidth against each
@@ -267,6 +248,7 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
 def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
     from repro_torch.core.quantize import quantize_per_token, quantize_weight, unpack_int4
     from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.measure import time_ms
 
     d, dff = cfg.d_model, cfg.d_ff
     # (label, K, N, w_bits, launches per AA pair and forward)
@@ -286,10 +268,10 @@ def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
         err = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)  # integer part is exact
         del got, want
-        ms = _time_ms(torch, lambda: qm.quant_matmul(*args, packed=wq.packed))
-        plain = _time_ms(torch, lambda: qm.quant_matmul_plain(*args, packed=wq.packed), reps=3)
+        ms = time_ms(lambda: qm.quant_matmul(*args, packed=wq.packed))
+        plain = time_ms(lambda: qm.quant_matmul_plain(*args, packed=wq.packed), reps=3)
         w_cm = (unpack_int4(wq.values, 0) if wq.packed else wq.values).t().contiguous().t()
-        lib = _time_ms(torch, lambda: torch._int_mm(xq.values, w_cm).float() * xq.scale * ws)
+        lib = time_ms(lambda: torch._int_mm(xq.values, w_cm).float() * xq.scale * ws)
         nbytes = m * k + 4 * m + wq.values.numel() + 4 * n + 4 * m * n
         bound, by = _bound_ms(nbytes, 2.0 * m * k * n)
         print(f"quant_matmul {label:12s} M={m} K={k} N={n} W{bits}: err={err:.3g} "
@@ -316,36 +298,11 @@ def _attention_attrs(dh: int) -> dict:
             "spill_bytes": out[3]}
 
 
-def _pq_flips(torch, tsa, args) -> tuple[int, int]:
-    """Int8 probabilities ``pq`` of the kernel that differ from the plain
-    version's, over the first head of ``args`` (no GQA).  Head w of one
-    launch reads V = 127 on the diagonal of keys w*dh .. w*dh + dh - 1 and
-    0 elsewhere, with v_scale 1/127, so out[w, r, j] = pq[r, w*dh + j] /
-    (127 l_r): a pq that differs moves its entry by at least 1/127
-    relative, a different rounding of l by ~1e-6.  Returns (differing, all)."""
-    qv, qs, kv, ks = (a[:1] for a in args[:4])
-    lq, lk, dh = qv.shape[1], kv.shape[1], qv.shape[2]
-    nw = -(-lk // dh)
-    keys = torch.arange(lk, device=qv.device)
-    vv = torch.zeros((nw, lk, dh), dtype=torch.int8, device=qv.device)
-    vv[keys // dh, keys, keys % dh] = 127
-
-    def rep(x):
-        return x.expand(nw, *x.shape[1:]).contiguous()
-
-    a = (rep(qv), rep(qs), rep(kv), rep(ks), vv,
-         torch.full((nw, 1, 1), 1 / 127, device=qv.device))
-    got = tsa.two_stage_attention(*a)
-    want = tsa.two_stage_attention_plain(*a)
-    differ = (got - want).abs() > 1e-3 * torch.maximum(got.abs(), want.abs())
-    return int(differ.sum()), lq * lk
-
-
 def _kernel_attention(torch, cfg, randn) -> dict:
     import torch.nn.functional as F
 
-    from repro_torch.core.quantize import quantize_per_token
     from repro_torch.kernels import two_stage_attention as tsa
+    from repro_torch.kernels.measure import attention_inputs, pq_flips, time_ms
 
     h, dh = cfg.n_heads, cfg.head_dim
     t = cfg.n_special_tokens + N_PATCHES
@@ -360,22 +317,16 @@ def _kernel_attention(torch, cfg, randn) -> dict:
     res = (f"regs={attrs['registers']} smem/block={attrs['smem_per_block']}B "
            f"blocks/SM={attrs['blocks_per_sm']} spill={attrs['spill_bytes']}B")
     for label, b, hq, hkv, length, causal, nper in cases:
-        q, k_, v = randn(b * hq, length, dh), randn(b * hkv, length, dh), randn(b * hkv, length, dh)
-        qq, kq = quantize_per_token(q, 8), quantize_per_token(k_, 8)
-        vscale = torch.clamp_min(v.abs().amax(dim=(1, 2), keepdim=True), 1e-8) / 127.0
-        vv = torch.round(v / vscale).clamp(-127, 127).to(torch.int8)
-        vsq = vscale.reshape(b, hkv).repeat_interleave(hq // hkv, dim=1).reshape(b * hq, 1, 1)
-        gqa = dict(q_heads=hq, kv_heads=hkv) if hq != hkv else {}
-        args = (qq.values, qq.scale, kq.values, kq.scale, vv, vsq.contiguous())
+        args, gqa, vscale = attention_inputs(randn, b, hq, hkv, length, dh)
         got = tsa.two_stage_attention(*args, causal=causal, **gqa)
         want = tsa.two_stage_attention_plain(*args, causal=causal, **gqa)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
         del got, want
-        ms = _time_ms(torch, lambda: tsa.two_stage_attention(*args, causal=causal, **gqa))
-        plain = _time_ms(torch, lambda: tsa.two_stage_attention_plain(*args, causal=causal, **gqa),
-                         reps=2, warmup=1)
+        ms = time_ms(lambda: tsa.two_stage_attention(*args, causal=causal, **gqa))
+        plain = time_ms(lambda: tsa.two_stage_attention_plain(*args, causal=causal, **gqa),
+                        reps=2, warmup=1)
         pairs = length * (length + 1) / 2 if causal else float(length) * length
         nbytes = (b * hq * length * (dh + 4) + 2 * b * hkv * length * dh + b * hkv * length * 4
                   + 4 * b * hq + 4 * b * hq * length * dh)
@@ -385,15 +336,15 @@ def _kernel_attention(torch, cfg, randn) -> dict:
         bound, by = _bound_ms(nbytes, 4.0 * b * hq * pairs * dh, sfu=1.0 * b * hq * pairs)
         lib = None
         if nper:  # the yardstick: bf16 SDPA on the dequantized tensors, made once
-            qf = (qq.values.float() * qq.scale).to(torch.bfloat16).view(b, hq, length, dh)
-            kf = (kq.values.float() * kq.scale).to(torch.bfloat16).view(b, hkv, length, dh)
-            vf = (vv.float() * vscale).to(torch.bfloat16).view(b, hkv, length, dh)
-            lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(qf, kf, vf))
+            qf = (args[0].float() * args[1]).to(torch.bfloat16).view(b, hq, length, dh)
+            kf = (args[2].float() * args[3]).to(torch.bfloat16).view(b, hkv, length, dh)
+            vf = (args[4].float() * vscale).to(torch.bfloat16).view(b, hkv, length, dh)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf))
             ref = F.scaled_dot_product_attention(qf, kf, vf).float().view(b * hq, length, dh)
             rel = ((ref - tsa.two_stage_attention(*args)).norm() / ref.norm()).item()
             print(f"  two-stage int8 vs bf16 SDPA rel L2 = {rel:.3g}")
             del qf, kf, vf, ref
-            flips, n = _pq_flips(torch, tsa, args)
+            flips, n = pq_flips(args)
             e.d["pq_flips"][label] = [flips, n]
             print(f"  pq flips vs plain (head 0): {flips} of {n}")
         print(f"two_stage_attention {label:12s} B={b} H={hq} Hkv={hkv} L={length} dh={dh} "
@@ -432,6 +383,7 @@ def _kernel_fused_matmul(torch, dev, cfg, m, randn) -> dict:
     from repro_torch.core import versaq as V
     from repro_torch.core.quantize import quantize_per_token, quantize_weight
     from repro_torch.kernels import fused as fz
+    from repro_torch.kernels.measure import time_ms
 
     d = cfg.d_model
     u = V.make_folded_norm("ln", d, device=dev).u
@@ -485,8 +437,8 @@ def _kernel_fused_matmul(torch, dev, cfg, m, randn) -> dict:
             err = (got[1] - want[1]).abs().max().item()
             note = f"int8 flips={flips}"
         del got, want
-        ms = _time_ms(torch, lambda: fz.fused_matmul(*args, **kw))
-        plain = _time_ms(torch, lambda: fz.fused_matmul_plain(*args, **kw), reps=3, warmup=1)
+        ms = time_ms(lambda: fz.fused_matmul(*args, **kw))
+        plain = time_ms(lambda: fz.fused_matmul_plain(*args, **kw), reps=3, warmup=1)
         in_bytes = mm * k + 4 * mm if preq else 4 * mm * k + (4 * k if nu is not None else 0)
         out_bytes = mm * n + 4 * mm if rq else 4 * mm * n
         nbytes = in_bytes + wq.values.numel() + 8 * n + (16384 if idct else 0) + out_bytes
@@ -507,6 +459,7 @@ def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
     from repro_torch.core import versaq as V
     from repro_torch.core.quantize import quantize_weight
     from repro_torch.kernels import fused as fz
+    from repro_torch.kernels.measure import time_ms
 
     d, dff = cfg.d_model, cfg.d_ff
     u = V.make_folded_norm("ln", d, device=dev).u
@@ -540,8 +493,8 @@ def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
         per_sm = fz._blocks_per_sm("fused_ffn", dev, dd, ff, 1)
         grid = fz.grid_for(dev, -(-mm // fz.BM), per_sm)
         scratch = grid * fz.BM * (4 * ff + max(dd, ff)) / 1e6
-        ms = _time_ms(torch, lambda: fz.fused_ffn(*args, **kw))
-        plain = _time_ms(torch, lambda: fz.fused_ffn_plain(*args, **kw), reps=3, warmup=1)
+        ms = time_ms(lambda: fz.fused_ffn(*args, **kw))
+        plain = time_ms(lambda: fz.fused_ffn_plain(*args, **kw), reps=3, warmup=1)
         wbytes = sum(w.values.numel() for w in (wu, wd, wg) if w is not None)
         nbytes = 4 * mm * dd * 2 + wbytes + 4 * (3 * ff + 2 * dd) + 16384
         mats = 3 if gated else 2
@@ -562,6 +515,7 @@ def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
 def _kernel_norm_quant(torch, dev, cfg, m, randn) -> dict:
     from repro_torch.core import versaq as V
     from repro_torch.kernels import fused as fz
+    from repro_torch.kernels.measure import time_ms
 
     d = cfg.d_model
     u = V.make_folded_norm("ln", d, device=dev).u
@@ -581,8 +535,8 @@ def _kernel_norm_quant(torch, dev, cfg, m, randn) -> dict:
         _check(flips <= FLIP_SHARE * q.numel(), f"norm_quant {label}: {flips} flips")
         torch.testing.assert_close(s, ws, rtol=1e-5, atol=0)
         err = (s - ws).abs().max().item()
-        ms = _time_ms(torch, lambda: fz.norm_quant(x, nu, **kw))
-        plain = _time_ms(torch, lambda: fz.norm_quant_plain(x, nu, **kw), reps=5)
+        ms = time_ms(lambda: fz.norm_quant(x, nu, **kw))
+        plain = time_ms(lambda: fz.norm_quant_plain(x, nu, **kw), reps=5)
         f32 = mm * dd * (5 + (math.log2(kw["wht_block"]) + 2 if wht else 0) + 3)
         bound, by = _bound_ms(5 * mm * dd + 4 * mm, f32_ops=f32)
         print(f"norm_quant {label:14s} M={mm} D={dd} norm={norm} wht={wht} A{bits}: "
@@ -595,6 +549,7 @@ def _kernel_norm_quant(torch, dev, cfg, m, randn) -> dict:
 def _kernel_wht(torch, dev, cfg, m, randn) -> dict:
     from repro_torch.core import transforms
     from repro_torch.kernels import wht as whtk
+    from repro_torch.kernels.measure import time_ms
 
     cases = [("ffn hidden", m, cfg.d_ff, None, 1), ("d=1024 blk128", 1000, 1024, 128, 0),
              ("d=64", 999, 64, None, 0)]
@@ -608,12 +563,12 @@ def _kernel_wht(torch, dev, cfg, m, randn) -> dict:
         rel = _rel(torch, got, want)
         _check(rel < 1e-6, f"wht {label}: rel L2 {rel}")
         blk = block or transforms.block_size_for(d)
-        ms = _time_ms(torch, lambda: whtk.wht(x, block=block))
-        plain = _time_ms(torch, lambda: whtk.wht_plain(x, block=block), reps=5)
+        ms = time_ms(lambda: whtk.wht(x, block=block))
+        plain = time_ms(lambda: whtk.wht_plain(x, block=block), reps=5)
         # the yardstick: one f32 matmul with the blocked Hadamard (TF32 off)
         hb = transforms.hadamard_matrix(blk, device=dev)
         xb = x.view(r, d // blk, blk)
-        lib = _time_ms(torch, lambda: torch.matmul(xb, hb))
+        lib = time_ms(lambda: torch.matmul(xb, hb))
         lrel = _rel(torch, torch.matmul(xb, hb).view(r, d), want)
         bound, by = _bound_ms(8.0 * r * d, f32_ops=r * d * (math.log2(blk) + 2))
         print(f"wht {label:14s} R={r} d={d} block={blk}: err={err:.3g} rel={rel:.3g} "
@@ -676,6 +631,7 @@ def phase_model(torch, dev) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.model_quant import quantize_vggt
     from repro_torch.kernels import probe
+    from repro_torch.kernels.measure import time_ms
     from repro_torch.models import vggt
 
     cfg = get_config("vggt-1b").with_(n_layers=2, attn_impl="two_stage")
@@ -693,9 +649,9 @@ def phase_model(torch, dev) -> None:
             with _PlainKernels():
                 want = vggt.forward(cfg, qp, x)
             torch.cuda.synchronize()
-            ms = _time_ms(torch, lambda: vggt.forward(cfg, qp, x), reps=3, warmup=1)
+            ms = time_ms(lambda: vggt.forward(cfg, qp, x), reps=3, warmup=1)
             with _PlainKernels():
-                plain = _time_ms(torch, lambda: vggt.forward(cfg, qp, x), reps=2, warmup=0)
+                plain = time_ms(lambda: vggt.forward(cfg, qp, x), reps=2, warmup=0)
         _check(log.by_name() == want_launches[fused],
                f"2-pair forward (fused={fused}) launches {log.by_name()}")
         rel = _rel_l2(torch, got, want)

@@ -56,18 +56,20 @@
 // block-uniform branch between two instantiations); each thread's key
 // offsets are compile-time constants plus 4 * (lane % 4).  When scale is a
 // power of two (dh = 64: 1/8), float(s_int) * (qs * scale) * ks equals the
-// reference's order bit for bit, which saves one multiply per score;
-// otherwise the three multiplies run in the reference's order.  No
-// multiply is contracted into an add (__fmul_rn/__fadd_rn), since m feeds
-// every pq.
+// reference's order bit for bit, which saves one multiply per score and ~5%
+// of the kernel's time on an H100 at the served shapes (PERF.md, the
+// two-stage attention findings); otherwise the three multiplies run in the
+// reference's order.  No multiply is contracted into an add
+// (__fmul_rn/__fadd_rn), since m feeds every pq.
 //
 // The exponential is expf(s - m), the accurate one, as in the plain
 // version, so the kernel's pq equal the plain version's (0 of 6.8e7 differ
 // on a global head).  ex2.approx of (s log2 e - m log2 e) saves ~0.5 ms at
 // the global shape, but it differs from expf by an ulp or two and flips pq
 // by one step on ~6e-7 of the scores; where l is small (the frame shape,
-// l ~ 70) one flip moves an output by up to ~9e-4, beyond the 3e-4 the card
-// checks hold the kernel to.
+// l ~ 70) one flip moved an output by 1.2e-3 on an H100 (PERF.md, the
+// two-stage attention findings), beyond the 3e-4 the card checks hold the
+// kernel to.
 
 // The P fragment is built from the score accumulators without going
 // through shared memory.  The s32 accumulator layout does not match the s8
@@ -503,7 +505,7 @@ int launch(const void* qv, const void* qs, const void* kv, const void* ks, const
            const void* vscale, void* out, int BH, int Lq, int Lk, int q_heads, int kv_heads,
            int causal, float scale, cudaStream_t s) {
   constexpr int smem = Layout<DH>::BYTES;
-  static const cudaError_t e = cudaFuncSetAttribute(
+  const cudaError_t e = cudaFuncSetAttribute(
       two_stage_attention_kernel<DH, POW2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Lq + BQ - 1) / BQ, BH);

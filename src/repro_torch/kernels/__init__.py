@@ -11,5 +11,7 @@
 
 Each module holds its kernel's wrapper and its plain PyTorch version;
 ``ops.py`` holds the public wrappers, ``_build.py`` the nvcc build, and
-``probe.py`` the launch counters.  Importing these modules builds nothing.
+``probe.py`` the launch counters, ``measure.py`` the on-card timing and
+flip counts of ``chip_smoke.py`` and ``tools/``.  Importing these modules
+builds nothing.
 """
