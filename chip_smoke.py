@@ -18,9 +18,10 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
    ``torch.matmul`` with the blocked Hadamard); for the two-stage kernel
-   also its registers, shared memory per block and resident blocks per SM,
-   and how many of its int8 probabilities differ from the plain version's
-   (read back through a one-hot V);
+   and ``fused_ffn`` also their registers, shared memory per block,
+   resident blocks per SM and spills (at the served widths), and how many
+   of the two-stage kernel's int8 probabilities differ from the plain
+   version's (read back through a one-hot V);
 3. runs vggt-1b width with 2 AA pairs once with the kernels and once with
    the plain versions, for the unfused W4A8 plan and for the fused one, and
    holds each block as in 5;
@@ -281,21 +282,14 @@ def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
     return e.done()
 
 
-def _attention_attrs(dh: int) -> dict:
-    """The two-stage kernel's resources at head dim ``dh`` (its scale
-    1/sqrt(dh)), from ``vq_two_stage_attention_attrs``."""
-    import ctypes
-
+def _attrs(kernel: str, *args) -> tuple[dict, str]:
+    """A kernel's resources from ``vq_<kernel>_attrs(*args)``, and their line."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.measure import kernel_attrs
 
-    fn = _build.load("two_stage_attention").vq_two_stage_attention_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    rc = fn(dh, 1.0 / math.sqrt(dh), out)
-    _check(rc == 0, f"vq_two_stage_attention_attrs: cudaError {rc}")
-    return {"registers": out[0], "smem_per_block": out[1], "blocks_per_sm": out[2],
-            "spill_bytes": out[3]}
+    a = kernel_attrs(_build.load(kernel), kernel, *args)
+    return a, (f"regs={a['registers']} smem/block={a['smem_per_block']}B "
+               f"blocks/SM={a['blocks_per_sm']} spill={a['spill_bytes']}B")
 
 
 def _kernel_attention(torch, cfg, randn) -> dict:
@@ -312,10 +306,8 @@ def _kernel_attention(torch, cfg, randn) -> dict:
              ("causal check", 1, 4, 4, 300, True, 0), ("gqa check", 1, 8, 2, 500, False, 0)]
     e = _Entry("two_stage_attention", "src/repro_torch/csrc/two_stage_attention.cu",
                "src/repro/kernels/two_stage_attention.py:210")
-    attrs = _attention_attrs(dh)
+    attrs, res = _attrs("two_stage_attention", dh, 1.0 / math.sqrt(dh))
     e.d.update(attrs, pq_flips={})
-    res = (f"regs={attrs['registers']} smem/block={attrs['smem_per_block']}B "
-           f"blocks/SM={attrs['blocks_per_sm']} spill={attrs['spill_bytes']}B")
     for label, b, hq, hkv, length, causal, nper in cases:
         args, gqa, vscale = attention_inputs(randn, b, hq, hkv, length, dh)
         got = tsa.two_stage_attention(*args, causal=causal, **gqa)
@@ -456,33 +448,22 @@ def _kernel_fused_matmul(torch, dev, cfg, m, randn) -> dict:
 
 
 def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
-    from repro_torch.core import versaq as V
-    from repro_torch.core.quantize import quantize_weight
     from repro_torch.kernels import fused as fz
-    from repro_torch.kernels.measure import time_ms
+    from repro_torch.kernels.measure import ffn_inputs, time_ms
 
     d, dff = cfg.d_model, cfg.d_ff
-    u = V.make_folded_norm("ln", d, device=dev).u
     # (label, M, D, d_ff, w_bits, a_bits, gated, norm, input WHT, launches per forward)
     cases = [("vggt-1b FFN", m, d, dff, 4, 8, False, "ln", False, 2 * cfg.n_layers),
              ("gated silu", 1000, d, 2816, 4, 8, True, "rms", False, 0),
              ("w8 input wht", 333, 512, 1536, 8, 8, True, None, True, 0)]
     e = _Entry("fused_ffn", "src/repro_torch/csrc/fused_ffn.cu", "src/repro/kernels/fused.py:512",
                library_note="no single PyTorch call computes the quantized FFN layer")
+    attrs, res = _attrs("fused_ffn", d, dff, 1)  # at the served widths
+    e.d.update(attrs)
     for label, mm, dd, ff, wb, ab, gated, norm, pwht, nper in cases:
-        wu = quantize_weight(randn(dd, ff) / math.sqrt(dd), wb)
-        wd = quantize_weight(randn(ff, dd) / math.sqrt(ff), wb)
-        wg = quantize_weight(randn(dd, ff) / math.sqrt(dd), wb) if gated else None
-        x = randn(mm, dd)
-        args = (x, wu.values, wu.scale.reshape(1, -1).contiguous(), wd.values,
-                wd.scale.reshape(1, -1).contiguous(), None if wg is None else wg.values,
-                None if wg is None else wg.scale.reshape(1, -1).contiguous(), None, randn(ff),
-                randn(dd), u if norm == "ln" else None)
-        hblock = 4096 if ff % 4096 == 0 else ff & -ff
-        kw = dict(packed_g=gated and wb == 4, packed_u=wb == 4, packed_d=wb == 4, a_bits_in=ab,
-                  a_bits_mid=ab, norm_kind=norm, act="silu" if gated else "gelu",
-                  pro_wht_block=dd if pwht else None, mid_wht_block=hblock, idct_h=True,
-                  idct_out=True, dct_block=64)
+        args, kw = ffn_inputs(randn, mm, dd, ff, w_bits=wb, a_bits=ab, gated=gated, norm=norm,
+                              pro_wht=pwht)
+        hblock = kw["mid_wht_block"]
         got = fz.fused_ffn(*args, **kw)
         want = fz.fused_ffn_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -491,11 +472,11 @@ def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
         _check(rel < 1e-3, f"fused_ffn {label}: rel L2 {rel}")
         del got, want
         per_sm = fz._blocks_per_sm("fused_ffn", dev, dd, ff, 1)
-        grid = fz.grid_for(dev, -(-mm // fz.BM), per_sm)
-        scratch = grid * fz.BM * (4 * ff + max(dd, ff)) / 1e6
+        grid = fz.grid_for(dev, -(-mm // fz.FFN_BM), per_sm)
+        scratch = grid * fz.FFN_BM * (4 * ff + max(dd, ff)) / 1e6
         ms = time_ms(lambda: fz.fused_ffn(*args, **kw))
         plain = time_ms(lambda: fz.fused_ffn_plain(*args, **kw), reps=3, warmup=1)
-        wbytes = sum(w.values.numel() for w in (wu, wd, wg) if w is not None)
+        wbytes = sum(w.numel() for w in (args[1], args[3], args[5]) if w is not None)
         nbytes = 4 * mm * dd * 2 + wbytes + 4 * (3 * ff + 2 * dd) + 16384
         mats = 3 if gated else 2
         int8 = 2.0 * mm * dd * ff * (mats - 1) + 2.0 * mm * ff * dd
@@ -507,7 +488,7 @@ def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
         print(f"fused_ffn {label:12s} M={mm} D={dd} d_ff={ff} W{wb}A{ab} gated={gated} "
               f"norm={norm} input_wht={pwht}: err={err:.3g} rel={rel:.3g} kernel={ms:.4f}ms "
               f"plain={plain:.4f}ms bound={bound:.4f}ms ({by}) x{nper}/forward; grid {grid} "
-              f"blocks ({per_sm}/SM), scratch {scratch:.1f} MB")
+              f"blocks ({per_sm}/SM), scratch {scratch:.1f} MB; {res}")
         e.add(err, nper, ms, plain, bound, by)
     return e.done()
 

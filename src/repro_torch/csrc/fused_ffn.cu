@@ -8,46 +8,77 @@
 //   -> requantization at a_bits_mid -> down int matmul (+IDCT +bias)
 //   -> f32 [M, d_out].
 //
-// Design.  The hidden row is what makes this hard: the hidden WHT
-// (block_size_for(4096) = 4096, i.e. 32 groups x 128) and the per-token
-// requantization need the whole d_ff-wide row, and 64 rows of it in f32
-// (1 MiB) are far beyond a block's 227 KB of shared memory.  The TPU
-// kernel held them in VMEM.  Here each 256-thread block walks over 64-row
-// M tiles (a persistent grid: at most as many blocks as the SMs hold at
-// once, vq_fused_ffn_blocks_per_sm x SMs; the 144 KB of shared memory at
-// d_ff = 4096 leave one per SM) and owns a scratch slice of device memory
-// sized by that grid, not by M:
-//   1. prologue rows (fused_rows.cuh::prologue_row) -> int8 input + scale;
-//   2. for each 128-column tile of d_ff: gate and up projections
-//      (fused_rows.cuh::ft_project: int8 mma.sync, dequant, IDCT, bias),
-//      act(g)*u into the f32 hidden slice;
-//   3. one warp per hidden row: WHT + requantization -> int8 hidden (over
-//      the now dead int8 input) + scale;
-//   4. the down projection of the int8 hidden, IDCT, bias -> output.
-// One launch per FFN layer; the hidden stage is the same code as
-// fused_matmul's full-row epilogue, the down stage the same as its
-// pre-quantized input path.  The scratch does not fit in L2: at vggt-1b
-// 132 blocks x 64 rows x 4096 f32 are 138 MB (+ 35 MB of int8) against the
-// 50 MB L2, so the f32 hidden goes through HBM once each way, an
-// [M, d_ff] round trip in all but layout.  16-row tiles, or a 2-CTA
-// cluster splitting the row over distributed shared memory, would keep it
-// on chip; that is later work.
-//
 // What bounds it.  At vggt-1b (M = 16464, D = 1024, d_ff = 4096, W4, ln,
 // plain GELU) the two int8 matmuls, 2*2*M*1024*4096 = 276 GOP, take
 // 0.140 ms at 1,979 TOP/s and bound it.  The three IDCTs (up over 4096
 // columns, down over 1024) are counted at a fast 64-point DCT's 12
 // operations per output, 1.0 GFLOP; with the activation, hidden WHT,
 // requantization and norm the f32 work is ~3 GFLOP, 0.045 ms at 67 TFLOP/s,
-// and the bytes (x and out in f32, 4 MiB of weights) 0.042 ms.  The dense
-// 64x64 IDCT this version runs (128 per output, 10.8 GFLOP, 0.16 ms) and
-// the hidden's HBM round trip (~540 MB, 0.16 ms) are its own costs, not
-// the function's.
+// and the bytes (x and out in f32, 4 MiB of weights) 0.042 ms.
+//
+// Design.  A 256-thread block owns a 64-row M tile at a time (a persistent
+// grid of at most the blocks the SMs hold at once, which at vggt-1b is two
+// per SM: 258 tiles over 264 slots, one wave) and runs four phases on it:
+//   1. prologue rows, one warp a row (fused_rows.cuh: norm_row, wht_row,
+//      quant_row_by) -> the int8 input tile, which stays in shared memory
+//      for all d_ff/128 up-projection N tiles, and its scales;
+//   2. the up projection (after the gate's, when gated): one stream of
+//      32-row weight steps over all d_ff/128 N tiles through the pipelined
+//      core of fused_rows.cuh (pc_*): a 4-slot cp.async ring of raw weight
+//      bytes, each step unpacked and transposed into a double-buffered
+//      k-contiguous tile one step ahead of its use, ldmatrix A and B
+//      fragments, mma.sync m16n8k32, one __syncthreads per step, each
+//      thread's offsets worked out once per stream; the stream runs across
+//      N tiles, so the next tile's loads overlap this tile's epilogue.  The
+//      epilogue (dequantize, IDCT, bias, act(g)*u or act(u)) runs on a
+//      64x64 f32 half tile in shared memory, the IDCT a fast 64-point
+//      DCT-III (idct64.cuh: the even and odd halves of a row, two threads,
+//      ~10 operations an output against the dense product's 128), and
+//      writes the f32 hidden to the block's scratch slice in device memory;
+//   3. the hidden row pass, two rows at a time in registers, 128 threads a
+//      row (the group butterfly in the reference's stage order, then H_128;
+//      IEEE division, rintf, the 1e-8 floor, NaN kept), into the int8
+//      hidden in scratch;
+//   4. the down projection: the same stream, with the int8 hidden's A tile
+//      streamed through the ring beside the weights.
+// Shared memory: the union region (64 x D int8 input, hidden row buffers,
+// A slots), the ring (16 KB), the unpacked weights (2 x 8 KB), the half
+// tile (16 KB) and the row scales: 115,200 B at vggt-1b, which leaves room
+// for two blocks per SM, so one block's row passes and epilogues can run
+// beside the other's tensor-core work.
+//
+// The hidden stays in device memory: 64 rows x 4096 f32 are 1 MiB per
+// tile, and even 16 rows (256 KB) exceed the 227 KB a block may use; the
+// scratch (grid x 64 x 4096 f32 + int8) misses the 50 MB L2, so the f32
+// hidden makes an HBM round trip, ~540 MB a launch.  Keeping it on chip
+// needs an 8-CTA cluster holding 128 KB of it per CTA in distributed
+// shared memory: later work.
+//
+// Measured (an H100 at 700 W; PERF.md, the PR 16 findings, through
+// tools/time_kernel_sources.py): about half of the PR 13 kernel's time at
+// the served shape, at ~14x the bound.  Of the PR 13 kernel's time the two
+// matmul loops took 80%, the dense IDCT 11%, the row pass 4%.  Here the two
+// streams take most of it: ~200 instructions a warp issue per 64-deep step
+// for 16 mma.sync (the SASS), so the steps are bound by instruction issue,
+// not by loads (not waiting on cp.async changes nothing) nor by the tensor
+// cores.  wgmma, fed by TMA, is the step that removes that issue work.
 #include "fused_rows.cuh"
 
 namespace {
 
 using namespace vq;
+
+constexpr int BM = FT_BM;  // rows per M tile
+constexpr int BN = FT_BN;  // output columns per N tile
+constexpr int THREADS = FT_THREADS;
+constexpr int WARPS = FT_WARPS;
+constexpr int NST = 4;      // ring slots
+constexpr int YH = DCT_B;   // columns of the f32 half tile: one IDCT block
+// the ring, the unpacked weights and the half tile: also the prologue's row buffers
+constexpr int SPARE = NST * PC_RAW + 2 * PC_BU + BM * YH * 4;
+constexpr int FIXED = SPARE + 2 * BM * 4;  // + input and hidden row scales
+
+enum Kind { KIND_GATE = 0, KIND_UP = 1, KIND_DOWN = 2 };
 
 struct Params {
   const float* x;
@@ -64,109 +95,556 @@ struct Params {
   const float* wds;
   const float* bd;
   int packed_g, packed_u, packed_d;
-  const float* dct;
   int idct_h, idct_out, act, mid_wht, a_mid;
   float* out;
-  int8_t* sq;  // scratch: grid x 64 x max(D, F) int8
-  float* ss;   // scratch: grid x 128 f32 (input scales, then hidden scales)
+  int8_t* sq;  // scratch: grid x 64 x max(D, F) int8 (the int8 hidden)
   float* sh;   // scratch: grid x 64 x F f32 hidden
-  int M, D, F, NO, row_w, row_warps;
+  int M, D, F, NO;
 };
 
-__global__ void __launch_bounds__(FT_THREADS) fused_ffn_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Dsm = reinterpret_cast<float*>(smem);
-  const bool any_idct = p.idct_h || p.idct_out;
-  unsigned char* un = smem + (any_idct ? FT_DCT_SMEM : 0);
-  int8_t* As = reinterpret_cast<int8_t*>(un);
-  int8_t* Bs = As + FT_BM * FT_LDS;
-  float* Y = reinterpret_cast<float*>(Bs + FT_BN * FT_LDS);
+// Shared memory at widths D, F: the union region (the int8 input tile, then
+// the hidden row buffers, then the down projection's A slots) and the
+// warps that get row buffers.
+struct Plan {
+  int u;       // union bytes
+  int hwarps;  // warps with a hidden row buffer (over the union and SPARE)
+  int pwarps;  // warps with a prologue row buffer (in SPARE)
+  int bytes;   // dynamic shared memory
+};
 
+__host__ __device__ inline Plan plan_for(int D, int F) {
+  Plan pl;
+  int u = BM * D;
+  if (u < NST * PC_ASLOT) u = NST * PC_ASLOT;
+  if (u < F * 4) u = F * 4;
+  pl.u = (u + 127) & ~127;
+  pl.hwarps = (pl.u + SPARE) / (F * 4);
+  if (pl.hwarps > WARPS) pl.hwarps = WARPS;
+  pl.pwarps = SPARE / (D * 4);
+  if (pl.pwarps > WARPS) pl.pwarps = WARPS;
+  pl.bytes = pl.u + FIXED;
+  return pl;
+}
+
+struct Tile {
+  int m0, rows;
+  int8_t* sq;  // this block's scratch slices
+  float* sh;
+};
+
+// The matrix of a stream (n0: the N tile an epilogue finishes).
+struct Job {
+  const uint8_t* w;
+  const float* ws;
+  const float* bias;
+  int packed, n0, kind;
+};
+
+// 16-byte chunk c of row r of the resident input tile (cpr chunks a row),
+// XOR-swizzled within each whole group of 8 chunks
+__device__ __forceinline__ int a_swz(int c, int r, int cpr) {
+  return (c | 7) < cpr ? c ^ (r & 7) : c;
+}
+
+// float (r, c) of the f32 half tile, its float4 groups swizzled by row
+__device__ __forceinline__ int y_off(int r, int c) {
+  return r * YH + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+}
+
+// ---------------------------------------------------------------------------
+// phase 1: prologue rows -> int8 input tile (shared memory) + scales
+// ---------------------------------------------------------------------------
+
+__device__ void prologue(const Params& p, const Plan& pl, unsigned char* smem, float* xs,
+                         const Tile& t) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (any_idct)
-    for (int i = tid; i < DCT_B * DCT_B; i += FT_THREADS) Dsm[i] = p.dct[i];
-  const int M = p.M, D = p.D, F = p.F, NO = p.NO;
-  const int wq = D > F ? D : F;
-  int8_t* sq = p.sq + (size_t)blockIdx.x * FT_BM * wq;
-  float* xs = p.ss + (size_t)blockIdx.x * 2 * FT_BM;
-  float* hs = xs + FT_BM;
-  float* sh = p.sh + (size_t)blockIdx.x * FT_BM * F;
-  float* buf = reinterpret_cast<float*>(un) + warp * p.row_w;
-  const bool rows_warp = warp < p.row_warps;
-  const int tiles = (M + FT_BM - 1) / FT_BM;
+  const int D = p.D, cpr = D >> 4;
+  int8_t* As = reinterpret_cast<int8_t*>(smem);
+  for (int r = t.rows + tid; r < BM; r += THREADS) xs[r] = 0.f;
+  if (warp >= pl.pwarps) return;
+  float* buf = reinterpret_cast<float*>(smem + pl.u) + warp * D;
+  for (int r = warp; r < t.rows; r += pl.pwarps) {
+    __syncwarp();  // the buffer's previous row is consumed
+    load_row(buf, p.x + (size_t)(t.m0 + r) * D, D, lane);
+    if (p.norm != NORM_NONE) norm_row(buf, D, p.norm, p.u, p.eps, lane);
+    if (p.pro_wht > 0) wht_row(buf, D, p.pro_wht, lane);
+    int8_t* q = As + r * D;
+    quant_row_by([&](int i) { return *reinterpret_cast<const float4*>(buf + i); }, D, p.a_in,
+                 [&](int i, uint32_t w) {
+                   *reinterpret_cast<uint32_t*>(q + (a_swz(i >> 4, r, cpr) << 4) + (i & 15)) = w;
+                 },
+                 xs + r, lane);
+  }
+}
 
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = tile * FT_BM;
-    const int rows = min(FT_BM, M - m0);
+// ---------------------------------------------------------------------------
+// epilogue of one N tile: dequantize -> IDCT -> bias -> act / gate / store
+// ---------------------------------------------------------------------------
+//
+// Two 64-column halves in turn: every warp writes its dequantized
+// accumulators of the half to the half tile; then finish_half.  With the
+// IDCT, threads 0-63 turn the even inputs of row t into E (idct64_even)
+// and threads 64-127 the odd ones into O (idct64_odd), in place; then
+// thread t finalizes the columns nn, 31-nn, 32+nn, 63-nn (nn = t % 16) of
+// rows t/16 + 16i, i < 4: y[n] = E[n] + O[n], y[63-n] = E[n] - O[n].  The
+// same thread writes a gate value and later scales it by the up value.
+// finish_half is one out-of-line copy with rolled loops: its straight-line
+// code runs once per N tile, and unrolled and inlined into every stream it
+// overflowed the instruction cache.
 
-    __syncthreads();  // the row buffers alias the previous tile's matmul tiles
-    if (rows_warp)
-      for (int r = warp; r < rows; r += p.row_warps)
-        prologue_row(p.x + (size_t)(m0 + r) * D, D, buf, p.norm, p.u, p.eps, p.pro_wht, p.a_in,
-                     sq + (size_t)r * D, xs + r, lane);
-    __syncthreads();
-
-    for (int n0 = 0; n0 < F; n0 += FT_BN) {
-      float v[32];
-      if (p.wg != nullptr) {  // sh = act(gate), then sh *= up below
-        ft_project(v, p.packed_g, sq, xs, rows, D, p.wg, p.wgs, p.bg, F, n0, p.idct_h, Dsm, As,
-                   Bs, Y);
+// outputs of one half tile: dst rows of ld floats; kind GATE/UP write the
+// hidden (UP multiplies by the gate's act when gated), DOWN the output
+__device__ __noinline__ void finish_half(float* Y, bool idct, const float* __restrict__ bias,
+                                         int kind, int act, bool gated, float* dst, int ld,
+                                         int rows, int c0, int N) {
+  const int tid = threadIdx.x, nn = tid & 15, rs = tid >> 4;
+  if (idct) {
+    const int r = tid & 63, odd = (tid >> 6) & 1;
+    float* yr = Y + r * YH;
+    const int sw = r & 7;
+    float v[32];
+    if (tid < 2 * YH) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int r = ft_row(i), n = n0 + ft_col(i);
-          if (r < rows && n < F) sh[(size_t)r * F + n] = act_fn(v[i], p.act);
-        }
-      }
-      ft_project(v, p.packed_u, sq, xs, rows, D, p.wu, p.wus, p.bu, F, n0, p.idct_h, Dsm, As, Bs,
-                 Y);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = ft_row(i), n = n0 + ft_col(i);
-        if (r >= rows || n >= F) continue;
-        float* h = sh + (size_t)r * F + n;  // written by this same thread above
-        *h = p.wg != nullptr ? *h * v[i] : act_fn(v[i], p.act);
+      for (int q = 0; q < 16; ++q) {  // x[4q..4q+3]: the even or the odd two
+        const float4 x = *reinterpret_cast<const float4*>(yr + ((q ^ sw) << 2));
+        v[2 * q] = odd ? x.y : x.x;
+        v[2 * q + 1] = odd ? x.w : x.z;
       }
     }
-
-    __syncthreads();  // hidden tile complete; int8 input dead
-    if (rows_warp) {
-      for (int r = warp; r < rows; r += p.row_warps) {
-        __syncwarp();
-        load_row(buf, sh + (size_t)r * F, F, lane);
-        if (p.mid_wht > 0) wht_row(buf, F, p.mid_wht, lane);
-        quant_row(buf, F, p.a_mid, sq + (size_t)r * F, hs + r, lane);
-      }
+    __syncthreads();  // the row is read before either half overwrites it
+    if (tid < 2 * YH) {
+      if (odd) idct64_odd(v);
+      else idct64_even(v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)  // E to columns 0-31, O to 32-63
+        *reinterpret_cast<float4*>(yr + (((8 * odd + q) ^ sw) << 2)) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
     }
     __syncthreads();
-
-    for (int n0 = 0; n0 < NO; n0 += FT_BN) {
-      float v[32];
-      ft_project(v, p.packed_d, sq, hs, rows, F, p.wd, p.wds, p.bd, NO, n0, p.idct_out, Dsm, As,
-                 Bs, Y);
+  }
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) {
+    const int r = rs + 16 * i;
+    if (r >= rows) break;
+    float vals[4];  // columns nn, 31-nn, 32+nn, 63-nn
+    const float a = Y[y_off(r, nn)], b = Y[y_off(r, 31 - nn)];
+    const float c = Y[y_off(r, 32 + nn)], d = Y[y_off(r, 63 - nn)];
+    if (idct) {  // a = E[nn], b = E[31-nn], c = O[nn], d = O[31-nn]
+      vals[0] = a + c;
+      vals[1] = b + d;
+      vals[2] = b - d;
+      vals[3] = a - c;
+    } else {
+      vals[0] = a;
+      vals[1] = b;
+      vals[2] = c;
+      vals[3] = d;
+    }
+    const int cols[4] = {nn, 31 - nn, 32 + nn, 63 - nn};
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = ft_row(i), n = n0 + ft_col(i);
-        if (r < rows && n < NO) p.out[(size_t)(m0 + r) * NO + n] = v[i];
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int n = c0 + cols[e];
+      if (n >= N) continue;
+      float v = vals[e];
+      if (bias != nullptr) v += bias[n];
+      float* o = dst + (size_t)r * ld + n;
+      if (kind == KIND_DOWN) *o = v;
+      else if (kind == KIND_GATE) *o = act_fn(v, act);
+      else *o = gated ? *o * v : act_fn(v, act);
     }
   }
 }
 
+__device__ __forceinline__ void epilogue(const Params& p, const Job& jb,
+                                         const int (&acc)[2][4][4], const float* sx, int N,
+                                         bool idct, float* Y, const Tile& t) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+  float* dst = jb.kind == KIND_DOWN ? p.out + (size_t)t.m0 * p.NO : t.sh;
+  const int ld = jb.kind == KIND_DOWN ? p.NO : p.F;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c0 = jb.n0 + YH * h;  // first output column of this half
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wm + 16 * mi + g + 8 * hh;
+        const float s = sx[r];
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          const int ni = 2 * h + nj;
+          const int c = wn + 8 * nj + 2 * tq, n = c0 + c;
+          float2 v = make_float2(0.f, 0.f);
+          if (n < N) {  // N % 4 == 0, so n + 1 < N too
+            v.x = (float)acc[mi][ni][2 * hh] * s * jb.ws[n];
+            v.y = (float)acc[mi][ni][2 * hh + 1] * s * jb.ws[n + 1];
+          }
+          *reinterpret_cast<float2*>(Y + y_off(r, c)) = v;
+        }
+      }
+    __syncthreads();
+    if (c0 < N)
+      finish_half(Y, idct, jb.bias, jb.kind, p.act, p.wg != nullptr, dst, ld, t.rows, c0, N);
+    if (h == 0) __syncthreads();  // the half tile is read; the other half may be written
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phases 2 and 4: one stream of weight steps over all N tiles of a matrix
+// ---------------------------------------------------------------------------
+//
+// Step s: wait until step s+1 has landed, one __syncthreads (step s+1's
+// bytes and step s's unpacked weights are visible; everyone is done with
+// step s-1), queue step s+3 into the slot step s-1 held, unpack step s+1
+// into the other weight buffer, multiply step s.  After an N tile's last
+// step, its epilogue.  DOWN streams the int8 hidden's A tile beside the
+// weights; otherwise A is the resident input tile.  A gated FFN runs the
+// gate's stream (which stores act(g)), then the up stream (which scales
+// it by u), each with one packing throughout.
+template <bool PACKED, bool DOWN>
+__device__ void stream(const Params& p, const Plan& pl, unsigned char* smem, float* Y,
+                       const float* sx, const Tile& t, const Job& job) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+  const int K = DOWN ? p.F : p.D, N = DOWN ? p.NO : p.F;
+  const int kmax = PACKED ? K / 2 : K;  // W rows
+  const int spj = (kmax + PC_ROWS - 1) / PC_ROWS;  // steps per N tile
+  const int S = spj * ((N + BN - 1) / BN);
+  uint8_t* raw = smem + pl.u;
+  int8_t* Bu = reinterpret_cast<int8_t*>(raw + NST * PC_RAW);
+  int8_t* As = reinterpret_cast<int8_t*>(smem);  // the input tile, or DOWN's A slots
+  const PcLane<PACKED> ln(tid, wm, wn);
+
+  int lk = 0, ln0 = 0, ls = 0;  // loader: step in its N tile, that tile's n0, steps queued
+  auto issue = [&]() {
+    if (ls < S) {
+      pc_load_raw<PACKED>(raw + (ls & (NST - 1)) * PC_RAW, job.w, lk, kmax, N, ln0, ln);
+      if (DOWN) pc_load_a<PACKED>(As + (ls & (NST - 1)) * PC_ASLOT, t.sq, t.rows, K, lk, ln);
+      if (++lk == spj) {
+        lk = 0;
+        ln0 += BN;
+      }
+    }
+    cp_commit();
+    ++ls;
+  };
+  auto convert = [&](int s) {
+    pc_convert<PACKED>(raw + (s & (NST - 1)) * PC_RAW, Bu + (s & 1) * PC_BU, ln);
+  };
+
+  // the up projection's A rows of this lane: row offset and swizzle
+  const int cpr = K >> 4;
+  int arow[2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) arow[mi] = wm + 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1);
+
+  for (int i = 0; i < NST - 1; ++i) issue();
+  cp_wait<NST - 2>();
+  __syncthreads();
+  convert(0);
+  int acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  int mk = 0, mn0 = 0;  // consumer: step in its N tile, that tile's n0
+  for (int s = 0; s < S; ++s) {
+    cp_wait<NST - 3>();
+    __syncthreads();
+    issue();
+    if (s + 1 < S) convert(s + 1);
+    const int8_t* bu = Bu + (s & 1) * PC_BU;
+    if (DOWN) {
+      const int8_t* a = As + (s & (NST - 1)) * PC_ASLOT;
+      pc_mma<PACKED>(acc, [&](int mi, int kk) { return a + ln.a_rd[mi][kk]; }, bu, ln);
+    } else {
+      // chunk of local k 32 kk + 16 (lane / 16): packed kk 0 -> K p0.., kk 1 -> K/2 + p0..
+      // (p0 = 32 mk); int8 -> K 32 mk..
+      const int c0 = 2 * mk + (lane >> 4), c1 = (K >> 5) + c0;
+      pc_mma<PACKED>(acc,
+                     [&](int mi, int kk) {
+                       const int r = arow[mi];
+                       return As + r * K + (a_swz(kk == 0 ? c0 : c1, r, cpr) << 4);
+                     },
+                     bu, ln);
+    }
+    if (++mk == spj) {
+      Job tile = job;
+      tile.n0 = mn0;
+      epilogue(p, tile, acc, sx, N, DOWN ? p.idct_out : p.idct_h, Y, t);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+      mk = 0;
+      mn0 += BN;
+    }
+  }
+  cp_wait<0>();
+}
+
+template <bool DOWN>
+__device__ __forceinline__ void run_stream(const Params& p, const Plan& pl, unsigned char* smem,
+                                           float* Y, const float* sx, const Tile& t,
+                                           const Job& job) {
+  if (job.packed) stream<true, DOWN>(p, pl, smem, Y, sx, t, job);
+  else stream<false, DOWN>(p, pl, smem, Y, sx, t, job);
+}
+
+// The streams of one projection: gate (when gated) then up, or down.
+template <bool DOWN>
+__device__ void project(const Params& p, const Plan& pl, unsigned char* smem, float* Y,
+                        const float* sx, const Tile& t) {
+  if (DOWN) {
+    const Job down = {p.wd, p.wds, p.bd, p.packed_d, 0, KIND_DOWN};
+    run_stream<DOWN>(p, pl, smem, Y, sx, t, down);
+    return;
+  }
+  if (p.wg != nullptr) {
+    const Job gate = {p.wg, p.wgs, p.bg, p.packed_g, 0, KIND_GATE};
+    run_stream<DOWN>(p, pl, smem, Y, sx, t, gate);
+    __syncthreads();  // the gate stream's slots and tiles are consumed
+  }
+  const Job up = {p.wu, p.wus, p.bu, p.packed_u, 0, KIND_UP};
+  run_stream<DOWN>(p, pl, smem, Y, sx, t, up);
+}
+
+// ---------------------------------------------------------------------------
+// phase 3: the hidden row pass (blocked WHT + requantization)
+// ---------------------------------------------------------------------------
+//
+// Rows of F = G * 128 floats, G <= 32 (every width the model serves): two
+// rows at a time, 128 threads a row, the row in registers.  Thread c holds
+// element g*128 + c of every group g and runs the butterfly across groups
+// there, stage by stage in the reference's order (group strides 1, 2, 4,
+// ...); one pass through shared memory regroups the row so that each
+// thread holds 32 consecutive elements of one group, which take the H_128
+// butterfly in registers (strides 1-16) and across the thread's three
+// neighbours (strides 32 and 64, by shuffles); then wht_row's scaling, the
+// row's amax over its four warps, and the requantization (IEEE division,
+// rintf, the 1e-8 floor, NaN kept) straight to the int8 hidden.  Other
+// widths take one warp a row (load_row, wht_row, quant_row), each of the
+// first hwarps warps with a row buffer over the union region and SPARE.
+
+// float i of a regrouped row: 16-byte chunk k = i / 4 at k ^ (k / 8 % 8), so
+// that the column writes and the 16-byte group reads are conflict-free
+__device__ __forceinline__ int g_sw(int i) { return i ^ ((i >> 3) & 0x1c); }
+
+__device__ void hidden_rows_reg(const Params& p, float* smem_f, float* hs, const Tile& t) {
+  const int tid = threadIdx.x, lane = tid & 31, half = tid >> 7, c = tid & 127;
+  const int F = p.F, G = F >> 7, block = p.mid_wht;
+  const int bc = block == 0 ? 1 : (block < 128 ? block : 128);  // H_bc inside a group
+  const int gb = block > 128 ? block >> 7 : 1;                  // groups a WHT block spans
+  const float hc = (float)(1.0 / sqrt((double)bc));
+  const float gs = block >= 128 ? (float)(1.0 / sqrt((double)(block / 128))) : 1.f;
+  const float qmax = (float)((1 << (p.a_mid - 1)) - 1);
+  float* rb = smem_f + half * F;
+  float* red = smem_f + 2 * F;  // [2 rows][4 warps]: amax, then 1 for a NaN
+  const int g2 = c >> 2, sub = c & 3;  // regrouped: group g2, elements sub*32..
+  for (int r0 = 0; r0 < t.rows; r0 += 2) {
+    const int r = r0 + half;
+    const bool live = r < t.rows;
+    float v[32];
+    if (live) {
+      const float* src = t.sh + (size_t)r * F + c;
+#pragma unroll
+      for (int g = 0; g < 32; ++g)
+        if (g < G) v[g] = src[g * 128];
+#pragma unroll
+      for (int hh = 0; hh < 5; ++hh) {  // across groups, in the reference's order
+        const int h = 1 << hh;
+        if (h < gb) {
+#pragma unroll
+          for (int g = 0; g < 32; ++g) {
+            if (!(g & h) && g + h < 32 && g + h < G) {
+              const float a = v[g], b = v[g + h];
+              v[g] = a + b;
+              v[g + h] = a - b;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 32; ++g)
+        if (g < G) rb[g_sw(g * 128 + c)] = v[g];
+    }
+    __syncthreads();
+    const bool mine = live && g2 < G;  // a thread of the regrouped row
+    float amax = 0.f;
+    bool bad = false;
+    if (live) {  // uniform in a warp: the shuffles below need every lane
+      const int base = g2 * 128 + sub * 32;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 x = mine ? *reinterpret_cast<const float4*>(rb + g_sw(base + 4 * i))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
+      }
+#pragma unroll
+      for (int hh = 0; hh < 5; ++hh) {  // H_bc: strides 1-16 in registers
+        const int h = 1 << hh;
+        if (h < bc) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            if (!(e & h)) {
+              const float a = v[e], b = v[e + h];
+              v[e] = a + b;
+              v[e + h] = a - b;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // strides 32, 64: the neighbours sub ^ 1, sub ^ 2
+        const int h = 1 << hh;
+        if (32 * h < bc) {
+          const bool hi = sub & h;
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const float o = __shfl_xor_sync(0xffffffffu, v[e], h);
+            v[e] = hi ? o - v[e] : v[e] + o;
+          }
+        }
+      }
+      if (block > 0) {  // wht_row's scaling: H_bc's, then the groups'
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          v[e] *= hc;
+          if (block >= 128) v[e] *= gs;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        amax = fmaxf(amax, fabsf(v[e]));
+        bad |= v[e] != v[e];
+      }
+    }
+    amax = warp_max(amax);
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      red[half * 4 + ((tid >> 5) & 3)] = amax;
+      red[8 + half * 4 + ((tid >> 5) & 3)] = bad ? 1.f : 0.f;
+    }
+    __syncthreads();
+    if (mine) {
+      float m = 0.f, nan = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        m = fmaxf(m, red[half * 4 + w]);
+        nan = fmaxf(nan, red[8 + half * 4 + w]);
+      }
+      if (nan > 0.f) m = __int_as_float(0x7fc00000);
+      const float scale = fmaxf(m, 1e-8f) / qmax;
+      const float sc = m != m ? m : scale;  // fmaxf would drop the NaN
+      uint32_t w[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i] = q8(v[4 * i], sc, qmax) | (q8(v[4 * i + 1], sc, qmax) << 8) |
+               (q8(v[4 * i + 2], sc, qmax) << 16) | (q8(v[4 * i + 3], sc, qmax) << 24);
+      uint4* dst = reinterpret_cast<uint4*>(t.sq + (size_t)r * F + g2 * 128 + sub * 32);
+      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      if (c == 0) hs[r] = sc;
+    }
+    __syncthreads();  // the row buffers and the reduction are read
+  }
+}
+
+__device__ void hidden_rows(const Params& p, const Plan& pl, float* smem_f, float* hs,
+                            const Tile& t) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int F = p.F;
+  for (int r = t.rows + tid; r < BM; r += THREADS) hs[r] = 0.f;
+  if (F % 128 == 0 && F <= 32 * 128) {
+    hidden_rows_reg(p, smem_f, hs, t);
+    return;
+  }
+  if (warp < pl.hwarps) {
+    float* buf = smem_f + warp * F;
+    for (int r = warp; r < t.rows; r += pl.hwarps) {
+      __syncwarp();  // the buffer's previous row is consumed
+      load_row(buf, t.sh + (size_t)r * F, F, lane);
+      if (p.mid_wht > 0) wht_row(buf, F, p.mid_wht, lane);
+      quant_row(buf, F, p.a_mid, t.sq + (size_t)r * F, hs + r, lane);
+    }
+  }
+  __syncthreads();  // the int8 hidden and its scales are written
+}
+
+__global__ void __launch_bounds__(THREADS, 2) fused_ffn_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan pl = plan_for(p.D, p.F);
+  float* Y = reinterpret_cast<float*>(smem + pl.u + NST * PC_RAW + 2 * PC_BU);
+  float* xs = Y + BM * YH;
+  float* hs = xs + BM;
+  const int tiles = (p.M + BM - 1) / BM;
+  const size_t wq = p.D > p.F ? p.D : p.F;
+  Tile t;
+  t.sq = p.sq + (size_t)blockIdx.x * BM * wq;
+  t.sh = p.sh + (size_t)blockIdx.x * BM * p.F;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    t.m0 = tile * BM;
+    t.rows = min(BM, p.M - t.m0);
+    __syncthreads();  // the previous tile is done with every region
+    prologue(p, pl, smem, xs, t);
+    __syncthreads();
+    project<false>(p, pl, smem, Y, xs, t);
+    __syncthreads();  // the hidden tile is written; the input tile is dead
+    hidden_rows(p, pl, reinterpret_cast<float*>(smem), hs, t);
+    project<true>(p, pl, smem, Y, hs, t);
+  }
+}
+
+int check_plan(int D, int F, Plan* pl) {
+  *pl = plan_for(D, F);
+  return pl->pwarps < 1 || pl->hwarps < 1 || pl->bytes > FT_SMEM_CAP
+             ? static_cast<int>(cudaErrorInvalidValue)
+             : 0;
+}
+
 }  // namespace
 
-// Blocks of fused_ffn_kernel one SM holds at these widths (the row
-// buffers are max(D, F) floats wide).  Returns a cudaError_t.
+// Blocks of fused_ffn_kernel one SM holds at once at these widths (`idct`
+// does not change them).  Returns a cudaError_t.
 extern "C" int vq_fused_ffn_blocks_per_sm(int D, int F, int idct, int* blocks) {
-  int row_warps;
-  return ft_resident_blocks(fused_ffn_kernel, ft_smem_bytes(D > F ? D : F, idct != 0, &row_warps),
-                            blocks);
+  (void)idct;
+  Plan pl;
+  const int e = check_plan(D, F, &pl);
+  return e != 0 ? e : ft_resident_blocks(fused_ffn_kernel, pl.bytes, blocks);
+}
+
+// The kernel's resources at these widths: out[0] registers per thread,
+// out[1] shared memory per block in bytes, out[2] resident blocks per SM,
+// out[3] spilled bytes per thread.  Returns a cudaError_t.
+extern "C" int vq_fused_ffn_attrs(int D, int F, int idct, int* out) {
+  (void)idct;
+  Plan pl;
+  int e = check_plan(D, F, &pl);
+  if (e == 0) e = ft_resident_blocks(fused_ffn_kernel, pl.bytes, &out[2]);
+  cudaFuncAttributes a;
+  if (e == 0) e = static_cast<int>(cudaFuncGetAttributes(&a, fused_ffn_kernel));
+  if (e != 0) return e;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes) + pl.bytes;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 // C entry point (ctypes).  wg/wgs/bg are null for a plain FFN; u, biases
 // and dct null where unused.  Requires D, F % 16 == 0 (% 32 for packed
 // weights on that input), F, NO % 4 == 0 (% 64 with the IDCT) and 16-byte
 // aligned rows; the Python wrapper checks these and sizes the scratch for
-// `grid` blocks, at most the resident ones.  Returns cudaGetLastError().
+// `grid` blocks, at most the resident ones.  Widths whose shared memory
+// exceeds a block's (D above ~2,800) return cudaErrorInvalidValue.  `ss`
+// and `dct` are unused (the row scales live in shared memory, the IDCT's
+// constants are compiled in): the entry keeps the PR 13 kernel's
+// arguments, so one launcher serves both.  Returns cudaGetLastError().
 extern "C" int vq_fused_ffn(const void* x, const void* u, float eps, int norm, int pro_wht,
                             int a_in, const void* wg, const void* wgs, const void* bg,
                             const void* wu, const void* wus, const void* bu, const void* wd,
@@ -174,6 +652,8 @@ extern "C" int vq_fused_ffn(const void* x, const void* u, float eps, int norm, i
                             int packed_d, const void* dct, int idct_h, int idct_out, int act,
                             int mid_wht, int a_mid, void* out, void* sq, void* ss, void* sh, int M,
                             int D, int F, int NO, int grid, void* stream) {
+  (void)ss;
+  (void)dct;
   Params p;
   p.x = static_cast<const float*>(x);
   p.u = static_cast<const float*>(u);
@@ -193,7 +673,6 @@ extern "C" int vq_fused_ffn(const void* x, const void* u, float eps, int norm, i
   p.packed_g = packed_g;
   p.packed_u = packed_u;
   p.packed_d = packed_d;
-  p.dct = static_cast<const float*>(dct);
   p.idct_h = idct_h;
   p.idct_out = idct_out;
   p.act = act;
@@ -201,18 +680,17 @@ extern "C" int vq_fused_ffn(const void* x, const void* u, float eps, int norm, i
   p.a_mid = a_mid;
   p.out = static_cast<float*>(out);
   p.sq = static_cast<int8_t*>(sq);
-  p.ss = static_cast<float*>(ss);
   p.sh = static_cast<float*>(sh);
   p.M = M;
   p.D = D;
   p.F = F;
   p.NO = NO;
-  p.row_w = D > F ? D : F;
-  const int smem = ft_smem_bytes(p.row_w, idct_h || idct_out, &p.row_warps);
-  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  const int e0 = check_plan(D, F, &pl);
+  if (e0 != 0) return e0;
   cudaError_t e =
-      cudaFuncSetAttribute(fused_ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(fused_ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_ffn_kernel<<<grid, FT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  fused_ffn_kernel<<<grid, THREADS, pl.bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,12 @@
 //   quant_row  <- _quant_rows  per-token symmetric quantization
 //   ft_outputs <- _idct_rows   block IDCT (64x64 D) + bias on an output tile
 //   ft_gemm    <- _int_dot     int8 x (int8 | packed int4) -> int32
+//   pc_*       <- _int_dot     the same product as a pipelined core: a
+//                              cp.async ring, weights unpacked in shared
+//                              memory, ldmatrix fragments (fused_ffn.cu)
+//   idct64_*   <- _idct_rows   the block IDCT as a fast 64-point DCT-III in
+//                              two halves of a row (idct64.cuh, generated;
+//                              fused_ffn.cu)
 //
 // Row routines work on one row at a time, one warp per row, on a float row
 // buffer in shared memory (width W, W % 4 == 0): a lane owns the 4-float
@@ -35,6 +41,7 @@
 
 #include <math.h>
 
+#include "idct64.cuh"
 #include "mma_s8.cuh"
 
 namespace vq {
@@ -204,13 +211,17 @@ __device__ __forceinline__ uint32_t q8(float v, float scale, float qmax) {
   return (uint32_t)((int)q & 0xff);
 }
 
-// per-token quantization of the row -> q (int8, 4-byte aligned) and *s
-__device__ void quant_row(const float* buf, int W, int bits, int8_t* q, float* s, int lane) {
+// Per-token quantization of a row the warp reads as load4(i), the float4
+// at columns i..i+3 (i % 4 == 0): the four int8 values of each float4 go
+// to store4(i, word), the scale to *s.
+template <typename Load, typename Store>
+__device__ __forceinline__ void quant_row_by(Load load4, int W, int bits, Store store4, float* s,
+                                             int lane) {
   const float qmax = (float)((1 << (bits - 1)) - 1);
   float amax = 0.f;
   bool bad = false;
   for (int i = 4 * lane; i < W; i += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(buf + i);
+    const float4 v = load4(i);
     amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
     bad |= (v.x != v.x) | (v.y != v.y) | (v.z != v.z) | (v.w != v.w);
   }
@@ -219,11 +230,17 @@ __device__ void quant_row(const float* buf, int W, int bits, int8_t* q, float* s
   const float scale = fmaxf(amax, 1e-8f) / qmax;
   const float sc = amax != amax ? amax : scale;  // fmaxf would drop the NaN
   for (int i = 4 * lane; i < W; i += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(buf + i);
-    *reinterpret_cast<uint32_t*>(q + i) = q8(v.x, sc, qmax) | (q8(v.y, sc, qmax) << 8) |
-                                          (q8(v.z, sc, qmax) << 16) | (q8(v.w, sc, qmax) << 24);
+    const float4 v = load4(i);
+    store4(i, q8(v.x, sc, qmax) | (q8(v.y, sc, qmax) << 8) | (q8(v.z, sc, qmax) << 16) |
+                  (q8(v.w, sc, qmax) << 24));
   }
   if (lane == 0) *s = sc;
+}
+
+// per-token quantization of the row -> q (int8, 4-byte aligned) and *s
+__device__ void quant_row(const float* buf, int W, int bits, int8_t* q, float* s, int lane) {
+  quant_row_by([&](int i) { return *reinterpret_cast<const float4*>(buf + i); }, W, bits,
+               [&](int i, uint32_t v) { *reinterpret_cast<uint32_t*>(q + i) = v; }, s, lane);
 }
 
 // The prologue of one row: f32 input -> folded norm -> WHT -> quantize.
@@ -375,6 +392,209 @@ __device__ void ft_project(float (&v)[32], bool packed, const int8_t* A, const f
   __syncthreads();
   ft_outputs(v, Y, Dsm, idct, bias, N, n0);
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// pipelined int8 core (fused_ffn.cu): cp.async ring, weights unpacked and
+// transposed in shared memory, ldmatrix fragments
+// ---------------------------------------------------------------------------
+//
+// A step covers 32 rows of W (packed rows, i.e. 64 original K indices, or
+// 32 K rows of int8 W) and 128 columns: 4 KB of raw weight bytes, one
+// 16-byte cp.async per thread, zero-filled past K and N.  The raw slot is
+// row-major, with the 16-byte chunk c of W row q at chunk c ^ (q/4 % 8),
+// so that pc_convert reads it without bank conflicts.  pc_convert turns a
+// raw slot into Bu[n][k] (k contiguous, KS bytes a row, nibbles
+// sign-extended), and every [rows][KS] tile of the core (Bu, and an A
+// tile streamed from device memory) keeps its 16-byte chunk c of row n at
+// c ^ pc_swz(n): the eight rows one ldmatrix reads hit eight distinct bank
+// groups.  The packed layout is the reference's: packed row p holds K row
+// p (low nibble) and K/2 + p (high nibble), so a packed step's local k
+// 0..31 are K indices p0.. and its local 32..63 are K/2 + p0..
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, the first `bytes` read and the rest zero
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lane i addresses row i % 8 of matrix i / 8 and
+// receives bytes 4(i%4).. of row i/4 of each (an s8 fragment register)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+constexpr int PC_ROWS = 32;                // W rows per step
+constexpr int PC_RAW = PC_ROWS * FT_BN;    // raw weight bytes per step
+constexpr int PC_BU = FT_BN * 64;          // Bu bytes (the packed step's)
+constexpr int PC_ASLOT = FT_BM * 64;       // a streamed A tile's bytes
+
+template <bool PACKED>
+struct PcStep {
+  static constexpr int KS = PACKED ? 64 : 32;  // K indices per step (tile row bytes)
+  static constexpr int CPR = KS / 16;          // 16-byte chunks per tile row
+};
+
+template <bool PACKED>
+__device__ __forceinline__ int pc_swz(int n) {
+  return PACKED ? (((n >> 1) ^ (n >> 3)) & 3) : ((n >> 2) & 1);
+}
+
+// byte offset of (row n, local k) in a swizzled [rows][KS] tile
+template <bool PACKED>
+__device__ __forceinline__ int pc_off(int n, int k) {
+  return n * PcStep<PACKED>::KS + ((((k >> 4) ^ pc_swz<PACKED>(n)) << 4) | (k & 15));
+}
+
+// This thread's fixed part of every step, worked out once per stream:
+//   loading: its 16-byte chunk of a raw slot (W row q = tid / 8 of the step,
+//     columns 16 (tid % 8).. of the N tile) and, for a streamed A tile, its
+//     chunk c of row r;
+//   pc_convert (kq = tid % 8, nq = tid / 8): its first raw word (W rows
+//     4kq.. of columns 4nq..) and where column 4nq + j's four K bytes go in
+//     Bu (the high nibbles of a packed step go to that offset ^ 32: chunk
+//     c + 2 under the same swizzle);
+//   pc_mma: the ldmatrix rows of B, and of A in a streamed A tile.
+template <bool PACKED>
+struct PcLane {
+  static constexpr int KS = PcStep<PACKED>::KS;
+  static constexpr int CPR = PcStep<PACKED>::CPR;
+  int raw_dst, raw_row, raw_col;
+  int a_dst, a_row, a_c;  // a_row >= FT_BM: this thread copies no A chunk
+  int cv_rd, cv_wr[4];
+  int b_rd[2][KS / 32];
+  int a_rd[2][KS / 32];
+
+  __device__ PcLane(int tid, int wm, int wn) {
+    const int lane = tid & 31, q = tid >> 3, c = tid & 7;
+    raw_dst = q * FT_BN + ((c ^ ((q >> 2) & 7)) << 4);
+    raw_row = q;
+    raw_col = 16 * c;
+    a_row = tid / CPR;
+    a_c = tid % CPR;
+    a_dst = pc_off<PACKED>(a_row, 16 * a_c);
+    const int kq = tid & 7, nq = tid >> 3;
+    cv_rd = 4 * kq * FT_BN + (((nq >> 2) ^ kq) << 4) + 4 * (nq & 3);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cv_wr[j] = pc_off<PACKED>(4 * nq + j, 4 * kq);
+#pragma unroll
+    for (int kk = 0; kk < KS / 32; ++kk) {
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp)
+        b_rd[pp][kk] = pc_off<PACKED>(64 * pp + wn + 8 * (lane >> 4) + (lane & 7),
+                                      32 * kk + 16 * ((lane >> 3) & 1));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        a_rd[mi][kk] = pc_off<PACKED>(wm + 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1),
+                                      32 * kk + 16 * (lane >> 4));
+    }
+  }
+};
+
+// Queue this thread's 16 bytes of raw step `ks` of W (row length N bytes,
+// kmax rows: K/2 packed or K) for columns n0.. into a raw slot.  Rows of
+// 16-byte multiples copy whole chunks; others (N % 16 != 0) 4-byte words.
+template <bool PACKED>
+__device__ __forceinline__ void pc_load_raw(uint8_t* slot, const uint8_t* __restrict__ w, int ks,
+                                            int kmax, int N, int n0, const PcLane<PACKED>& ln) {
+  uint8_t* dst = slot + ln.raw_dst;
+  const int row = ks * PC_ROWS + ln.raw_row, col = n0 + ln.raw_col;
+  const uint8_t* src = w + (size_t)row * N + col;
+  if ((N & 15) == 0) {
+    const bool ok = row < kmax && col < N;
+    cp16(dst, ok ? src : w, ok ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = row < kmax && col + 4 * i < N;
+      cp4(dst + 4 * i, ok ? src + 4 * i : w, ok ? 4 : 0);
+    }
+  }
+}
+
+// Queue step `ks` of a streamed A tile (int8 [rows][K], 64 rows; rows >=
+// `rows` and K past its end read as zero) into an A slot.
+template <bool PACKED>
+__device__ __forceinline__ void pc_load_a(int8_t* slot, const int8_t* A, int rows, int K, int ks,
+                                          const PcLane<PACKED>& ln) {
+  if (ln.a_row >= FT_BM) return;
+  int col;
+  bool ok = ln.a_row < rows;
+  if (PACKED) {
+    const int p = ks * PC_ROWS + 16 * (ln.a_c & 1);
+    col = (ln.a_c < 2 ? 0 : K / 2) + p;
+    ok = ok && p < K / 2;
+  } else {
+    col = ks * PC_ROWS + 16 * ln.a_c;
+    ok = ok && col < K;
+  }
+  cp16(slot + ln.a_dst, ok ? A + (size_t)ln.a_row * K + col : A, ok ? 16 : 0);
+}
+
+// Raw slot -> Bu: four conflict-free 4-byte reads, a 4x4 byte transpose,
+// then per column its four K bytes (and, packed, the four high nibbles),
+// sign-extended per byte.
+template <bool PACKED>
+__device__ __forceinline__ void pc_convert(const uint8_t* slot, int8_t* Bu,
+                                           const PcLane<PACKED>& ln) {
+  uint32_t w[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) w[r] = *reinterpret_cast<const uint32_t*>(slot + ln.cv_rd + r * FT_BN);
+  transpose4x4_bytes(w);  // w[j] = 4 consecutive W rows of column 4nq + j
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (PACKED) {
+      const uint32_t lo = __vsub4((w[j] & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+      const uint32_t hi = __vsub4(((w[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+      *reinterpret_cast<uint32_t*>(Bu + ln.cv_wr[j]) = lo;
+      *reinterpret_cast<uint32_t*>(Bu + (ln.cv_wr[j] ^ 32)) = hi;
+    } else {
+      *reinterpret_cast<uint32_t*>(Bu + ln.cv_wr[j]) = w[j];
+    }
+  }
+}
+
+// acc += A . Bu over one step.  Warp w owns rows wm = 32 (w % 2).. and
+// the 16 columns wn = 16 (w / 2).. of each 64-column half of the tile:
+// acc[mi][ni] holds column 64 (ni / 2) + wn + 8 (ni % 2) + 2 (lane % 4),
+// so every warp has outputs in both halves.  a_addr(mi, kk) is the
+// address of this lane's ldmatrix row of A for rows wm + 16 mi.. and
+// local k 32 kk..
+template <bool PACKED, typename AAddr>
+__device__ __forceinline__ void pc_mma(int (&acc)[2][4][4], AAddr a_addr, const int8_t* Bu,
+                                       const PcLane<PACKED>& ln) {
+#pragma unroll
+  for (int kk = 0; kk < PcStep<PACKED>::KS / 32; ++kk) {
+    uint32_t a[2][4], b[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) ldsm4(a[mi], a_addr(mi, kk));
+#pragma unroll
+    for (int pp = 0; pp < 2; ++pp) ldsm4(b[pp], Bu + ln.b_rd[pp][kk]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_s8_16832(acc[mi][ni], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[ni >> 1][2 * (ni & 1)],
+                     b[ni >> 1][2 * (ni & 1) + 1]);
+  }
 }
 
 // Dynamic shared memory of a fused kernel whose row passes are `row_w`

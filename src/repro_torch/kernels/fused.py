@@ -54,7 +54,8 @@ __all__ = [
 ]
 
 LANE = 128
-BM = 64  # rows per M tile of the CUDA kernels (csrc/fused_rows.cuh FT_BM)
+BM = 64  # rows per M tile of fused_matmul (csrc/fused_rows.cuh FT_BM)
+FFN_BM = 64  # rows per M tile of fused_ffn (csrc/fused_ffn.cu BM)
 DCT_BLOCK = 64  # the only IDCT block the CUDA kernels take
 _NORMS = {None: 0, "rms": 1, "ln": 2}
 _ACTS = {"none": 0, "gelu": 1, "silu": 2}
@@ -186,20 +187,28 @@ def fused_ffn_plain(x, wu, wus, wd, wds, wg=None, wgs=None, bg=None, bu=None, bd
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+# argument types of each C entry point ``vq_<name>``
+ARGTYPES = {
+    "fused_matmul": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                     _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_ffn": [_P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                  _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "norm_quant": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _I, _P],
+}
+
+
+def entry(lib: ctypes.CDLL, name: str):
+    """The C entry point ``vq_<name>`` of a loaded library, typed."""
+    fn = getattr(lib, f"vq_{name}")
+    fn.argtypes = ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """The ctypes entry point ``vq_<name>`` of ``csrc/<name>.cu``."""
-    argtypes = {
-        "fused_matmul": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "fused_ffn": [_P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "norm_quant": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _I, _P],
-    }[name]
-    fn = getattr(_build.load(name), f"vq_{name}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    return entry(_build.load(name), name)
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,11 +222,11 @@ def grid_for(device: torch.device, tiles: int, per_sm: int) -> int:
     return max(1, min(tiles, per_sm * sms))
 
 
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(kernel: str, device: torch.device, *widths: int) -> int:
+def blocks_per_sm(lib: ctypes.CDLL, kernel: str, device: torch.device, *widths: int) -> int:
     """Blocks of ``kernel`` one SM holds at once at these widths (its
-    shared memory and registers decide), from ``vq_<kernel>_blocks_per_sm``."""
-    fn = getattr(_build.load(kernel), f"vq_{kernel}_blocks_per_sm")
+    shared memory and registers decide), from ``vq_<kernel>_blocks_per_sm``
+    of a loaded library."""
+    fn = getattr(lib, f"vq_{kernel}_blocks_per_sm")
     fn.argtypes = [_I] * len(widths) + [ctypes.POINTER(_I)]
     fn.restype = ctypes.c_int
     blocks = _I(0)
@@ -226,6 +235,11 @@ def _blocks_per_sm(kernel: str, device: torch.device, *widths: int) -> int:
     if rc != 0 or blocks.value < 1:
         raise RuntimeError(f"{kernel}: no block fits on an SM (cudaError {rc})")
     return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(kernel: str, device: torch.device, *widths: int) -> int:
+    return blocks_per_sm(_build.load(kernel), kernel, device, *widths)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -386,8 +400,8 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
     hidden blocked WHT → requantization at ``a_bits_mid`` → down integer
     matmul (+IDCT +bias) → f32 [M, d_out].  Each block of the kernel keeps
     its 64-row hidden tile in a scratch slice; the grid, and with it the
-    scratch, is at most the blocks the SMs hold at once (one per SM at
-    d_ff = 4096), whatever M is.
+    scratch, is at most the blocks the SMs hold at once (two per SM at
+    vggt-1b's widths), whatever M is.
     """
     kw = dict(packed_g=packed_g, packed_u=packed_u, packed_d=packed_d, a_bits_in=a_bits_in,
               a_bits_mid=a_bits_mid, norm_kind=norm_kind, norm_eps=norm_eps, act=act,
@@ -396,6 +410,23 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
     if x.device.type == "cpu":
         return fused_ffn_plain(x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u, **kw)
     _check(x.device.type == "cuda", "fused_ffn", f"unsupported device {x.device}")
+    out = fused_ffn_cuda(_kernel("fused_ffn"),
+                         functools.partial(_blocks_per_sm, "fused_ffn", x.device),
+                         x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u, **kw)
+    if x.shape[0] > 0:
+        probe.record("fused_ffn")
+    return out
+
+
+def fused_ffn_cuda(fn, per_sm, x, wu, wus, wd, wds, wg=None, wgs=None, bg=None, bu=None,
+                   bd=None, norm_u=None, *, packed_g=False, packed_u=False, packed_d=False,
+                   a_bits_in=8, a_bits_mid=8, norm_kind=None, norm_eps=1e-6, act="gelu",
+                   pro_wht_block=None, mid_wht_block=None, idct_h=False, idct_out=False,
+                   dct_block=None) -> torch.Tensor:
+    """:func:`fused_ffn` on CUDA tensors through the C entry point ``fn``
+    (typed by :func:`entry`) of some build of ``csrc/fused_ffn.cu``;
+    ``per_sm(D, d_ff, idct)`` gives that build's resident blocks per SM.
+    Checks the operands and sizes the grid and scratch; counts nothing."""
     dev = x.device
     m, d = x.shape
     dff, n_out = wu.shape[-1], wd.shape[-1]
@@ -418,19 +449,19 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
     out = torch.empty((m, n_out), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    per_sm = _blocks_per_sm("fused_ffn", dev, d, dff, int(dct is not None))
-    grid = grid_for(dev, -(-m // BM), per_sm)
-    sq = torch.empty(grid * BM * max(d, dff), dtype=torch.int8, device=dev)
-    ss = torch.empty(grid * 2 * BM, dtype=torch.float32, device=dev)
-    sh = torch.empty(grid * BM * dff, dtype=torch.float32, device=dev)
+    grid = grid_for(dev, -(-m // FFN_BM), per_sm(d, dff, int(dct is not None)))
+    sq = torch.empty(grid * FFN_BM * max(d, dff), dtype=torch.int8, device=dev)
+    ss = torch.empty(grid * 2 * FFN_BM, dtype=torch.float32, device=dev)
+    sh = torch.empty(grid * FFN_BM * dff, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch(
-            "fused_ffn",
+        rc = fn(
             x.data_ptr(), _ptr(u), norm_eps, _NORMS[norm_kind], pro_wht, a_bits_in,
             _ptr(wg), _ptr(wgs), _ptr(bg), wu.data_ptr(), wus.data_ptr(), _ptr(bu),
             wd.data_ptr(), wds.data_ptr(), _ptr(bd), int(packed_g), int(packed_u),
             int(packed_d), _ptr(dct), int(idct_h), int(idct_out), _ACTS[act], mid_wht,
             a_bits_mid, out.data_ptr(), sq.data_ptr(), ss.data_ptr(), sh.data_ptr(), m, d, dff,
-            n_out, grid,
+            n_out, grid, torch.cuda.current_stream().cuda_stream,
         )
+    if rc != 0:
+        raise RuntimeError(f"fused_ffn kernel launch failed: cudaError {rc}")
     return out

@@ -1,19 +1,21 @@
 """Measurement helpers for the card, shared by ``chip_smoke.py`` and
-``tools/time_attention_sources.py``: CUDA-event timing with the L2 flushed,
-the two-stage attention kernel's inputs at a given shape, and the count of
-its int8 probabilities that differ from the plain version's.  Nothing on
-the model path imports this module.
+``tools/time_kernel_sources.py``: CUDA-event timing with the L2 flushed,
+the two-stage attention kernel's inputs at a given shape and the count of
+its int8 probabilities that differ from the plain version's, and the
+fused FFN's inputs.  Nothing on the model path imports this module.
 """
 from __future__ import annotations
 
+import ctypes
+import math
 import statistics
 
 import torch
 
-from repro_torch.core.quantize import quantize_per_token
+from repro_torch.core.quantize import quantize_per_token, quantize_weight
 from repro_torch.kernels import two_stage_attention as tsa
 
-__all__ = ["time_ms", "attention_inputs", "pq_flips"]
+__all__ = ["time_ms", "kernel_attrs", "attention_inputs", "pq_flips", "ffn_inputs"]
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -33,6 +35,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_attrs(lib: ctypes.CDLL, kernel: str, *args) -> dict:
+    """A kernel's resources from ``vq_<kernel>_attrs(args..., int out[4])``
+    of a loaded library (ints, and floats passed as C floats): registers
+    per thread, shared memory per block in bytes, resident blocks per SM
+    and spilled bytes per thread."""
+    fn = getattr(lib, f"vq_{kernel}_attrs")
+    fn.argtypes = [ctypes.c_float if isinstance(a, float) else ctypes.c_int for a in args]
+    fn.argtypes += [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"vq_{kernel}_attrs: cudaError {rc}")
+    return {"registers": out[0], "smem_per_block": out[1], "blocks_per_sm": out[2],
+            "spill_bytes": out[3]}
 
 
 def attention_inputs(randn, b: int, hq: int, hkv: int, length: int, dh: int):
@@ -74,3 +93,31 @@ def pq_flips(args, attention=tsa.two_stage_attention) -> tuple[int, int]:
     want = tsa.two_stage_attention_plain(*a)
     differ = (got - want).abs() > 1e-3 * torch.maximum(got.abs(), want.abs())
     return int(differ.sum()), lq * lk
+
+
+def ffn_inputs(randn, m: int, d: int, dff: int, *, w_bits: int = 4, a_bits: int = 8,
+               gated: bool = False, norm: str | None = "ln", pro_wht: bool = False):
+    """One fused FFN call at [M, D] -> d_ff -> D with biases, drawn from
+    ``randn(*shape)``: weights scaled by 1/sqrt(fan-in) and quantized to
+    ``w_bits`` (4: packed), GELU (SiLU when gated), the hidden WHT over
+    4096 where d_ff allows it (else its largest power-of-two factor), the
+    64-block IDCT on the hidden and the output.  Returns ``(args, kw)`` for
+    :func:`repro_torch.kernels.fused.fused_ffn`."""
+    from repro_torch.core.versaq import make_folded_norm
+
+    wu = quantize_weight(randn(d, dff) / math.sqrt(d), w_bits)
+    wd = quantize_weight(randn(dff, d) / math.sqrt(dff), w_bits)
+    wg = quantize_weight(randn(d, dff) / math.sqrt(d), w_bits) if gated else None
+    x = randn(m, d)
+    u = make_folded_norm("ln", d, device=x.device).u if norm == "ln" else None
+    args = (x, wu.values, wu.scale.reshape(1, -1).contiguous(), wd.values,
+            wd.scale.reshape(1, -1).contiguous(), None if wg is None else wg.values,
+            None if wg is None else wg.scale.reshape(1, -1).contiguous(), None, randn(dff),
+            randn(d), u)
+    packed = w_bits == 4
+    kw = dict(packed_g=gated and packed, packed_u=packed, packed_d=packed, a_bits_in=a_bits,
+              a_bits_mid=a_bits, norm_kind=norm, act="silu" if gated else "gelu",
+              pro_wht_block=d if pro_wht else None,
+              mid_wht_block=4096 if dff % 4096 == 0 else dff & -dff, idct_h=True,
+              idct_out=True, dct_block=64)
+    return args, kw

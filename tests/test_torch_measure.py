@@ -1,5 +1,7 @@
 """The on-card measurement helpers, on the CPU: the two-stage attention
-inputs they build and the count of int8 probabilities that differ."""
+inputs they build, the count of int8 probabilities that differ, the fused
+FFN inputs, and the argument parsing, shape tables and split variants of
+``tools/time_kernel_sources.py``."""
 import torch
 
 from repro_torch.kernels import two_stage_attention as tsa
@@ -37,3 +39,94 @@ def test_pq_flips_counts_changed_probabilities():
         return out
 
     assert pq_flips(args, one_off) == (1, 70 * 70)
+
+
+# ---------------------------------------------------------------------------
+# tools/time_kernel_sources.py: its pure-Python parts
+# ---------------------------------------------------------------------------
+
+import importlib.util  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import pytest  # noqa: E402
+
+from repro_torch.kernels import fused as fz  # noqa: E402
+from repro_torch.kernels.measure import ffn_inputs  # noqa: E402
+
+
+def _tool():
+    path = Path(__file__).resolve().parents[1] / "tools" / "time_kernel_sources.py"
+    spec = importlib.util.spec_from_file_location("time_kernel_sources", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_tool_parses_kernel_and_sources():
+    tool = _tool()
+    a = tool.parse_args([])
+    assert a.kernel == "two_stage_attention" and a.sources == {} and a.split is None
+    a = tool.parse_args(["--kernel", "fused_ffn", "old=build/x.cu", "v2=y.cu", "--split", "old"])
+    assert a.kernel == "fused_ffn" and list(a.sources) == ["old", "v2"]
+    assert a.sources["old"] == Path("build/x.cu").resolve() and a.split == "old"
+    assert tool.parse_args(["--kernel", "fused_ffn", "--split", "committed"]).split == "committed"
+
+
+@pytest.mark.parametrize("argv", [
+    ["noequals"], ["=x.cu"], ["a="], ["committed=x.cu"], ["a=x.cu", "a=y.cu"],
+    ["--kernel", "wht"], ["--split", "committed"], ["--kernel", "fused_ffn", "--split", "nope"],
+])
+def test_tool_rejects_bad_arguments(argv):
+    with pytest.raises(SystemExit):
+        _tool().parse_args(argv)
+
+
+def test_tool_shape_tables_are_the_served_shapes():
+    tool = _tool()
+    m = 2 * 8 * (5 + 1024)
+    assert tool.TOKENS == m == 16464
+    assert tool.SHAPES["two_stage_attention"] == [("frame", 16, 16, 1029), ("global", 2, 16, 8232)]
+    assert tool.SHAPES["fused_ffn"] == [("served", m, 1024, 4096)]
+    assert set(tool.SHAPES) == set(tool.KERNELS)
+
+
+@pytest.mark.parametrize("table", ["pr13", "pr16"])
+def test_tool_split_edits_each_phase_once(table):
+    tool = _tool()
+    edits = tool.SPLIT_EDITS[table]
+    olds = [old for pairs in edits.values() for old, _ in pairs]
+    text = "head\n" + "\n".join(olds) + "\ntail\n"
+    variants = tool.split_sources(text)
+    assert set(variants) == set(edits)
+    assert {"no_prologue", "no_up", "no_hidden_rows", "no_down"} <= set(variants)
+    for name, pairs in edits.items():
+        for old, new in pairs:
+            assert old not in variants[name] and new in variants[name]
+        assert sum(o in variants[name] for o in olds) == len(olds) - len(pairs)
+    with pytest.raises(ValueError):
+        tool.split_sources(text.replace(edits["no_down"][0][0], ""))
+
+
+def test_tool_split_edits_match_the_present_kernel():
+    tool = _tool()
+    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc" / "fused_ffn.cu"
+    variants = tool.split_sources(src.read_text())
+    assert all(v != src.read_text() for v in variants.values())
+
+
+def test_ffn_inputs_build_a_served_style_call():
+    gen = torch.Generator().manual_seed(0)
+    args, kw = ffn_inputs(lambda *s: torch.randn(s, generator=gen), 5, 64, 256)
+    x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, u = args
+    assert x.shape == (5, 64) and wu.shape == (32, 256) and wu.dtype == torch.uint8
+    assert wd.shape == (128, 64) and wus.shape == (1, 256) and wds.shape == (1, 64)
+    assert wg is None and wgs is None and bg is None and bu.shape == (256,) and u.shape == (64,)
+    assert kw["mid_wht_block"] == 256 and kw["dct_block"] == 64 and kw["act"] == "gelu"
+    out = fz.fused_ffn(*args, **kw)
+    assert out.shape == (5, 64) and torch.isfinite(out).all()
+    args, kw = ffn_inputs(lambda *s: torch.randn(s, generator=gen), 3, 64, 2816, w_bits=8,
+                          a_bits=4, gated=True, norm="rms", pro_wht=True)
+    assert args[5].dtype == torch.int8 and args[10] is None and kw["pro_wht_block"] == 64
+    assert kw["mid_wht_block"] == 256 and kw["act"] == "silu" and kw["a_bits_mid"] == 4
+    out = fz.fused_ffn(*args, **kw)
+    assert out.shape == (3, 64) and torch.isfinite(out).all()
