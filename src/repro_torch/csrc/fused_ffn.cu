@@ -21,7 +21,9 @@
 // per SM: 258 tiles over 264 slots, one wave) and runs four phases on it:
 //   1. prologue rows, one warp a row (fused_rows.cuh: norm_row, wht_row,
 //      quant_row_by) -> the int8 input tile, which stays in shared memory
-//      for all d_ff/128 up-projection N tiles, and its scales;
+//      for all d_ff/128 up-projection N tiles (up to D = 2,848; wider
+//      inputs go to the block's scratch slice and are streamed through
+//      the ring as the down projection's A is), and its scales;
 //   2. the up projection (after the gate's, when gated): one stream of
 //      32-row weight steps over all d_ff/128 N tiles through the pipelined
 //      core of fused_rows.cuh (pc_*): a 4-slot cp.async ring of raw weight
@@ -45,7 +47,8 @@
 // A slots), the ring (16 KB), the unpacked weights (2 x 8 KB), the half
 // tile (16 KB) and the row scales: 115,200 B at vggt-1b, which leaves room
 // for two blocks per SM, so one block's row passes and epilogues can run
-// beside the other's tensor-core work.
+// beside the other's tensor-core work.  A row buffer spans the union and
+// the rest, so rows up to 57,984 floats (D and d_ff) fit.
 //
 // The hidden stays in device memory: 64 rows x 4096 f32 are 1 MiB per
 // tile, and even 16 rows (256 KB) exceed the 227 KB a block may use; the
@@ -54,10 +57,11 @@
 // needs an 8-CTA cluster holding 128 KB of it per CTA in distributed
 // shared memory: later work.
 //
-// Measured (an H100 at 700 W; PERF.md, the PR 16 findings, through
-// tools/time_kernel_sources.py): about half of the PR 13 kernel's time at
-// the served shape, at ~14x the bound.  Of the PR 13 kernel's time the two
-// matmul loops took 80%, the dense IDCT 11%, the row pass 4%.  Here the two
+// Measured (an H100 at 700 W; PERF.md, the findings on this redesign,
+// through tools/time_kernel_sources.py): about half of the time of the
+// previous kernel (commit 5aeb387) at the served shape, at ~13x the bound.
+// Of that kernel's time the two matmul loops took 80%, the dense IDCT 11%,
+// the row pass 4%.  Here the two
 // streams take most of it: ~200 instructions a warp issue per 64-deep step
 // for 16 mma.sync (the SASS), so the steps are bound by instruction issue,
 // not by loads (not waiting on cp.async changes nothing) nor by the tensor
@@ -97,30 +101,40 @@ struct Params {
   int packed_g, packed_u, packed_d;
   int idct_h, idct_out, act, mid_wht, a_mid;
   float* out;
-  int8_t* sq;  // scratch: grid x 64 x max(D, F) int8 (the int8 hidden)
+  int8_t* sq;  // scratch: grid x 64 x max(D, F) int8 (the streamed input, the int8 hidden)
   float* sh;   // scratch: grid x 64 x F f32 hidden
   int M, D, F, NO;
 };
 
-// Shared memory at widths D, F: the union region (the int8 input tile, then
-// the hidden row buffers, then the down projection's A slots) and the
-// warps that get row buffers.
+// Shared memory at widths D, F: the union region (the int8 input tile when
+// it is resident, then the hidden row buffers, then the A slots) and the
+// warps that get row buffers.  A row buffer may span the union and SPARE,
+// which are both free during the row passes, except that a resident input
+// tile leaves the prologue only SPARE.
 struct Plan {
+  int ares;    // the int8 input tile stays in shared memory (else it is streamed)
   int u;       // union bytes
   int hwarps;  // warps with a hidden row buffer (over the union and SPARE)
-  int pwarps;  // warps with a prologue row buffer (in SPARE)
+  int pwarps;  // warps with a prologue row buffer
   int bytes;   // dynamic shared memory
 };
 
+__host__ __device__ inline int round128(int b) { return (b + 127) & ~127; }
+
 __host__ __device__ inline Plan plan_for(int D, int F) {
   Plan pl;
-  int u = BM * D;
-  if (u < NST * PC_ASLOT) u = NST * PC_ASLOT;
-  if (u < F * 4) u = F * 4;
-  pl.u = (u + 127) & ~127;
+  int u = NST * PC_ASLOT;                    // the A slots
+  if (u < F * 4 - SPARE) u = F * 4 - SPARE;  // one hidden row buffer
+  pl.ares = round128(u > BM * D ? u : BM * D) + FIXED <= FT_SMEM_CAP;
+  if (pl.ares) {
+    if (u < BM * D) u = BM * D;
+  } else if (u < D * 4 - SPARE) {
+    u = D * 4 - SPARE;  // one prologue row buffer
+  }
+  pl.u = round128(u);
   pl.hwarps = (pl.u + SPARE) / (F * 4);
   if (pl.hwarps > WARPS) pl.hwarps = WARPS;
-  pl.pwarps = SPARE / (D * 4);
+  pl.pwarps = (pl.ares ? SPARE : pl.u + SPARE) / (D * 4);
   if (pl.pwarps > WARPS) pl.pwarps = WARPS;
   pl.bytes = pl.u + FIXED;
   return pl;
@@ -152,7 +166,7 @@ __device__ __forceinline__ int y_off(int r, int c) {
 }
 
 // ---------------------------------------------------------------------------
-// phase 1: prologue rows -> int8 input tile (shared memory) + scales
+// phase 1: prologue rows -> int8 input tile (shared memory or scratch) + scales
 // ---------------------------------------------------------------------------
 
 __device__ void prologue(const Params& p, const Plan& pl, unsigned char* smem, float* xs,
@@ -162,12 +176,16 @@ __device__ void prologue(const Params& p, const Plan& pl, unsigned char* smem, f
   int8_t* As = reinterpret_cast<int8_t*>(smem);
   for (int r = t.rows + tid; r < BM; r += THREADS) xs[r] = 0.f;
   if (warp >= pl.pwarps) return;
-  float* buf = reinterpret_cast<float*>(smem + pl.u) + warp * D;
+  float* buf = reinterpret_cast<float*>(smem + (pl.ares ? pl.u : 0)) + warp * D;
   for (int r = warp; r < t.rows; r += pl.pwarps) {
     __syncwarp();  // the buffer's previous row is consumed
     load_row(buf, p.x + (size_t)(t.m0 + r) * D, D, lane);
     if (p.norm != NORM_NONE) norm_row(buf, D, p.norm, p.u, p.eps, lane);
     if (p.pro_wht > 0) wht_row(buf, D, p.pro_wht, lane);
+    if (!pl.ares) {
+      quant_row(buf, D, p.a_in, t.sq + (size_t)r * D, xs + r, lane);
+      continue;
+    }
     int8_t* q = As + r * D;
     quant_row_by([&](int i) { return *reinterpret_cast<const float4*>(buf + i); }, D, p.a_in,
                  [&](int i, uint32_t w) {
@@ -299,29 +317,31 @@ __device__ __forceinline__ void epilogue(const Params& p, const Job& jb,
 // bytes and step s's unpacked weights are visible; everyone is done with
 // step s-1), queue step s+3 into the slot step s-1 held, unpack step s+1
 // into the other weight buffer, multiply step s.  After an N tile's last
-// step, its epilogue.  DOWN streams the int8 hidden's A tile beside the
-// weights; otherwise A is the resident input tile.  A gated FFN runs the
-// gate's stream (which stores act(g)), then the up stream (which scales
-// it by u), each with one packing throughout.
-template <bool PACKED, bool DOWN>
+// step, its epilogue.  ASTREAM streams the A tile (the int8 hidden, or a
+// wide int8 input) from the block's scratch slice beside the weights;
+// otherwise A is the resident input tile.  A gated FFN runs the gate's
+// stream (which stores act(g)), then the up stream (which scales it by u),
+// each with one packing throughout.
+template <bool PACKED, bool ASTREAM>
 __device__ void stream(const Params& p, const Plan& pl, unsigned char* smem, float* Y,
                        const float* sx, const Tile& t, const Job& job) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
-  const int K = DOWN ? p.F : p.D, N = DOWN ? p.NO : p.F;
+  const bool down = job.kind == KIND_DOWN;
+  const int K = down ? p.F : p.D, N = down ? p.NO : p.F;
   const int kmax = PACKED ? K / 2 : K;  // W rows
   const int spj = (kmax + PC_ROWS - 1) / PC_ROWS;  // steps per N tile
   const int S = spj * ((N + BN - 1) / BN);
   uint8_t* raw = smem + pl.u;
   int8_t* Bu = reinterpret_cast<int8_t*>(raw + NST * PC_RAW);
-  int8_t* As = reinterpret_cast<int8_t*>(smem);  // the input tile, or DOWN's A slots
+  int8_t* As = reinterpret_cast<int8_t*>(smem);  // the input tile, or the A slots
   const PcLane<PACKED> ln(tid, wm, wn);
 
   int lk = 0, ln0 = 0, ls = 0;  // loader: step in its N tile, that tile's n0, steps queued
   auto issue = [&]() {
     if (ls < S) {
       pc_load_raw<PACKED>(raw + (ls & (NST - 1)) * PC_RAW, job.w, lk, kmax, N, ln0, ln);
-      if (DOWN) pc_load_a<PACKED>(As + (ls & (NST - 1)) * PC_ASLOT, t.sq, t.rows, K, lk, ln);
+      if (ASTREAM) pc_load_a<PACKED>(As + (ls & (NST - 1)) * PC_ASLOT, t.sq, t.rows, K, lk, ln);
       if (++lk == spj) {
         lk = 0;
         ln0 += BN;
@@ -358,7 +378,7 @@ __device__ void stream(const Params& p, const Plan& pl, unsigned char* smem, flo
     issue();
     if (s + 1 < S) convert(s + 1);
     const int8_t* bu = Bu + (s & 1) * PC_BU;
-    if (DOWN) {
+    if (ASTREAM) {
       const int8_t* a = As + (s & (NST - 1)) * PC_ASLOT;
       pc_mma<PACKED>(acc, [&](int mi, int kk) { return a + ln.a_rd[mi][kk]; }, bu, ln);
     } else {
@@ -375,7 +395,7 @@ __device__ void stream(const Params& p, const Plan& pl, unsigned char* smem, flo
     if (++mk == spj) {
       Job tile = job;
       tile.n0 = mn0;
-      epilogue(p, tile, acc, sx, N, DOWN ? p.idct_out : p.idct_h, Y, t);
+      epilogue(p, tile, acc, sx, N, down ? p.idct_out : p.idct_h, Y, t);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -389,12 +409,16 @@ __device__ void stream(const Params& p, const Plan& pl, unsigned char* smem, flo
   cp_wait<0>();
 }
 
-template <bool DOWN>
 __device__ __forceinline__ void run_stream(const Params& p, const Plan& pl, unsigned char* smem,
                                            float* Y, const float* sx, const Tile& t,
                                            const Job& job) {
-  if (job.packed) stream<true, DOWN>(p, pl, smem, Y, sx, t, job);
-  else stream<false, DOWN>(p, pl, smem, Y, sx, t, job);
+  if (job.kind == KIND_DOWN || !pl.ares) {
+    if (job.packed) stream<true, true>(p, pl, smem, Y, sx, t, job);
+    else stream<false, true>(p, pl, smem, Y, sx, t, job);
+  } else {
+    if (job.packed) stream<true, false>(p, pl, smem, Y, sx, t, job);
+    else stream<false, false>(p, pl, smem, Y, sx, t, job);
+  }
 }
 
 // The streams of one projection: gate (when gated) then up, or down.
@@ -403,16 +427,16 @@ __device__ void project(const Params& p, const Plan& pl, unsigned char* smem, fl
                         const float* sx, const Tile& t) {
   if (DOWN) {
     const Job down = {p.wd, p.wds, p.bd, p.packed_d, 0, KIND_DOWN};
-    run_stream<DOWN>(p, pl, smem, Y, sx, t, down);
+    run_stream(p, pl, smem, Y, sx, t, down);
     return;
   }
   if (p.wg != nullptr) {
     const Job gate = {p.wg, p.wgs, p.bg, p.packed_g, 0, KIND_GATE};
-    run_stream<DOWN>(p, pl, smem, Y, sx, t, gate);
+    run_stream(p, pl, smem, Y, sx, t, gate);
     __syncthreads();  // the gate stream's slots and tiles are consumed
   }
   const Job up = {p.wu, p.wus, p.bu, p.packed_u, 0, KIND_UP};
-  run_stream<DOWN>(p, pl, smem, Y, sx, t, up);
+  run_stream(p, pl, smem, Y, sx, t, up);
 }
 
 // ---------------------------------------------------------------------------
@@ -595,7 +619,7 @@ __global__ void __launch_bounds__(THREADS, 2) fused_ffn_kernel(Params p) {
     prologue(p, pl, smem, xs, t);
     __syncthreads();
     project<false>(p, pl, smem, Y, xs, t);
-    __syncthreads();  // the hidden tile is written; the input tile is dead
+    __syncthreads();  // the hidden tile is written; the int8 input is dead
     hidden_rows(p, pl, reinterpret_cast<float*>(smem), hs, t);
     project<true>(p, pl, smem, Y, hs, t);
   }
@@ -636,24 +660,20 @@ extern "C" int vq_fused_ffn_attrs(int D, int F, int idct, int* out) {
   return 0;
 }
 
-// C entry point (ctypes).  wg/wgs/bg are null for a plain FFN; u, biases
-// and dct null where unused.  Requires D, F % 16 == 0 (% 32 for packed
-// weights on that input), F, NO % 4 == 0 (% 64 with the IDCT) and 16-byte
-// aligned rows; the Python wrapper checks these and sizes the scratch for
-// `grid` blocks, at most the resident ones.  Widths whose shared memory
-// exceeds a block's (D above ~2,800) return cudaErrorInvalidValue.  `ss`
-// and `dct` are unused (the row scales live in shared memory, the IDCT's
-// constants are compiled in): the entry keeps the PR 13 kernel's
-// arguments, so one launcher serves both.  Returns cudaGetLastError().
+// C entry point (ctypes).  wg/wgs/bg are null for a plain FFN; u and biases
+// null where unused.  Requires D, F % 16 == 0 (% 32 for packed weights on
+// that input), F, NO % 4 == 0 (% 64 with the IDCT) and 16-byte aligned
+// rows; the Python wrapper checks these and sizes the scratch for `grid`
+// blocks, at most the resident ones.  Widths whose row buffer exceeds a
+// block's shared memory (D or F above 57,984) return cudaErrorInvalidValue.
+// Returns cudaGetLastError().
 extern "C" int vq_fused_ffn(const void* x, const void* u, float eps, int norm, int pro_wht,
                             int a_in, const void* wg, const void* wgs, const void* bg,
                             const void* wu, const void* wus, const void* bu, const void* wd,
                             const void* wds, const void* bd, int packed_g, int packed_u,
-                            int packed_d, const void* dct, int idct_h, int idct_out, int act,
-                            int mid_wht, int a_mid, void* out, void* sq, void* ss, void* sh, int M,
-                            int D, int F, int NO, int grid, void* stream) {
-  (void)ss;
-  (void)dct;
+                            int packed_d, int idct_h, int idct_out, int act, int mid_wht,
+                            int a_mid, void* out, void* sq, void* sh, int M, int D, int F, int NO,
+                            int grid, void* stream) {
   Params p;
   p.x = static_cast<const float*>(x);
   p.u = static_cast<const float*>(u);

@@ -187,28 +187,20 @@ def fused_ffn_plain(x, wu, wus, wd, wds, wg=None, wgs=None, bg=None, bu=None, bd
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-# argument types of each C entry point ``vq_<name>``
-ARGTYPES = {
-    "fused_matmul": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fused_ffn": [_P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                  _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "norm_quant": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _I, _P],
-}
-
-
-def entry(lib: ctypes.CDLL, name: str):
-    """The C entry point ``vq_<name>`` of a loaded library, typed."""
-    fn = getattr(lib, f"vq_{name}")
-    fn.argtypes = ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """The ctypes entry point ``vq_<name>`` of ``csrc/<name>.cu``."""
-    return entry(_build.load(name), name)
+    argtypes = {
+        "fused_matmul": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "fused_ffn": [_P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "norm_quant": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _I, _P],
+    }[name]
+    fn = getattr(_build.load(name), f"vq_{name}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,11 +214,11 @@ def grid_for(device: torch.device, tiles: int, per_sm: int) -> int:
     return max(1, min(tiles, per_sm * sms))
 
 
-def blocks_per_sm(lib: ctypes.CDLL, kernel: str, device: torch.device, *widths: int) -> int:
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(kernel: str, device: torch.device, *widths: int) -> int:
     """Blocks of ``kernel`` one SM holds at once at these widths (its
-    shared memory and registers decide), from ``vq_<kernel>_blocks_per_sm``
-    of a loaded library."""
-    fn = getattr(lib, f"vq_{kernel}_blocks_per_sm")
+    shared memory and registers decide), from ``vq_<kernel>_blocks_per_sm``."""
+    fn = getattr(_build.load(kernel), f"vq_{kernel}_blocks_per_sm")
     fn.argtypes = [_I] * len(widths) + [ctypes.POINTER(_I)]
     fn.restype = ctypes.c_int
     blocks = _I(0)
@@ -235,11 +227,6 @@ def blocks_per_sm(lib: ctypes.CDLL, kernel: str, device: torch.device, *widths: 
     if rc != 0 or blocks.value < 1:
         raise RuntimeError(f"{kernel}: no block fits on an SM (cudaError {rc})")
     return blocks.value
-
-
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(kernel: str, device: torch.device, *widths: int) -> int:
-    return blocks_per_sm(_build.load(kernel), kernel, device, *widths)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -401,7 +388,8 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
     matmul (+IDCT +bias) → f32 [M, d_out].  Each block of the kernel keeps
     its 64-row hidden tile in a scratch slice; the grid, and with it the
     scratch, is at most the blocks the SMs hold at once (two per SM at
-    vggt-1b's widths), whatever M is.
+    vggt-1b's widths), whatever M is.  D and d_ff up to 57,984 (a row
+    buffer in one block's shared memory); above, no block fits.
     """
     kw = dict(packed_g=packed_g, packed_u=packed_u, packed_d=packed_d, a_bits_in=a_bits_in,
               a_bits_mid=a_bits_mid, norm_kind=norm_kind, norm_eps=norm_eps, act=act,
@@ -410,23 +398,6 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
     if x.device.type == "cpu":
         return fused_ffn_plain(x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u, **kw)
     _check(x.device.type == "cuda", "fused_ffn", f"unsupported device {x.device}")
-    out = fused_ffn_cuda(_kernel("fused_ffn"),
-                         functools.partial(_blocks_per_sm, "fused_ffn", x.device),
-                         x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u, **kw)
-    if x.shape[0] > 0:
-        probe.record("fused_ffn")
-    return out
-
-
-def fused_ffn_cuda(fn, per_sm, x, wu, wus, wd, wds, wg=None, wgs=None, bg=None, bu=None,
-                   bd=None, norm_u=None, *, packed_g=False, packed_u=False, packed_d=False,
-                   a_bits_in=8, a_bits_mid=8, norm_kind=None, norm_eps=1e-6, act="gelu",
-                   pro_wht_block=None, mid_wht_block=None, idct_h=False, idct_out=False,
-                   dct_block=None) -> torch.Tensor:
-    """:func:`fused_ffn` on CUDA tensors through the C entry point ``fn``
-    (typed by :func:`entry`) of some build of ``csrc/fused_ffn.cu``;
-    ``per_sm(D, d_ff, idct)`` gives that build's resident blocks per SM.
-    Checks the operands and sizes the grid and scratch; counts nothing."""
     dev = x.device
     m, d = x.shape
     dff, n_out = wu.shape[-1], wd.shape[-1]
@@ -441,7 +412,6 @@ def fused_ffn_cuda(fn, per_sm, x, wu, wus, wd, wds, wg=None, wgs=None, bg=None, 
     u = _f32(norm_u, d) if norm_kind == "ln" else None
     wus, wds, wgs = _f32(wus, dff), _f32(wds, n_out), _f32(wgs, dff)
     bu, bd, bg = _f32(bu, dff), _f32(bd, n_out), _f32(bg, dff)
-    dct = _dct_on(dev) if (idct_h or idct_out) else None
     _check_cuda("fused_ffn", dev, x=x, u=u, wu=wu, wus=wus, bu=bu, wd=wd, wds=wds, bd=bd,
                 wg=wg, wgs=wgs, bg=bg)
     pro_wht = _wht_arg("fused_ffn", pro_wht_block, d)
@@ -449,19 +419,17 @@ def fused_ffn_cuda(fn, per_sm, x, wu, wus, wd, wds, wg=None, wgs=None, bg=None, 
     out = torch.empty((m, n_out), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    grid = grid_for(dev, -(-m // FFN_BM), per_sm(d, dff, int(dct is not None)))
+    per_sm = _blocks_per_sm("fused_ffn", dev, d, dff, int(idct_h or idct_out))
+    grid = grid_for(dev, -(-m // FFN_BM), per_sm)
     sq = torch.empty(grid * FFN_BM * max(d, dff), dtype=torch.int8, device=dev)
-    ss = torch.empty(grid * 2 * FFN_BM, dtype=torch.float32, device=dev)
     sh = torch.empty(grid * FFN_BM * dff, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(
+        _launch(
+            "fused_ffn",
             x.data_ptr(), _ptr(u), norm_eps, _NORMS[norm_kind], pro_wht, a_bits_in,
             _ptr(wg), _ptr(wgs), _ptr(bg), wu.data_ptr(), wus.data_ptr(), _ptr(bu),
             wd.data_ptr(), wds.data_ptr(), _ptr(bd), int(packed_g), int(packed_u),
-            int(packed_d), _ptr(dct), int(idct_h), int(idct_out), _ACTS[act], mid_wht,
-            a_bits_mid, out.data_ptr(), sq.data_ptr(), ss.data_ptr(), sh.data_ptr(), m, d, dff,
-            n_out, grid, torch.cuda.current_stream().cuda_stream,
+            int(packed_d), int(idct_h), int(idct_out), _ACTS[act], mid_wht, a_bits_mid,
+            out.data_ptr(), sq.data_ptr(), sh.data_ptr(), m, d, dff, n_out, grid,
         )
-    if rc != 0:
-        raise RuntimeError(f"fused_ffn kernel launch failed: cudaError {rc}")
     return out

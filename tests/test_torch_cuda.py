@@ -196,8 +196,11 @@ def test_fused_matmul_matches_plain(dev, case):
 # one ragged tile more than the persistent grid covers in one pass at those
 # widths, so some blocks take a second tile.  d_ff 384 (3 groups of 128)
 # takes the register row pass with a partial warp, d_ff 192 (not a
-# multiple of 128; hidden WHT block 64) the one-warp-a-row pass.
+# multiple of 128; hidden WHT block 64) the one-warp-a-row pass.  D 2816 is
+# the widest input (a multiple of 64) whose int8 tile stays in shared
+# memory; from D 2880 it is streamed from scratch, up to FFN_MAX_D.
 WRAP = -1
+FFN_MAX_D = 57984
 _FFN_CASES = [
     (29, 128, 256, 4, 8, False, "ln", False, True, True),
     (32, 128, 256, 8, 8, True, "rms", False, True, False),
@@ -210,6 +213,10 @@ _FFN_CASES = [
     (300, 1024, 2816, 4, 8, True, "rms", False, True, True),
     (50, 128, 384, 4, 8, False, "ln", False, True, True),
     (40, 128, 192, 8, 8, False, "rms", False, True, True),
+    (70, 2816, 256, 4, 8, False, "ln", False, True, True),
+    (70, 2880, 256, 4, 8, False, "ln", False, True, True),
+    (65, 2880, 256, 8, 8, True, "rms", False, True, False),
+    (3, FFN_MAX_D, 128, 4, 8, False, "ln", False, True, True),
 ]
 
 
@@ -241,6 +248,16 @@ def test_fused_ffn_matches_plain(dev, case):
     want = fz.fused_ffn_plain(*args, **kw)
     # a ±1 flip of one requantized hidden entry moves its row by ~1e-3
     assert got.shape == (m, d) and _rel(got, want) < 1e-3, _rel(got, want)
+
+
+def test_fused_ffn_rejects_rows_wider_than_a_block(dev):
+    d = FFN_MAX_D + 64
+    wu = torch.zeros((d // 2, 128), dtype=torch.uint8, device=dev)
+    wd = torch.zeros((64, d), dtype=torch.uint8, device=dev)
+    ones = torch.ones((1, 128), device=dev)
+    with pytest.raises(RuntimeError, match="no block fits"):
+        fz.fused_ffn(torch.zeros((3, d), device=dev), wu, ones, wd, torch.ones((1, d), device=dev),
+                     packed_u=True, packed_d=True)
 
 
 @pytest.mark.parametrize("norm", [None, "rms", "ln"])

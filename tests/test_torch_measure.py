@@ -1,7 +1,7 @@
 """The on-card measurement helpers, on the CPU: the two-stage attention
 inputs they build, the count of int8 probabilities that differ, the fused
-FFN inputs, and the argument parsing, shape tables and split variants of
-``tools/time_kernel_sources.py``."""
+FFN inputs, and the argument parsing, shape tables and fused_ffn entry
+point types of ``tools/time_kernel_sources.py``."""
 import torch
 
 from repro_torch.kernels import two_stage_attention as tsa
@@ -65,16 +65,15 @@ def _tool():
 def test_tool_parses_kernel_and_sources():
     tool = _tool()
     a = tool.parse_args([])
-    assert a.kernel == "two_stage_attention" and a.sources == {} and a.split is None
-    a = tool.parse_args(["--kernel", "fused_ffn", "old=build/x.cu", "v2=y.cu", "--split", "old"])
+    assert a.kernel == "two_stage_attention" and a.sources == {} and a.sass is None
+    a = tool.parse_args(["--kernel", "fused_ffn", "old=build/x.cu", "v2=y.cu", "--sass", "s.txt"])
     assert a.kernel == "fused_ffn" and list(a.sources) == ["old", "v2"]
-    assert a.sources["old"] == Path("build/x.cu").resolve() and a.split == "old"
-    assert tool.parse_args(["--kernel", "fused_ffn", "--split", "committed"]).split == "committed"
+    assert a.sources["old"] == Path("build/x.cu").resolve() and a.sass == "s.txt"
 
 
 @pytest.mark.parametrize("argv", [
     ["noequals"], ["=x.cu"], ["a="], ["committed=x.cu"], ["a=x.cu", "a=y.cu"],
-    ["--kernel", "wht"], ["--split", "committed"], ["--kernel", "fused_ffn", "--split", "nope"],
+    ["--kernel", "wht"], ["--kernel"], ["--sass"],
 ])
 def test_tool_rejects_bad_arguments(argv):
     with pytest.raises(SystemExit):
@@ -90,28 +89,16 @@ def test_tool_shape_tables_are_the_served_shapes():
     assert set(tool.SHAPES) == set(tool.KERNELS)
 
 
-@pytest.mark.parametrize("table", ["pr13", "pr16"])
-def test_tool_split_edits_each_phase_once(table):
-    tool = _tool()
-    edits = tool.SPLIT_EDITS[table]
-    olds = [old for pairs in edits.values() for old, _ in pairs]
-    text = "head\n" + "\n".join(olds) + "\ntail\n"
-    variants = tool.split_sources(text)
-    assert set(variants) == set(edits)
-    assert {"no_prologue", "no_up", "no_hidden_rows", "no_down"} <= set(variants)
-    for name, pairs in edits.items():
-        for old, new in pairs:
-            assert old not in variants[name] and new in variants[name]
-        assert sum(o in variants[name] for o in olds) == len(olds) - len(pairs)
-    with pytest.raises(ValueError):
-        tool.split_sources(text.replace(edits["no_down"][0][0], ""))
+@pytest.mark.parametrize("earlier", [False, True])
+def test_tool_ffn_argtypes(earlier):
+    """The present entry point's 32 arguments; the earlier one adds the DCT
+    matrix after the packing flags and the row-scale scratch after ``sq``."""
+    import ctypes
 
-
-def test_tool_split_edits_match_the_present_kernel():
-    tool = _tool()
-    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc" / "fused_ffn.cu"
-    variants = tool.split_sources(src.read_text())
-    assert all(v != src.read_text() for v in variants.values())
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    now = [p, p, f, i, i, i] + [p] * 9 + [i] * 8 + [p] * 3 + [i] * 5 + [p]
+    want = now[:18] + [p] + now[18:26] + [p] + now[26:] if earlier else now
+    assert _tool().ffn_argtypes(earlier) == want and len(want) == 32 + 2 * earlier
 
 
 def test_ffn_inputs_build_a_served_style_call():

@@ -4,12 +4,13 @@
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
     PYTHONPATH=src python3 tools/time_kernel_sources.py [--kernel KERNEL] [NAME=PATH.cu ...]
-        [--split NAME] [--sass PATH]
+        [--sass PATH]
 
 ``--kernel`` is ``two_stage_attention`` (the default) or ``fused_ffn``.  Each
 ``NAME=PATH`` is a source with the same C entry point as
 ``src/repro_torch/csrc/<kernel>.cu`` (an earlier version unpacked from git,
-or a design variant).  A source's ``#include "..."`` resolves beside it
+or a design variant written under ``build/``, such as one with a phase
+taken out).  A source's ``#include "..."`` resolves beside it
 first, so an earlier version unpacked with its own headers builds against
 them.  The committed source and every other one are built with the port's
 own nvcc flags into ``build/kernel_sources/``, one nvcc each, all at once.
@@ -26,13 +27,10 @@ sources.
 * fused_ffn: the served FFN of vggt-1b (M = 2 x 8 x 1029 = 16464, D=1024,
   d_ff=4096, packed W4, A8, ln, tanh-GELU, hidden WHT 4096, IDCT on both,
   biases); each source is also timed with the two IDCT flags off (a launch
-  argument: a timing, not the same function).  ``--split NAME`` adds
-  textual variants of source NAME written under ``build/``: the prologue
-  rows, the up projection, the hidden row pass or the down projection
-  skipped, and for the present kernel also one block per SM (SPLIT_EDITS,
-  one table for the PR 13 kernel, ``git show
-  5aeb387:src/repro_torch/csrc/fused_ffn.cu``, and one for the present
-  one).
+  argument: a timing, not the same function).  A source without
+  ``vq_fused_ffn_attrs`` is taken to have the earlier entry point (``git
+  show 5aeb387:src/repro_torch/csrc/fused_ffn.cu``), which also takes a
+  row-scale scratch and the 64-point DCT matrix.
 
 ``--sass PATH`` writes the committed source's SASS there.
 """
@@ -40,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import math
 import subprocess
 import sys
@@ -60,30 +59,8 @@ SHAPES = {
 }
 DH = 64
 PASSES = 4
-# variants of a fused_ffn source: {variant: [(text, replacement), ...]}, one
-# phase skipped, for the PR 13 kernel (git show
-# 5aeb387:src/repro_torch/csrc/fused_ffn.cu) and for the present one, which
-# is also built with one block per SM (its shared memory padded past half
-# an SM's, its registers no longer capped at 128)
-SPLIT_EDITS = {
-    "pr13": {
-        "no_prologue": [("for (int r = warp; r < rows; r += p.row_warps)\n        prologue_row(",
-                         "for (int r = warp; r < 0; r += p.row_warps)\n        prologue_row(")],
-        "no_up": [("for (int n0 = 0; n0 < F; n0 += FT_BN) {",
-                   "for (int n0 = 0; n0 < 0; n0 += FT_BN) {")],
-        "no_hidden_rows": [("    if (rows_warp) {\n", "    if (false) {\n")],
-        "no_down": [("for (int n0 = 0; n0 < NO; n0 += FT_BN) {",
-                     "for (int n0 = 0; n0 < 0; n0 += FT_BN) {")],
-    },
-    "pr16": {
-        "no_prologue": [("    prologue(p, pl, smem, xs, t);\n", "")],
-        "no_up": [("    project<false>(p, pl, smem, Y, xs, t);\n", "")],
-        "no_hidden_rows": [("    hidden_rows(p, pl, reinterpret_cast<float*>(smem), hs, t);\n", "")],
-        "no_down": [("    project<true>(p, pl, smem, Y, hs, t);\n", "")],
-        "one_block_per_sm": [("__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 1)"),
-                             ("  pl.bytes = pl.u + FIXED;", "  pl.bytes = pl.u + FIXED + 20 * 1024;")],
-    },
-}
+_NORMS = {None: 0, "rms": 1, "ln": 2}
+_ACTS = {"none": 0, "gelu": 1, "silu": 2}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -91,7 +68,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", choices=KERNELS, default="two_stage_attention")
     ap.add_argument("sources", nargs="*", metavar="NAME=PATH")
-    ap.add_argument("--split", metavar="NAME")
     ap.add_argument("--sass", metavar="PATH")
     args = ap.parse_args(argv)
     sources = {}
@@ -101,26 +77,7 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error(f"bad source {item!r}: want NAME=PATH with a new NAME other than 'committed'")
         sources[name] = Path(path).resolve()
     args.sources = sources
-    if args.split is not None:
-        if args.kernel != "fused_ffn":
-            ap.error("--split is for --kernel fused_ffn")
-        if args.split not in sources and args.split != "committed":
-            ap.error(f"--split {args.split}: not one of the sources")
     return args
-
-
-def split_sources(text: str) -> dict[str, str]:
-    """The variants of a fused_ffn source's text under the SPLIT_EDITS table
-    all of whose texts it holds exactly once; raises if no table fits."""
-    for table in SPLIT_EDITS.values():
-        if all(text.count(old) == 1 for edits in table.values() for old, _ in edits):
-            out = {}
-            for variant, edits in table.items():
-                out[variant] = text
-                for old, new in edits:
-                    out[variant] = out[variant].replace(old, new)
-            return out
-    raise ValueError("no SPLIT_EDITS table matches this source")
 
 
 def build(sources: dict[str, Path]) -> dict[str, tuple[ctypes.CDLL, str]]:
@@ -211,16 +168,75 @@ def time_attention(torch, built) -> None:
               f"bf16 SDPA {sdpa:.4f}")
 
 
+def ffn_argtypes(earlier: bool) -> list:
+    """ctypes argument types of ``vq_fused_ffn``: the present entry point, or
+    the earlier one (commit 5aeb387), which takes the DCT matrix after the
+    packing flags and the row-scale scratch ``ss`` after ``sq``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return ([p, p, f, i, i, i] + [p] * 9 + [i] * 3 + [p] * earlier + [i] * 5
+            + [p] * (3 + earlier) + [i] * 5 + [p])
+
+
+def ffn_launcher(torch, lib: ctypes.CDLL):
+    """``ffn(*args, **kw)`` through this library's kernel, for a call of
+    ``measure.ffn_inputs``, with the grid and scratch the port's wrapper
+    gives it."""
+    from repro_torch.core import transforms
+
+    earlier = not hasattr(lib, "vq_fused_ffn_attrs")
+    fn = lib.vq_fused_ffn
+    fn.argtypes = ffn_argtypes(earlier)
+    fn.restype = ctypes.c_int
+    per_sm = lib.vq_fused_ffn_blocks_per_sm
+    per_sm.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    per_sm.restype = ctypes.c_int
+
+    @functools.lru_cache(maxsize=None)
+    def blocks(d, dff, idct):
+        b = ctypes.c_int(0)
+        if per_sm(d, dff, idct, ctypes.byref(b)) != 0:
+            raise RuntimeError("no block fits on an SM")
+        return b.value
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def ffn(x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, u, *, packed_g, packed_u, packed_d,
+            a_bits_in, a_bits_mid, norm_kind, act, pro_wht_block, mid_wht_block, idct_h,
+            idct_out, dct_block):
+        dev = x.device
+        (m, d), dff, n_out = x.shape, wu.shape[1], wd.shape[1]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = max(1, min(-(-m // 64), blocks(d, dff, int(idct_h or idct_out)) * sms))
+        out = torch.empty((m, n_out), dtype=torch.float32, device=dev)
+        sq = torch.empty(grid * 64 * max(d, dff), dtype=torch.int8, device=dev)
+        sh = torch.empty(grid * 64 * dff, dtype=torch.float32, device=dev)
+        head = [x.data_ptr(), ptr(u), 1e-6, _NORMS[norm_kind], pro_wht_block or 0, a_bits_in,
+                ptr(wg), ptr(wgs), ptr(bg), wu.data_ptr(), wus.data_ptr(), ptr(bu),
+                wd.data_ptr(), wds.data_ptr(), ptr(bd), int(packed_g), int(packed_u),
+                int(packed_d)]
+        flags = [int(idct_h), int(idct_out), _ACTS[act], mid_wht_block or 0, a_bits_mid]
+        tail = [m, d, dff, n_out, grid, torch.cuda.current_stream().cuda_stream]
+        if earlier:
+            ss = torch.empty(grid * 2 * 64, dtype=torch.float32, device=dev)
+            dct = transforms.dct_matrix(dct_block or 64, device=dev).contiguous()
+            rc = fn(*head, dct.data_ptr(), *flags, out.data_ptr(), sq.data_ptr(), ss.data_ptr(),
+                    sh.data_ptr(), *tail)
+        else:
+            rc = fn(*head, *flags, out.data_ptr(), sq.data_ptr(), sh.data_ptr(), *tail)
+        if rc != 0:
+            raise RuntimeError(f"kernel launch failed: cudaError {rc}")
+        return out
+
+    return ffn
+
+
 def time_ffn(torch, built) -> None:
     from repro_torch.kernels import fused as fz
     from repro_torch.kernels.measure import ffn_inputs, kernel_attrs, time_ms
 
     dev = torch.device("cuda")
-    runs = {}
-    for name, (lib, _) in built.items():
-        fn = fz.entry(lib, "fused_ffn")
-        runs[name] = (lambda fn, lib: lambda *a, **kw: fz.fused_ffn_cuda(
-            fn, lambda *w: fz.blocks_per_sm(lib, "fused_ffn", dev, *w), *a, **kw))(fn, lib)
+    runs = {name: ffn_launcher(torch, lib) for name, (lib, _) in built.items()}
     gen = torch.Generator(device=dev).manual_seed(1)
     for label, m, d, dff in SHAPES["fused_ffn"]:
         args, kw = ffn_inputs(lambda *s: torch.randn(s, generator=gen, device=dev), m, d, dff)
@@ -254,16 +270,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
 
     sources = {"committed": _build.CSRC / f"{args.kernel}.cu", **args.sources}
-    if args.split is not None:
-        OUT.mkdir(parents=True, exist_ok=True)
-        base = sources[args.split]
-        # beside a base unpacked under build/, so that its includes resolve as
-        # the base's do; the committed source's variants go to OUT
-        where = OUT if base.parent == _build.CSRC else base.parent
-        for variant, text in split_sources(base.read_text()).items():
-            path = where / f"{base.stem}-{variant}.cu"
-            path.write_text(text)
-            sources[f"{args.split}-{variant}"] = path
     built = build(sources)
     if args.sass:
         cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
