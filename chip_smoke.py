@@ -17,11 +17,11 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    FFN, ragged M, causal and GQA attention); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
-   ``torch.matmul`` with the blocked Hadamard); for the two-stage kernel
-   and ``fused_ffn`` also their registers, shared memory per block,
-   resident blocks per SM and spills (at the served widths), and how many
-   of the two-stage kernel's int8 probabilities differ from the plain
-   version's (read back through a one-hot V);
+   ``torch.matmul`` with the blocked Hadamard); for the two-stage kernel,
+   ``fused_matmul`` and ``fused_ffn`` also their registers, shared memory
+   per block, resident blocks per SM and spills (at the served widths), and
+   how many of the two-stage kernel's int8 probabilities differ from the
+   plain version's (read back through a one-hot V);
 3. runs vggt-1b width with 2 AA pairs once with the kernels and once with
    the plain versions, for the unfused W4A8 plan and for the fused one, and
    holds each block as in 5;
@@ -81,8 +81,8 @@ PEAK_SFU = 132 * 16 * 1.83e9
 S_FRAMES, N_PATCHES, BATCH = 8, 1024, 2
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
-# least work of the fused kernels' block IDCT.  Their dense 64x64 product
-# (128 per output) is the kernels' own cost, not the function's.
+# least work of the fused kernels' block IDCT.  Both run a generated fast
+# DCT-III (csrc/idct64.cuh) at ~10-12 operations an output.
 IDCT_OPS = (64 // 2 * 6 + 3 * 64 // 2 * 6) / 64
 KERNELS = ("quant_matmul", "two_stage_attention", "fused_matmul", "fused_ffn", "norm_quant",
            "wht")
@@ -393,6 +393,8 @@ def _kernel_fused_matmul(torch, dev, cfg, m, randn) -> dict:
     e = _Entry("fused_matmul", "src/repro_torch/csrc/fused_matmul.cu",
                "src/repro/kernels/fused.py:358",
                library_note="no single PyTorch call computes norm+WHT+quantize+int matmul+IDCT")
+    attrs, res = _attrs("fused_matmul", 3 * d, d, 0, 0)  # at wqkv's widths
+    e.d.update(attrs)
     for (label, mm, k, n, wb, ab, norm, pwht, act, ewht, rq, idct, preq, nper) in cases:
         wq = quantize_weight(randn(k, n) / math.sqrt(k), wb)
         ws = wq.scale.reshape(1, -1).contiguous()
@@ -442,7 +444,7 @@ def _kernel_fused_matmul(torch, dev, cfg, m, randn) -> dict:
         print(f"fused_matmul {label:12s} M={mm} K={k} N={n} W{wb}A{ab} norm={norm} "
               f"pro_wht={pwht} act={act} epi_wht={ewht} requant={rq} idct={idct} prequant={preq}: "
               f"err={err:.3g} {note} kernel={ms:.4f}ms plain={plain:.4f}ms bound={bound:.4f}ms "
-              f"({by}) x{nper}/forward")
+              f"({by}) x{nper}/forward; {res}")
         e.add(err, nper, ms, plain, bound, by)
     return e.done()
 

@@ -43,6 +43,10 @@
 //      hidden in scratch;
 //   4. the down projection: the same stream, with the int8 hidden's A tile
 //      streamed through the ring beside the weights.
+// The prologue rows, the stream and the epilogue are fused_rows.cuh's
+// (prologue_tile, pc_stream, pc_epilogue, finish_half), shared with
+// fused_matmul.cu; moving them there kept this kernel's time (PERF.md,
+// the findings on fused_matmul's redesign).
 // Shared memory: the union region (64 x D int8 input, hidden row buffers,
 // A slots), the ring (16 KB), the unpacked weights (2 x 8 KB), the half
 // tile (16 KB) and the row scales: 115,200 B at vggt-1b, which leaves room
@@ -73,16 +77,9 @@ namespace {
 using namespace vq;
 
 constexpr int BM = FT_BM;  // rows per M tile
-constexpr int BN = FT_BN;  // output columns per N tile
 constexpr int THREADS = FT_THREADS;
 constexpr int WARPS = FT_WARPS;
-constexpr int NST = 4;      // ring slots
-constexpr int YH = DCT_B;   // columns of the f32 half tile: one IDCT block
-// the ring, the unpacked weights and the half tile: also the prologue's row buffers
-constexpr int SPARE = NST * PC_RAW + 2 * PC_BU + BM * YH * 4;
-constexpr int FIXED = SPARE + 2 * BM * 4;  // + input and hidden row scales
-
-enum Kind { KIND_GATE = 0, KIND_UP = 1, KIND_DOWN = 2 };
+constexpr int FIXED = PC_SPARE + 2 * BM * 4;  // + input and hidden row scales
 
 struct Params {
   const float* x;
@@ -108,33 +105,31 @@ struct Params {
 
 // Shared memory at widths D, F: the union region (the int8 input tile when
 // it is resident, then the hidden row buffers, then the A slots) and the
-// warps that get row buffers.  A row buffer may span the union and SPARE,
+// warps that get row buffers.  A row buffer may span the union and PC_SPARE,
 // which are both free during the row passes, except that a resident input
-// tile leaves the prologue only SPARE.
+// tile leaves the prologue only PC_SPARE.
 struct Plan {
   int ares;    // the int8 input tile stays in shared memory (else it is streamed)
   int u;       // union bytes
-  int hwarps;  // warps with a hidden row buffer (over the union and SPARE)
+  int hwarps;  // warps with a hidden row buffer (over the union and PC_SPARE)
   int pwarps;  // warps with a prologue row buffer
   int bytes;   // dynamic shared memory
 };
 
-__host__ __device__ inline int round128(int b) { return (b + 127) & ~127; }
-
 __host__ __device__ inline Plan plan_for(int D, int F) {
   Plan pl;
-  int u = NST * PC_ASLOT;                    // the A slots
-  if (u < F * 4 - SPARE) u = F * 4 - SPARE;  // one hidden row buffer
+  int u = PC_NST * PC_ASLOT;                 // the A slots
+  if (u < F * 4 - PC_SPARE) u = F * 4 - PC_SPARE;  // one hidden row buffer
   pl.ares = round128(u > BM * D ? u : BM * D) + FIXED <= FT_SMEM_CAP;
   if (pl.ares) {
     if (u < BM * D) u = BM * D;
-  } else if (u < D * 4 - SPARE) {
-    u = D * 4 - SPARE;  // one prologue row buffer
+  } else if (u < D * 4 - PC_SPARE) {
+    u = D * 4 - PC_SPARE;  // one prologue row buffer
   }
   pl.u = round128(u);
-  pl.hwarps = (pl.u + SPARE) / (F * 4);
+  pl.hwarps = (pl.u + PC_SPARE) / (F * 4);
   if (pl.hwarps > WARPS) pl.hwarps = WARPS;
-  pl.pwarps = (pl.ares ? SPARE : pl.u + SPARE) / (D * 4);
+  pl.pwarps = (pl.ares ? PC_SPARE : pl.u + PC_SPARE) / (D * 4);
   if (pl.pwarps > WARPS) pl.pwarps = WARPS;
   pl.bytes = pl.u + FIXED;
   return pl;
@@ -146,267 +141,38 @@ struct Tile {
   float* sh;
 };
 
-// The matrix of a stream (n0: the N tile an epilogue finishes).
+// The matrix of a stream.
 struct Job {
   const uint8_t* w;
   const float* ws;
   const float* bias;
-  int packed, n0, kind;
+  int packed, kind;
 };
-
-// 16-byte chunk c of row r of the resident input tile (cpr chunks a row),
-// XOR-swizzled within each whole group of 8 chunks
-__device__ __forceinline__ int a_swz(int c, int r, int cpr) {
-  return (c | 7) < cpr ? c ^ (r & 7) : c;
-}
-
-// float (r, c) of the f32 half tile, its float4 groups swizzled by row
-__device__ __forceinline__ int y_off(int r, int c) {
-  return r * YH + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
-}
-
-// ---------------------------------------------------------------------------
-// phase 1: prologue rows -> int8 input tile (shared memory or scratch) + scales
-// ---------------------------------------------------------------------------
-
-__device__ void prologue(const Params& p, const Plan& pl, unsigned char* smem, float* xs,
-                         const Tile& t) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int D = p.D, cpr = D >> 4;
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  for (int r = t.rows + tid; r < BM; r += THREADS) xs[r] = 0.f;
-  if (warp >= pl.pwarps) return;
-  float* buf = reinterpret_cast<float*>(smem + (pl.ares ? pl.u : 0)) + warp * D;
-  for (int r = warp; r < t.rows; r += pl.pwarps) {
-    __syncwarp();  // the buffer's previous row is consumed
-    load_row(buf, p.x + (size_t)(t.m0 + r) * D, D, lane);
-    if (p.norm != NORM_NONE) norm_row(buf, D, p.norm, p.u, p.eps, lane);
-    if (p.pro_wht > 0) wht_row(buf, D, p.pro_wht, lane);
-    if (!pl.ares) {
-      quant_row(buf, D, p.a_in, t.sq + (size_t)r * D, xs + r, lane);
-      continue;
-    }
-    int8_t* q = As + r * D;
-    quant_row_by([&](int i) { return *reinterpret_cast<const float4*>(buf + i); }, D, p.a_in,
-                 [&](int i, uint32_t w) {
-                   *reinterpret_cast<uint32_t*>(q + (a_swz(i >> 4, r, cpr) << 4) + (i & 15)) = w;
-                 },
-                 xs + r, lane);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// epilogue of one N tile: dequantize -> IDCT -> bias -> act / gate / store
-// ---------------------------------------------------------------------------
-//
-// Two 64-column halves in turn: every warp writes its dequantized
-// accumulators of the half to the half tile; then finish_half.  With the
-// IDCT, threads 0-63 turn the even inputs of row t into E (idct64_even)
-// and threads 64-127 the odd ones into O (idct64_odd), in place; then
-// thread t finalizes the columns nn, 31-nn, 32+nn, 63-nn (nn = t % 16) of
-// rows t/16 + 16i, i < 4: y[n] = E[n] + O[n], y[63-n] = E[n] - O[n].  The
-// same thread writes a gate value and later scales it by the up value.
-// finish_half is one out-of-line copy with rolled loops: its straight-line
-// code runs once per N tile, and unrolled and inlined into every stream it
-// overflowed the instruction cache.
-
-// outputs of one half tile: dst rows of ld floats; kind GATE/UP write the
-// hidden (UP multiplies by the gate's act when gated), DOWN the output
-__device__ __noinline__ void finish_half(float* Y, bool idct, const float* __restrict__ bias,
-                                         int kind, int act, bool gated, float* dst, int ld,
-                                         int rows, int c0, int N) {
-  const int tid = threadIdx.x, nn = tid & 15, rs = tid >> 4;
-  if (idct) {
-    const int r = tid & 63, odd = (tid >> 6) & 1;
-    float* yr = Y + r * YH;
-    const int sw = r & 7;
-    float v[32];
-    if (tid < 2 * YH) {
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {  // x[4q..4q+3]: the even or the odd two
-        const float4 x = *reinterpret_cast<const float4*>(yr + ((q ^ sw) << 2));
-        v[2 * q] = odd ? x.y : x.x;
-        v[2 * q + 1] = odd ? x.w : x.z;
-      }
-    }
-    __syncthreads();  // the row is read before either half overwrites it
-    if (tid < 2 * YH) {
-      if (odd) idct64_odd(v);
-      else idct64_even(v);
-#pragma unroll
-      for (int q = 0; q < 8; ++q)  // E to columns 0-31, O to 32-63
-        *reinterpret_cast<float4*>(yr + (((8 * odd + q) ^ sw) << 2)) =
-            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    }
-    __syncthreads();
-  }
-#pragma unroll 1
-  for (int i = 0; i < 4; ++i) {
-    const int r = rs + 16 * i;
-    if (r >= rows) break;
-    float vals[4];  // columns nn, 31-nn, 32+nn, 63-nn
-    const float a = Y[y_off(r, nn)], b = Y[y_off(r, 31 - nn)];
-    const float c = Y[y_off(r, 32 + nn)], d = Y[y_off(r, 63 - nn)];
-    if (idct) {  // a = E[nn], b = E[31-nn], c = O[nn], d = O[31-nn]
-      vals[0] = a + c;
-      vals[1] = b + d;
-      vals[2] = b - d;
-      vals[3] = a - c;
-    } else {
-      vals[0] = a;
-      vals[1] = b;
-      vals[2] = c;
-      vals[3] = d;
-    }
-    const int cols[4] = {nn, 31 - nn, 32 + nn, 63 - nn};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = c0 + cols[e];
-      if (n >= N) continue;
-      float v = vals[e];
-      if (bias != nullptr) v += bias[n];
-      float* o = dst + (size_t)r * ld + n;
-      if (kind == KIND_DOWN) *o = v;
-      else if (kind == KIND_GATE) *o = act_fn(v, act);
-      else *o = gated ? *o * v : act_fn(v, act);
-    }
-  }
-}
-
-__device__ __forceinline__ void epilogue(const Params& p, const Job& jb,
-                                         const int (&acc)[2][4][4], const float* sx, int N,
-                                         bool idct, float* Y, const Tile& t) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
-  float* dst = jb.kind == KIND_DOWN ? p.out + (size_t)t.m0 * p.NO : t.sh;
-  const int ld = jb.kind == KIND_DOWN ? p.NO : p.F;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c0 = jb.n0 + YH * h;  // first output column of this half
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm + 16 * mi + g + 8 * hh;
-        const float s = sx[r];
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          const int ni = 2 * h + nj;
-          const int c = wn + 8 * nj + 2 * tq, n = c0 + c;
-          float2 v = make_float2(0.f, 0.f);
-          if (n < N) {  // N % 4 == 0, so n + 1 < N too
-            v.x = (float)acc[mi][ni][2 * hh] * s * jb.ws[n];
-            v.y = (float)acc[mi][ni][2 * hh + 1] * s * jb.ws[n + 1];
-          }
-          *reinterpret_cast<float2*>(Y + y_off(r, c)) = v;
-        }
-      }
-    __syncthreads();
-    if (c0 < N)
-      finish_half(Y, idct, jb.bias, jb.kind, p.act, p.wg != nullptr, dst, ld, t.rows, c0, N);
-    if (h == 0) __syncthreads();  // the half tile is read; the other half may be written
-  }
-}
 
 // ---------------------------------------------------------------------------
 // phases 2 and 4: one stream of weight steps over all N tiles of a matrix
 // ---------------------------------------------------------------------------
 //
-// Step s: wait until step s+1 has landed, one __syncthreads (step s+1's
-// bytes and step s's unpacked weights are visible; everyone is done with
-// step s-1), queue step s+3 into the slot step s-1 held, unpack step s+1
-// into the other weight buffer, multiply step s.  After an N tile's last
-// step, its epilogue.  ASTREAM streams the A tile (the int8 hidden, or a
-// wide int8 input) from the block's scratch slice beside the weights;
-// otherwise A is the resident input tile.  A gated FFN runs the gate's
-// stream (which stores act(g)), then the up stream (which scales it by u),
-// each with one packing throughout.
+// The stream (fused_rows.cuh: pc_stream) of one matrix, each N tile's
+// epilogue to the hidden (gate, up) or the output (down).  ASTREAM streams
+// the A tile (the int8 hidden, or a wide int8 input) from the block's
+// scratch slice beside the weights; otherwise A is the resident input
+// tile.  A gated FFN runs the gate's stream (which stores act(g)), then
+// the up stream (which scales it by u), each with one packing throughout.
 template <bool PACKED, bool ASTREAM>
 __device__ void stream(const Params& p, const Plan& pl, unsigned char* smem, float* Y,
                        const float* sx, const Tile& t, const Job& job) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
   const bool down = job.kind == KIND_DOWN;
   const int K = down ? p.F : p.D, N = down ? p.NO : p.F;
-  const int kmax = PACKED ? K / 2 : K;  // W rows
-  const int spj = (kmax + PC_ROWS - 1) / PC_ROWS;  // steps per N tile
-  const int S = spj * ((N + BN - 1) / BN);
-  uint8_t* raw = smem + pl.u;
-  int8_t* Bu = reinterpret_cast<int8_t*>(raw + NST * PC_RAW);
-  int8_t* As = reinterpret_cast<int8_t*>(smem);  // the input tile, or the A slots
-  const PcLane<PACKED> ln(tid, wm, wn);
-
-  int lk = 0, ln0 = 0, ls = 0;  // loader: step in its N tile, that tile's n0, steps queued
-  auto issue = [&]() {
-    if (ls < S) {
-      pc_load_raw<PACKED>(raw + (ls & (NST - 1)) * PC_RAW, job.w, lk, kmax, N, ln0, ln);
-      if (ASTREAM) pc_load_a<PACKED>(As + (ls & (NST - 1)) * PC_ASLOT, t.sq, t.rows, K, lk, ln);
-      if (++lk == spj) {
-        lk = 0;
-        ln0 += BN;
-      }
-    }
-    cp_commit();
-    ++ls;
-  };
-  auto convert = [&](int s) {
-    pc_convert<PACKED>(raw + (s & (NST - 1)) * PC_RAW, Bu + (s & 1) * PC_BU, ln);
-  };
-
-  // the up projection's A rows of this lane: row offset and swizzle
-  const int cpr = K >> 4;
-  int arow[2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) arow[mi] = wm + 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1);
-
-  for (int i = 0; i < NST - 1; ++i) issue();
-  cp_wait<NST - 2>();
-  __syncthreads();
-  convert(0);
-  int acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-  int mk = 0, mn0 = 0;  // consumer: step in its N tile, that tile's n0
-  for (int s = 0; s < S; ++s) {
-    cp_wait<NST - 3>();
-    __syncthreads();
-    issue();
-    if (s + 1 < S) convert(s + 1);
-    const int8_t* bu = Bu + (s & 1) * PC_BU;
-    if (ASTREAM) {
-      const int8_t* a = As + (s & (NST - 1)) * PC_ASLOT;
-      pc_mma<PACKED>(acc, [&](int mi, int kk) { return a + ln.a_rd[mi][kk]; }, bu, ln);
-    } else {
-      // chunk of local k 32 kk + 16 (lane / 16): packed kk 0 -> K p0.., kk 1 -> K/2 + p0..
-      // (p0 = 32 mk); int8 -> K 32 mk..
-      const int c0 = 2 * mk + (lane >> 4), c1 = (K >> 5) + c0;
-      pc_mma<PACKED>(acc,
-                     [&](int mi, int kk) {
-                       const int r = arow[mi];
-                       return As + r * K + (a_swz(kk == 0 ? c0 : c1, r, cpr) << 4);
-                     },
-                     bu, ln);
-    }
-    if (++mk == spj) {
-      Job tile = job;
-      tile.n0 = mn0;
-      epilogue(p, tile, acc, sx, N, down ? p.idct_out : p.idct_h, Y, t);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-      mk = 0;
-      mn0 += BN;
-    }
-  }
-  cp_wait<0>();
+  const bool idct = down ? p.idct_out : p.idct_h;
+  float* dst = down ? p.out + (size_t)t.m0 * p.NO : t.sh;
+  const int ld = down ? p.NO : p.F;
+  const bool gated = p.wg != nullptr;
+  pc_stream<PACKED, ASTREAM>(job.w, K, N, smem + pl.u, reinterpret_cast<int8_t*>(smem), t.sq,
+                             t.rows, [&](const int (&acc)[2][4][4], int n0) {
+                               pc_epilogue(acc, sx, job.ws, job.bias, N, n0, idct, job.kind,
+                                           p.act, gated, dst, ld, t.rows, Y);
+                             });
 }
 
 __device__ __forceinline__ void run_stream(const Params& p, const Plan& pl, unsigned char* smem,
@@ -426,16 +192,16 @@ template <bool DOWN>
 __device__ void project(const Params& p, const Plan& pl, unsigned char* smem, float* Y,
                         const float* sx, const Tile& t) {
   if (DOWN) {
-    const Job down = {p.wd, p.wds, p.bd, p.packed_d, 0, KIND_DOWN};
+    const Job down = {p.wd, p.wds, p.bd, p.packed_d, KIND_DOWN};
     run_stream(p, pl, smem, Y, sx, t, down);
     return;
   }
   if (p.wg != nullptr) {
-    const Job gate = {p.wg, p.wgs, p.bg, p.packed_g, 0, KIND_GATE};
+    const Job gate = {p.wg, p.wgs, p.bg, p.packed_g, KIND_GATE};
     run_stream(p, pl, smem, Y, sx, t, gate);
     __syncthreads();  // the gate stream's slots and tiles are consumed
   }
-  const Job up = {p.wu, p.wus, p.bu, p.packed_u, 0, KIND_UP};
+  const Job up = {p.wu, p.wus, p.bu, p.packed_u, KIND_UP};
   run_stream(p, pl, smem, Y, sx, t, up);
 }
 
@@ -454,7 +220,7 @@ __device__ void project(const Params& p, const Plan& pl, unsigned char* smem, fl
 // row's amax over its four warps, and the requantization (IEEE division,
 // rintf, the 1e-8 floor, NaN kept) straight to the int8 hidden.  Other
 // widths take one warp a row (load_row, wht_row, quant_row), each of the
-// first hwarps warps with a row buffer over the union region and SPARE.
+// first hwarps warps with a row buffer over the union region and PC_SPARE.
 
 // float i of a regrouped row: 16-byte chunk k = i / 4 at k ^ (k / 8 % 8), so
 // that the column writes and the 16-byte group reads are conflict-free
@@ -604,8 +370,8 @@ __device__ void hidden_rows(const Params& p, const Plan& pl, float* smem_f, floa
 __global__ void __launch_bounds__(THREADS, 2) fused_ffn_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan pl = plan_for(p.D, p.F);
-  float* Y = reinterpret_cast<float*>(smem + pl.u + NST * PC_RAW + 2 * PC_BU);
-  float* xs = Y + BM * YH;
+  float* Y = reinterpret_cast<float*>(smem + pl.u + PC_NST * PC_RAW + 2 * PC_BU);
+  float* xs = Y + BM * PC_YH;
   float* hs = xs + BM;
   const int tiles = (p.M + BM - 1) / BM;
   const size_t wq = p.D > p.F ? p.D : p.F;
@@ -616,7 +382,9 @@ __global__ void __launch_bounds__(THREADS, 2) fused_ffn_kernel(Params p) {
     t.m0 = tile * BM;
     t.rows = min(BM, p.M - t.m0);
     __syncthreads();  // the previous tile is done with every region
-    prologue(p, pl, smem, xs, t);
+    prologue_tile(p.x + (size_t)t.m0 * p.D, p.D, t.rows, p.norm, p.u, p.eps, p.pro_wht, p.a_in,
+                  pl.pwarps, pl.ares, reinterpret_cast<int8_t*>(smem),
+                  reinterpret_cast<float*>(smem + (pl.ares ? pl.u : 0)), t.sq, xs);  // phase 1
     __syncthreads();
     project<false>(p, pl, smem, Y, xs, t);
     __syncthreads();  // the hidden tile is written; the int8 input is dead

@@ -7,14 +7,19 @@
 //   wht_row    <- _wht_rows    blocked WHT: butterfly across the 128-wide
 //                              groups, then H_128 (here as a butterfly too)
 //   quant_row  <- _quant_rows  per-token symmetric quantization
-//   ft_outputs <- _idct_rows   block IDCT (64x64 D) + bias on an output tile
-//   ft_gemm    <- _int_dot     int8 x (int8 | packed int4) -> int32
-//   pc_*       <- _int_dot     the same product as a pipelined core: a
-//                              cp.async ring, weights unpacked in shared
-//                              memory, ldmatrix fragments (fused_ffn.cu)
-//   idct64_*   <- _idct_rows   the block IDCT as a fast 64-point DCT-III in
-//                              two halves of a row (idct64.cuh, generated;
-//                              fused_ffn.cu)
+//   prologue_tile              the three above over a 64-row tile, into a
+//                              resident int8 tile or a scratch slice
+//   pc_*       <- _int_dot     int8 x (int8 | packed int4) -> int32 as a
+//                              pipelined core: a cp.async ring, weights
+//                              unpacked in shared memory, ldmatrix
+//                              fragments, one stream over all N tiles
+//                              (pc_stream)
+//   finish_half <- _idct_rows  dequantized 64x64 half tile -> block IDCT as
+//                              a fast 64-point DCT-III (idct64.cuh,
+//                              generated) -> bias -> activation / gate
+//
+// fused_matmul.cu and fused_ffn.cu both run their projections through
+// pc_stream and pc_epilogue.
 //
 // Row routines work on one row at a time, one warp per row, on a float row
 // buffer in shared memory (width W, W % 4 == 0): a lane owns the 4-float
@@ -46,18 +51,11 @@
 
 namespace vq {
 
-constexpr int FT_BM = 64;        // rows per M tile
+constexpr int FT_BM = 64;                 // rows per M tile
 constexpr int FT_BN = TILE_BN;            // output columns per N tile
-constexpr int FT_BK = TILE_BK;            // K columns (original K index) per matmul step
-constexpr int FT_THREADS = TILE_THREADS;  // 8 warps: 2 (M) x 4 (N), 32x32 outputs each
+constexpr int FT_THREADS = TILE_THREADS;  // 8 warps: 2 (M) x 4 (N)
 constexpr int FT_WARPS = FT_THREADS / 32;
-constexpr int FT_LDS = TILE_LDS;          // int8 tile row stride in bytes
-constexpr int FT_LDY = FT_BN + 4;   // f32 output tile row stride in floats
-constexpr int DCT_B = 64;           // IDCT block
-
-// shared-memory bytes of the matmul phase: staged A and B tiles + f32 tile
-constexpr int FT_GEMM_SMEM = FT_BM * FT_LDS + FT_BN * FT_LDS + FT_BM * FT_LDY * 4;
-constexpr int FT_DCT_SMEM = DCT_B * DCT_B * 4;
+constexpr int DCT_B = 64;                 // IDCT block
 constexpr int FT_SMEM_CAP = 227 * 1024;
 
 enum { NORM_NONE = 0, NORM_RMS = 1, NORM_LN = 2 };
@@ -255,148 +253,8 @@ __device__ void prologue_row(const float* src, int W, float* buf, int norm,
 }
 
 // ---------------------------------------------------------------------------
-// integer matmul tile: 64 rows of A (int8, row stride K) x 128 columns of W
-// ---------------------------------------------------------------------------
-//
-// The staging (packed nibbles sign-extended, 4x4 bytes transposed) is
-// mma_s8.cuh's load_tile/store_tile, shared with quant_matmul.cu.
-
-// acc = A[0:64, :] . W[:, n0:n0+128] (rows >= `rows` and columns >= N read
-// as zero).  Warp w owns rows 32*(w&1).. and columns 32*(w>>1)..
-template <bool PACKED>
-__device__ void ft_gemm(int (&acc)[2][4][4], const int8_t* A, int rows, int K,
-                        const uint8_t* __restrict__ w, int N, int n0, int8_t* As, int8_t* Bs) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-  const int steps = PACKED ? (K / 2 + 31) / 32 : (K + FT_BK - 1) / FT_BK;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-  TileStage<PACKED, FT_BM> st;
-  load_tile<PACKED, FT_BM>(st, A, rows, K, w, N, n0, 0, tid);
-  for (int step = 0; step < steps; ++step) {
-    __syncthreads();  // the previous step's tiles (or an earlier phase) are consumed
-    store_tile<PACKED, FT_BM>(st, As, Bs, tid);
-    __syncthreads();
-    if (step + 1 < steps) load_tile<PACKED, FT_BM>(st, A, rows, K, w, N, n0, step + 1, tid);
-#pragma unroll
-    for (int kk = 0; kk < FT_BK; kk += 32) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* r0 = As + (wm + mi * 16 + g) * FT_LDS + kk + 4 * t;
-        const int8_t* r1 = r0 + 8 * FT_LDS;
-        a[mi][0] = lds32(r0);
-        a[mi][1] = lds32(r1);
-        a[mi][2] = lds32(r0 + 16);
-        a[mi][3] = lds32(r1 + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* br = Bs + (wn + ni * 8 + g) * FT_LDS + kk + 4 * t;
-        const uint32_t b0 = lds32(br), b1 = lds32(br + 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          mma_s8_16832(acc[mi][ni], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b0, b1);
-      }
-    }
-  }
-}
-
-// Y[r][c] = float(acc) * xs[r] * ws[n0 + c] (zero outside rows / N), in the
-// reference's order.  xs is read with plain loads (it may be scratch).
-__device__ void ft_scale(const int (&acc)[2][4][4], const float* xs, int rows,
-                         const float* __restrict__ ws, int N, int n0, float* Y) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm + mi * 16 + g + 8 * h;
-      const float sx = r < rows ? xs[r] : 0.f;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + 2 * t;
-        const int n = n0 + c;
-        float2 v = make_float2(0.f, 0.f);
-        if (r < rows && n < N) {  // N % 4 == 0, so n + 1 < N too
-          v.x = (float)acc[mi][ni][2 * h] * sx * ws[n];
-          v.y = (float)acc[mi][ni][2 * h + 1] * sx * ws[n + 1];
-        }
-        *reinterpret_cast<float2*>(Y + r * FT_LDY + c) = v;
-      }
-    }
-  }
-}
-
-// The 32 outputs a thread finalizes from the f32 tile: column c = tid % 64
-// of both 64-column blocks, rows tid/64 + 4*j.  Output i sits at row
-// ft_row(i), column n0 + ft_col(i).  With `idct`, out = sum_b Y[r][blk*64+b]
-// * D[b][c] (D from shared memory); then + bias[n].
-__device__ __forceinline__ int ft_row(int i) { return (threadIdx.x >> 6) + 4 * (i & 15); }
-__device__ __forceinline__ int ft_col(int i) { return (i >> 4) * DCT_B + (threadIdx.x & 63); }
-
-__device__ void ft_outputs(float (&v)[32], const float* Y, const float* Dsm, bool idct,
-                           const float* __restrict__ bias, int N, int n0) {
-  const int c = threadIdx.x & 63;
-  if (idct) {
-    float dc[DCT_B];
-#pragma unroll
-    for (int b = 0; b < DCT_B; ++b) dc[b] = Dsm[b * DCT_B + c];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float4* yr = reinterpret_cast<const float4*>(Y + ft_row(i) * FT_LDY + (i >> 4) * DCT_B);
-      float s = 0.f;
-#pragma unroll
-      for (int b4 = 0; b4 < DCT_B / 4; ++b4) {
-        const float4 y = yr[b4];
-        s = fmaf(y.x, dc[4 * b4], s);
-        s = fmaf(y.y, dc[4 * b4 + 1], s);
-        s = fmaf(y.z, dc[4 * b4 + 2], s);
-        s = fmaf(y.w, dc[4 * b4 + 3], s);
-      }
-      v[i] = s;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) v[i] = Y[ft_row(i) * FT_LDY + ft_col(i)];
-  }
-  if (bias != nullptr) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int n = n0 + ft_col(i);
-      if (n < N) v[i] += bias[n];
-    }
-  }
-}
-
-// One projection tile: v = idct?(dequant(A . W[:, n0:n0+128])) + bias.
-// Ends with the f32 tile consumed, so the caller may start the next tile.
-__device__ void ft_project(float (&v)[32], bool packed, const int8_t* A, const float* xs,
-                           int rows, int K, const uint8_t* __restrict__ w,
-                           const float* __restrict__ ws, const float* __restrict__ bias, int N,
-                           int n0, bool idct, const float* Dsm, int8_t* As, int8_t* Bs,
-                           float* Y) {
-  int acc[2][4][4];
-  if (packed) ft_gemm<true>(acc, A, rows, K, w, N, n0, As, Bs);
-  else ft_gemm<false>(acc, A, rows, K, w, N, n0, As, Bs);
-  ft_scale(acc, xs, rows, ws, N, n0, Y);
-  __syncthreads();
-  ft_outputs(v, Y, Dsm, idct, bias, N, n0);
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// pipelined int8 core (fused_ffn.cu): cp.async ring, weights unpacked and
-// transposed in shared memory, ldmatrix fragments
+// pipelined int8 core: cp.async ring, weights unpacked and transposed in
+// shared memory, ldmatrix fragments
 // ---------------------------------------------------------------------------
 //
 // A step covers 32 rows of W (packed rows, i.e. 64 original K indices, or
@@ -597,18 +455,289 @@ __device__ __forceinline__ void pc_mma(int (&acc)[2][4][4], AAddr a_addr, const 
   }
 }
 
-// Dynamic shared memory of a fused kernel whose row passes are `row_w`
-// floats wide: [D (if idct)] + union(matmul tiles, row buffers).  Sets
-// *row_warps to the warps that run row passes (all 8, or fewer for very
-// wide rows); returns -1 when not even one row buffer fits.
-inline int ft_smem_bytes(int row_w, bool idct, int* row_warps) {
-  const int fixed = idct ? FT_DCT_SMEM : 0;
+// ---------------------------------------------------------------------------
+// a 64-row tile through the core: resident input tile, one stream of weight
+// steps over all N tiles, the epilogue of each N tile
+// ---------------------------------------------------------------------------
+//
+// Shared memory of a kernel that runs the core (fused_matmul.cu,
+// fused_ffn.cu): a union region at offset 0 (the int8 input tile when it is
+// resident, else the A slots, and the row buffers of row passes), then
+// PC_SPARE: the ring, the unpacked weights and the f32 half tile, which
+// prologue row buffers may use before a stream starts.
+
+constexpr int PC_NST = 4;         // ring slots
+constexpr int PC_YH = DCT_B;      // columns of the f32 half tile: one IDCT block
+constexpr int PC_SPARE = PC_NST * PC_RAW + 2 * PC_BU + FT_BM * PC_YH * 4;
+
+// what finish_half does with an output value v (after the bias):
+//   KIND_GATE, or KIND_UP without a gate: store act(v) (fused_matmul's output)
+//   KIND_UP with a gate: scale the stored act(g) by v
+//   KIND_DOWN: store v
+enum Kind { KIND_GATE = 0, KIND_UP = 1, KIND_DOWN = 2 };
+
+__host__ __device__ inline int round128(int b) { return (b + 127) & ~127; }
+
+// 16-byte chunk c of row r of a resident input tile (cpr chunks a row),
+// XOR-swizzled within each whole group of 8 chunks
+__device__ __forceinline__ int a_swz(int c, int r, int cpr) {
+  return (c | 7) < cpr ? c ^ (r & 7) : c;
+}
+
+// float (r, c) of the f32 half tile, its float4 groups swizzled by row
+__device__ __forceinline__ int y_off(int r, int c) {
+  return r * PC_YH + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+}
+
+// Prologue rows of the 64-row tile at x (rows of W floats), one warp a row,
+// warps < pwarps, each with the row buffer bufs + warp * W: f32 row ->
+// folded norm -> WHT -> per-token quantization into the resident tile As
+// (`ares`) or the scratch slice sq; the scales to xs, 0 past `rows`.
+__device__ void prologue_tile(const float* __restrict__ x, int W, int rows, int norm,
+                              const float* __restrict__ u, float eps, int wht, int bits,
+                              int pwarps, bool ares, int8_t* As, float* bufs, int8_t* sq,
+                              float* xs) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cpr = W >> 4;
+  for (int r = rows + tid; r < FT_BM; r += FT_THREADS) xs[r] = 0.f;
+  if (warp >= pwarps) return;
+  float* buf = bufs + warp * W;
+  for (int r = warp; r < rows; r += pwarps) {
+    __syncwarp();  // the buffer's previous row is consumed
+    load_row(buf, x + (size_t)r * W, W, lane);
+    if (norm != NORM_NONE) norm_row(buf, W, norm, u, eps, lane);
+    if (wht > 0) wht_row(buf, W, wht, lane);
+    if (!ares) {
+      quant_row(buf, W, bits, sq + (size_t)r * W, xs + r, lane);
+      continue;
+    }
+    int8_t* q = As + r * W;
+    quant_row_by([&](int i) { return *reinterpret_cast<const float4*>(buf + i); }, W, bits,
+                 [&](int i, uint32_t w) {
+                   *reinterpret_cast<uint32_t*>(q + (a_swz(i >> 4, r, cpr) << 4) + (i & 15)) = w;
+                 },
+                 xs + r, lane);
+  }
+}
+
+// Epilogue of one N tile: dequantize -> IDCT -> bias -> act / gate / store.
+//
+// Two 64-column halves in turn: every warp writes its dequantized
+// accumulators of the half to the half tile; then finish_half.  With the
+// IDCT, threads 0-63 turn the even inputs of row t into E (idct64_even)
+// and threads 64-127 the odd ones into O (idct64_odd), in place; then
+// thread t finalizes the columns nn, 31-nn, 32+nn, 63-nn (nn = t % 16) of
+// rows t/16 + 16i, i < 4: y[n] = E[n] + O[n], y[63-n] = E[n] - O[n].  The
+// same thread writes a gate value and later scales it by the up value.
+// finish_half is one out-of-line copy with rolled loops: its straight-line
+// code runs once per N tile, and unrolled and inlined into every stream it
+// overflowed the instruction cache.
+
+// outputs of one half tile to dst rows of ld floats, columns c0.. (kind:
+// what is stored, see Kind)
+__device__ __noinline__ void finish_half(float* Y, bool idct, const float* __restrict__ bias,
+                                         int kind, int act, bool gated, float* dst, int ld,
+                                         int rows, int c0, int N) {
+  const int tid = threadIdx.x, nn = tid & 15, rs = tid >> 4;
+  if (idct) {
+    const int r = tid & 63, odd = (tid >> 6) & 1;
+    float* yr = Y + r * PC_YH;
+    const int sw = r & 7;
+    float v[32];
+    if (tid < 2 * PC_YH) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {  // x[4q..4q+3]: the even or the odd two
+        const float4 x = *reinterpret_cast<const float4*>(yr + ((q ^ sw) << 2));
+        v[2 * q] = odd ? x.y : x.x;
+        v[2 * q + 1] = odd ? x.w : x.z;
+      }
+    }
+    __syncthreads();  // the row is read before either half overwrites it
+    if (tid < 2 * PC_YH) {
+      if (odd) idct64_odd(v);
+      else idct64_even(v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)  // E to columns 0-31, O to 32-63
+        *reinterpret_cast<float4*>(yr + (((8 * odd + q) ^ sw) << 2)) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+    __syncthreads();
+  }
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) {
+    const int r = rs + 16 * i;
+    if (r >= rows) break;
+    float vals[4];  // columns nn, 31-nn, 32+nn, 63-nn
+    const float a = Y[y_off(r, nn)], b = Y[y_off(r, 31 - nn)];
+    const float c = Y[y_off(r, 32 + nn)], d = Y[y_off(r, 63 - nn)];
+    if (idct) {  // a = E[nn], b = E[31-nn], c = O[nn], d = O[31-nn]
+      vals[0] = a + c;
+      vals[1] = b + d;
+      vals[2] = b - d;
+      vals[3] = a - c;
+    } else {
+      vals[0] = a;
+      vals[1] = b;
+      vals[2] = c;
+      vals[3] = d;
+    }
+    const int cols[4] = {nn, 31 - nn, 32 + nn, 63 - nn};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = c0 + cols[e];
+      if (n >= N) continue;
+      float v = vals[e];
+      if (bias != nullptr) v += bias[n];
+      float* o = dst + (size_t)r * ld + n;
+      if (kind == KIND_DOWN) *o = v;
+      else if (kind == KIND_GATE) *o = act_fn(v, act);
+      else *o = gated ? *o * v : act_fn(v, act);
+    }
+  }
+}
+
+// The epilogue of the N tile at column n0: sx the tile's row scales, ws
+// the weight scales, dst row 0 of the tile's output (row stride ld).
+__device__ __forceinline__ void pc_epilogue(const int (&acc)[2][4][4], const float* sx,
+                                            const float* __restrict__ ws,
+                                            const float* __restrict__ bias, int N, int n0,
+                                            bool idct, int kind, int act, bool gated, float* dst,
+                                            int ld, int rows, float* Y) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c0 = n0 + PC_YH * h;  // first output column of this half
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wm + 16 * mi + g + 8 * hh;
+        const float s = sx[r];
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          const int ni = 2 * h + nj;
+          const int c = wn + 8 * nj + 2 * tq, n = c0 + c;
+          float2 v = make_float2(0.f, 0.f);
+          if (n < N) {  // N % 4 == 0, so n + 1 < N too
+            v.x = (float)acc[mi][ni][2 * hh] * s * ws[n];
+            v.y = (float)acc[mi][ni][2 * hh + 1] * s * ws[n + 1];
+          }
+          *reinterpret_cast<float2*>(Y + y_off(r, c)) = v;
+        }
+      }
+    __syncthreads();
+    if (c0 < N) finish_half(Y, idct, bias, kind, act, gated, dst, ld, rows, c0, N);
+    if (h == 0) __syncthreads();  // the half tile is read; the other half may be written
+  }
+}
+
+// One stream of weight steps over all N tiles of a [K, N] weight w (packed
+// [K/2, N] or int8 [K, N]) for the 64-row A tile: `ring` is the ring and
+// the unpacked weights (PC_NST raw slots, then two Bu buffers), As the
+// resident input tile (row stride K, chunks swizzled by a_swz) or, with
+// ASTREAM, the A slots that the tile at a_src (int8, row stride K, `rows`
+// rows) streams through beside the weights.  After an N tile's last step,
+// epi(acc, n0).
+//
+// Step s: wait until step s+1 has landed, one __syncthreads (step s+1's
+// bytes and step s's unpacked weights are visible; everyone is done with
+// step s-1), queue step s+3 into the slot step s-1 held, unpack step s+1
+// into the other weight buffer, multiply step s.  The stream runs across
+// N tiles, so the next tile's loads overlap this tile's epilogue.  Ends
+// with every cp.async landed; the caller syncs before reusing the regions.
+template <bool PACKED, bool ASTREAM, typename Epi>
+__device__ void pc_stream(const uint8_t* __restrict__ w, int K, int N, unsigned char* ring,
+                          int8_t* As, const int8_t* a_src, int rows, Epi epi) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+  const int kmax = PACKED ? K / 2 : K;  // W rows
+  const int spj = (kmax + PC_ROWS - 1) / PC_ROWS;  // steps per N tile
+  const int S = spj * ((N + FT_BN - 1) / FT_BN);
+  uint8_t* raw = ring;
+  int8_t* Bu = reinterpret_cast<int8_t*>(raw + PC_NST * PC_RAW);
+  const PcLane<PACKED> ln(tid, wm, wn);
+
+  int lk = 0, ln0 = 0, ls = 0;  // loader: step in its N tile, that tile's n0, steps queued
+  auto enqueue = [&]() {
+    if (ls < S) {
+      pc_load_raw<PACKED>(raw + (ls & (PC_NST - 1)) * PC_RAW, w, lk, kmax, N, ln0, ln);
+      if (ASTREAM) pc_load_a<PACKED>(As + (ls & (PC_NST - 1)) * PC_ASLOT, a_src, rows, K, lk, ln);
+      if (++lk == spj) {
+        lk = 0;
+        ln0 += FT_BN;
+      }
+    }
+    cp_commit();
+    ++ls;
+  };
+  auto convert = [&](int s) {
+    pc_convert<PACKED>(raw + (s & (PC_NST - 1)) * PC_RAW, Bu + (s & 1) * PC_BU, ln);
+  };
+
+  // the resident tile's A rows of this lane: row offset and swizzle
+  const int cpr = K >> 4;
+  int arow[2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) arow[mi] = wm + 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1);
+
+  for (int i = 0; i < PC_NST - 1; ++i) enqueue();
+  cp_wait<PC_NST - 2>();
+  __syncthreads();
+  convert(0);
+  int acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  int mk = 0, mn0 = 0;  // consumer: step in its N tile, that tile's n0
+  for (int s = 0; s < S; ++s) {
+    cp_wait<PC_NST - 3>();
+    __syncthreads();
+    enqueue();
+    if (s + 1 < S) convert(s + 1);
+    const int8_t* bu = Bu + (s & 1) * PC_BU;
+    if (ASTREAM) {
+      const int8_t* a = As + (s & (PC_NST - 1)) * PC_ASLOT;
+      pc_mma<PACKED>(acc, [&](int mi, int kk) { return a + ln.a_rd[mi][kk]; }, bu, ln);
+    } else {
+      // chunk of local k 32 kk + 16 (lane / 16): packed kk 0 -> K p0.., kk 1 -> K/2 + p0..
+      // (p0 = 32 mk); int8 -> K 32 mk..
+      const int c0 = 2 * mk + (lane >> 4), c1 = (K >> 5) + c0;
+      pc_mma<PACKED>(acc,
+                     [&](int mi, int kk) {
+                       const int r = arow[mi];
+                       return As + r * K + (a_swz(kk == 0 ? c0 : c1, r, cpr) << 4);
+                     },
+                     bu, ln);
+    }
+    if (++mk == spj) {
+      epi(acc, mn0);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+      mk = 0;
+      mn0 += FT_BN;
+    }
+  }
+  cp_wait<0>();
+}
+
+// Dynamic shared memory of a row kernel (norm_quant, wht) whose rows are
+// `row_w` floats wide: one row buffer per warp.  Sets *row_warps to the
+// warps that get one (all 8, or fewer for very wide rows); returns -1 when
+// not even one row buffer fits.
+inline int ft_smem_bytes(int row_w, int* row_warps) {
   int rw = FT_WARPS;
-  while (rw > 0 && fixed + rw * row_w * 4 > FT_SMEM_CAP) --rw;
+  while (rw > 0 && rw * row_w * 4 > FT_SMEM_CAP) --rw;
   *row_warps = rw;
-  if (rw == 0) return -1;
-  const int rows = rw * row_w * 4;
-  return fixed + (rows > FT_GEMM_SMEM ? rows : FT_GEMM_SMEM);
+  return rw == 0 ? -1 : rw * row_w * 4;
 }
 
 // Opt `kernel` in to `smem` bytes of dynamic shared memory and write how

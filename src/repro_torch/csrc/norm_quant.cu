@@ -42,9 +42,8 @@ __global__ void __launch_bounds__(FT_THREADS)
 extern "C" int vq_norm_quant(const void* x, const void* u, float eps, int norm, int wht, int bits,
                              void* q, void* s, int M, int D, int grid, void* stream) {
   int row_warps;
-  const int smem = ft_smem_bytes(D, false, &row_warps);
-  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = row_warps * D * 4;
+  const int bytes = ft_smem_bytes(D, &row_warps);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(norm_quant_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -45,8 +45,8 @@ __global__ void __launch_bounds__(FT_THREADS)
 // rows 16-byte aligned.  Returns cudaGetLastError().
 extern "C" int vq_wht(const void* x, void* y, int R, int d, int block, int grid, void* stream) {
   int row_warps;
-  if (ft_smem_bytes(d, false, &row_warps) < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = row_warps * d * 4;
+  const int bytes = ft_smem_bytes(d, &row_warps);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e =
       cudaFuncSetAttribute(wht_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -185,27 +185,23 @@ def fused_ffn_plain(x, wu, wus, wd, wds, wg=None, wgs=None, bg=None, bu=None, bd
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ctypes argument types of each C entry point vq_<name>
+_ARGTYPES = {
+    "fused_matmul": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+                     _P, _P, _I, _I, _I, _I, _P],
+    "fused_ffn": [_P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "norm_quant": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _I, _P],
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """The ctypes entry point ``vq_<name>`` of ``csrc/<name>.cu``."""
-    argtypes = {
-        "fused_matmul": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "fused_ffn": [_P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "norm_quant": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _I, _P],
-    }[name]
     fn = getattr(_build.load(name), f"vq_{name}")
-    fn.argtypes = argtypes
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _dct_on(device: torch.device) -> torch.Tensor:
-    return transforms.dct_matrix(DCT_BLOCK, device=device).contiguous()
 
 
 def grid_for(device: torch.device, tiles: int, per_sm: int) -> int:
@@ -342,7 +338,6 @@ def fused_matmul(x: torch.Tensor, wv: torch.Tensor, ws: torch.Tensor, xs=None, b
     _check(act in _ACTS, "fused_matmul", f"unknown activation {act!r}")
     u = _f32(norm_u, k) if (norm_kind == "ln" and not prequant) else None
     ws, bias = _f32(ws, n), _f32(bias, n)
-    dct = _dct_on(dev) if dct_block is not None else None
     _check_cuda("fused_matmul", dev, x=x, xs=xs, u=u, wv=wv, ws=ws, bias=bias)
     pro_wht = 0 if prequant else _wht_arg("fused_matmul", pro_wht_block, k)
     epi_wht = _wht_arg("fused_matmul", epi_wht_block, n)
@@ -354,20 +349,21 @@ def fused_matmul(x: torch.Tensor, wv: torch.Tensor, ws: torch.Tensor, xs=None, b
     else:
         out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m > 0:
-        per_sm = _blocks_per_sm("fused_matmul", dev, n, k, int(fullrow), int(dct is not None))
+        per_sm = _blocks_per_sm("fused_matmul", dev, n, k, int(fullrow), int(prequant))
         grid = grid_for(dev, -(-m // BM), per_sm)
-        sq = torch.empty(grid * BM * k, dtype=torch.int8, device=dev)
-        ss = torch.empty(grid * BM, dtype=torch.float32, device=dev)
-        sh = torch.empty(grid * BM * n if fullrow else 4, dtype=torch.float32, device=dev)
+        # scratch: the int8 tiles of an f32 input (read only where K is too
+        # wide for them to stay in shared memory), the f32 rows of a
+        # full-row epilogue
+        sq = None if prequant else torch.empty(grid * BM * k, dtype=torch.int8, device=dev)
+        sh = torch.empty(grid * BM * n, dtype=torch.float32, device=dev) if fullrow else None
         with torch.cuda.device(dev):
             _launch(
                 "fused_matmul",
                 None if prequant else x.data_ptr(), x.data_ptr() if prequant else None,
                 _ptr(xs), _ptr(u), norm_eps, 0 if prequant else _NORMS[norm_kind], pro_wht,
-                a_bits, wv.data_ptr(), ws.data_ptr(), int(packed), _ptr(bias), _ptr(dct),
-                int(dct is not None), _ACTS[act], epi_wht, requant_bits or 0, _ptr(out),
-                _ptr(out_q), _ptr(out_s), sq.data_ptr(), ss.data_ptr(),
-                sh.data_ptr() if fullrow else None, m, n, k, grid,
+                a_bits, wv.data_ptr(), ws.data_ptr(), int(packed), _ptr(bias),
+                int(dct_block is not None), _ACTS[act], epi_wht, requant_bits or 0, _ptr(out),
+                _ptr(out_q), _ptr(out_s), _ptr(sq), _ptr(sh), m, n, k, grid,
             )
     return (out_q, out_s) if requant_bits is not None else out
 

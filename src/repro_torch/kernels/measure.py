@@ -15,18 +15,28 @@ import torch
 from repro_torch.core.quantize import quantize_per_token, quantize_weight
 from repro_torch.kernels import two_stage_attention as tsa
 
-__all__ = ["time_ms", "kernel_attrs", "attention_inputs", "pq_flips", "ffn_inputs"]
+__all__ = ["time_ms", "kernel_attrs", "attention_inputs", "pq_flips", "ffn_inputs",
+           "fused_matmul_inputs"]
+
+
+# cycles of the spin kernel that holds the device between the flush and the
+# start event (~0.5 ms at the H100's clocks)
+SPIN_CYCLES = 1_000_000
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs; a 64 MB buffer is
-    rewritten before each run so no input stays in the 50 MB L2."""
+    rewritten before each run so no input stays in the 50 MB L2.  A spin
+    kernel then holds the device while the host enqueues ``fn`` (a
+    wrapper's argument checks and allocations), so the window holds device
+    time only, unless ``fn`` waits on the device itself."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -121,3 +131,18 @@ def ffn_inputs(randn, m: int, d: int, dff: int, *, w_bits: int = 4, a_bits: int 
               mid_wht_block=4096 if dff % 4096 == 0 else dff & -dff, idct_h=True,
               idct_out=True, dct_block=64)
     return args, kw
+
+
+def fused_matmul_inputs(randn, m: int, k: int, n: int, *, norm: str | None = "ln"):
+    """One served-style fused linear call, [M, K] f32 -> [M, N], drawn from
+    ``randn(*shape)``: packed W4 weights scaled by 1/sqrt(K), A8, the
+    ``norm`` prologue (``ln`` with its mean-recovery vector), the 64-block
+    IDCT and a bias.  Returns ``(args, kw)`` for
+    :func:`repro_torch.kernels.fused.fused_matmul`."""
+    from repro_torch.core.versaq import make_folded_norm
+
+    wq = quantize_weight(randn(k, n) / math.sqrt(k), 4)
+    x = randn(m, k)
+    u = make_folded_norm("ln", k, device=x.device).u if norm == "ln" else None
+    args = (x, wq.values, wq.scale.reshape(1, -1).contiguous(), None, randn(n), u)
+    return args, dict(packed=True, a_bits=8, norm_kind=norm, dct_block=64)

@@ -1,7 +1,9 @@
 """The on-card measurement helpers, on the CPU: the two-stage attention
 inputs they build, the count of int8 probabilities that differ, the fused
-FFN inputs, and the argument parsing, shape tables and fused_ffn entry
-point types of ``tools/time_kernel_sources.py``."""
+FFN and fused linear inputs, and the argument parsing, shape tables and
+fused_ffn and fused_matmul entry point types of
+``tools/time_kernel_sources.py``, and ``tools/rounding_sensitivity.py`` run
+with the plain versions."""
 import torch
 
 from repro_torch.kernels import two_stage_attention as tsa
@@ -51,12 +53,12 @@ from pathlib import Path  # noqa: E402
 import pytest  # noqa: E402
 
 from repro_torch.kernels import fused as fz  # noqa: E402
-from repro_torch.kernels.measure import ffn_inputs  # noqa: E402
+from repro_torch.kernels.measure import ffn_inputs, fused_matmul_inputs  # noqa: E402
 
 
-def _tool():
-    path = Path(__file__).resolve().parents[1] / "tools" / "time_kernel_sources.py"
-    spec = importlib.util.spec_from_file_location("time_kernel_sources", path)
+def _tool(name="time_kernel_sources"):
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -69,11 +71,15 @@ def test_tool_parses_kernel_and_sources():
     a = tool.parse_args(["--kernel", "fused_ffn", "old=build/x.cu", "v2=y.cu", "--sass", "s.txt"])
     assert a.kernel == "fused_ffn" and list(a.sources) == ["old", "v2"]
     assert a.sources["old"] == Path("build/x.cu").resolve() and a.sass == "s.txt"
+    assert not a.split
+    a = tool.parse_args(["--kernel", "fused_matmul", "--split", "pr16=build/pr16/fused_matmul.cu"])
+    assert a.kernel == "fused_matmul" and a.split and list(a.sources) == ["pr16"]
 
 
 @pytest.mark.parametrize("argv", [
     ["noequals"], ["=x.cu"], ["a="], ["committed=x.cu"], ["a=x.cu", "a=y.cu"],
     ["--kernel", "wht"], ["--kernel"], ["--sass"],
+    ["--split"], ["--kernel", "fused_ffn", "--split"],
 ])
 def test_tool_rejects_bad_arguments(argv):
     with pytest.raises(SystemExit):
@@ -86,6 +92,10 @@ def test_tool_shape_tables_are_the_served_shapes():
     assert tool.TOKENS == m == 16464
     assert tool.SHAPES["two_stage_attention"] == [("frame", 16, 16, 1029), ("global", 2, 16, 8232)]
     assert tool.SHAPES["fused_ffn"] == [("served", m, 1024, 4096)]
+    assert tool.SHAPES["fused_matmul"] == [("wqkv", m, 1024, 3072, "ln"), ("wo", m, 1024, 1024, None)]
+    # the split: served, then each part taken out by a launch argument, then both
+    assert tool.SPLIT == [("served", True, False), ("idct off", False, False),
+                          ("prequant", True, True), ("both off", False, True)]
     assert set(tool.SHAPES) == set(tool.KERNELS)
 
 
@@ -99,6 +109,35 @@ def test_tool_ffn_argtypes(earlier):
     now = [p, p, f, i, i, i] + [p] * 9 + [i] * 8 + [p] * 3 + [i] * 5 + [p]
     want = now[:18] + [p] + now[18:26] + [p] + now[26:] if earlier else now
     assert _tool().ffn_argtypes(earlier) == want and len(want) == 32 + 2 * earlier
+    assert _tool().ffn_argtypes(False) == fz._ARGTYPES["fused_ffn"]
+
+
+@pytest.mark.parametrize("earlier", [False, True])
+def test_tool_fused_matmul_argtypes(earlier):
+    """The present entry point's 26 arguments; the earlier one (bb9b1b2)
+    adds the DCT matrix after the bias and the row-scale scratch after
+    ``sq``, as ``kernels/fused.py`` declared it then."""
+    import ctypes
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    now = [p, p, p, p, f, i, i, i, p, p, i, p] + [i] * 4 + [p] * 5 + [i] * 4 + [p]
+    want = now[:12] + [p] + now[12:20] + [p] + now[20:] if earlier else now
+    assert _tool().fm_argtypes(earlier) == want and len(want) == 26 + 2 * earlier
+    assert _tool().fm_argtypes(False) == fz._ARGTYPES["fused_matmul"]
+
+
+def test_fused_matmul_inputs_build_a_served_style_call():
+    gen = torch.Generator().manual_seed(0)
+    for norm in ("ln", None):
+        args, kw = fused_matmul_inputs(lambda *s: torch.randn(s, generator=gen), 7, 128, 192,
+                                       norm=norm)
+        x, wv, ws, xs, bias, u = args
+        assert x.shape == (7, 128) and wv.shape == (64, 192) and wv.dtype == torch.uint8
+        assert ws.shape == (1, 192) and xs is None and bias.shape == (192,)
+        assert (u is not None) == (norm == "ln") and kw == dict(
+            packed=True, a_bits=8, norm_kind=norm, dct_block=64)
+        out = fz.fused_matmul(*args, **kw)
+        assert out.shape == (7, 192) and torch.isfinite(out).all()
 
 
 def test_ffn_inputs_build_a_served_style_call():
@@ -117,3 +156,18 @@ def test_ffn_inputs_build_a_served_style_call():
     assert kw["mid_wht_block"] == 256 and kw["act"] == "silu" and kw["a_bits_mid"] == 4
     out = fz.fused_ffn(*args, **kw)
     assert out.shape == (3, 64) and torch.isfinite(out).all()
+
+
+def test_rounding_sensitivity_on_the_cpu():
+    """On the CPU every fused call is its plain version: each call and the
+    served forward read 0; a perturbed forward reads finite numbers."""
+    import math
+
+    tool = _tool("rounding_sensitivity")
+    a = tool.parse_args([])
+    assert a.trials == 8 and a.noise == 1e-7
+    r = tool.run(trials=1, noise=1e-7)
+    assert r["device"] == "cpu"
+    assert [n for n, _ in r["calls"]] == ["fused_matmul", "fused_matmul", "fused_ffn"] * 4
+    assert all(rel == 0 for _, rel in r["calls"]) and set(r["served"].values()) == {0.0}
+    assert len(r["perturbed"]) == 1 and all(math.isfinite(v) for v in r["perturbed"][0].values())

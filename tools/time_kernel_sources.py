@@ -4,9 +4,10 @@
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
     PYTHONPATH=src python3 tools/time_kernel_sources.py [--kernel KERNEL] [NAME=PATH.cu ...]
-        [--sass PATH]
+        [--sass PATH] [--split]
 
-``--kernel`` is ``two_stage_attention`` (the default) or ``fused_ffn``.  Each
+``--kernel`` is ``two_stage_attention`` (the default), ``fused_ffn`` or
+``fused_matmul``.  Each
 ``NAME=PATH`` is a source with the same C entry point as
 ``src/repro_torch/csrc/<kernel>.cu`` (an earlier version unpacked from git,
 or a design variant written under ``build/``, such as one with a phase
@@ -31,6 +32,17 @@ sources.
   ``vq_fused_ffn_attrs`` is taken to have the earlier entry point (``git
   show 5aeb387:src/repro_torch/csrc/fused_ffn.cu``), which also takes a
   row-scale scratch and the 64-point DCT matrix.
+* fused_matmul: the served projections of the fused plan, M = 16464,
+  packed W4, A8, IDCT, bias: wqkv (K=1024, N=3072, ln prologue) and wo
+  (K=1024, N=1024, no norm).  A source without ``vq_fused_matmul_attrs`` is
+  taken to have the earlier entry point (``git show
+  bb9b1b2:src/repro_torch/csrc/fused_matmul.cu``), which also takes the
+  64-point DCT matrix and a row-scale scratch.  ``--split`` times three
+  more calls of each source, each through its launch arguments: the IDCT
+  off, a pre-quantized input (the same int8 values and scales, so no
+  prologue), and both; then prints the prologue (served less
+  pre-quantized), the IDCT (served less IDCT off) and the matmul with its
+  scaling and store (both off) of each source, in ms and as shares.
 
 ``--sass PATH`` writes the committed source's SASS there.
 """
@@ -40,13 +52,14 @@ import argparse
 import ctypes
 import functools
 import math
+import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "kernel_sources"
-KERNELS = ("two_stage_attention", "fused_ffn")
+KERNELS = ("two_stage_attention", "fused_ffn", "fused_matmul")
 S_FRAMES, N_PATCHES, N_SPECIAL, BATCH = 8, 1024, 5, 2
 TOKENS = BATCH * S_FRAMES * (N_SPECIAL + N_PATCHES)
 # shapes of a vggt-1b forward of 2 scenes x 8 frames
@@ -56,7 +69,12 @@ SHAPES = {
                             ("global", BATCH, 16, S_FRAMES * (N_SPECIAL + N_PATCHES))],
     # (label, M, D, d_ff)
     "fused_ffn": [("served", TOKENS, 1024, 4096)],
+    # (label, M, K, N, prologue norm)
+    "fused_matmul": [("wqkv", TOKENS, 1024, 3072, "ln"), ("wo", TOKENS, 1024, 1024, None)],
 }
+# the launch-argument split of fused_matmul: (variant, IDCT on, pre-quantized input)
+SPLIT = [("served", True, False), ("idct off", False, False), ("prequant", True, True),
+         ("both off", False, True)]
 DH = 64
 PASSES = 4
 _NORMS = {None: 0, "rms": 1, "ln": 2}
@@ -69,7 +87,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kernel", choices=KERNELS, default="two_stage_attention")
     ap.add_argument("sources", nargs="*", metavar="NAME=PATH")
     ap.add_argument("--sass", metavar="PATH")
+    ap.add_argument("--split", action="store_true",
+                    help="fused_matmul: also time the IDCT off, a pre-quantized input, and both")
     args = ap.parse_args(argv)
+    if args.split and args.kernel != "fused_matmul":
+        ap.error("--split is an option of --kernel fused_matmul")
     sources = {}
     for item in args.sources:
         name, sep, path = item.partition("=")
@@ -110,6 +132,19 @@ def _passes(kernels: dict, run) -> dict[str, list[float]]:
         for name in list(kernels) if i % 2 == 0 else reversed(list(kernels)):
             times[name].append(run(name))
     return times
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+@functools.lru_cache(maxsize=None)
+def _dct(torch, dev):
+    """The 64-point DCT matrix an earlier entry point reads, made once per
+    device (its wrapper cached it too), so no upload lands in a timing."""
+    from repro_torch.core import transforms
+
+    return transforms.dct_matrix(64, device=dev).contiguous()
 
 
 def _fmt(times: dict[str, list[float]]) -> str:
@@ -181,8 +216,6 @@ def ffn_launcher(torch, lib: ctypes.CDLL):
     """``ffn(*args, **kw)`` through this library's kernel, for a call of
     ``measure.ffn_inputs``, with the grid and scratch the port's wrapper
     gives it."""
-    from repro_torch.core import transforms
-
     earlier = not hasattr(lib, "vq_fused_ffn_attrs")
     fn = lib.vq_fused_ffn
     fn.argtypes = ffn_argtypes(earlier)
@@ -219,9 +252,8 @@ def ffn_launcher(torch, lib: ctypes.CDLL):
         tail = [m, d, dff, n_out, grid, torch.cuda.current_stream().cuda_stream]
         if earlier:
             ss = torch.empty(grid * 2 * 64, dtype=torch.float32, device=dev)
-            dct = transforms.dct_matrix(dct_block or 64, device=dev).contiguous()
-            rc = fn(*head, dct.data_ptr(), *flags, out.data_ptr(), sq.data_ptr(), ss.data_ptr(),
-                    sh.data_ptr(), *tail)
+            rc = fn(*head, _dct(torch, dev).data_ptr(), *flags, out.data_ptr(), sq.data_ptr(),
+                    ss.data_ptr(), sh.data_ptr(), *tail)
         else:
             rc = fn(*head, *flags, out.data_ptr(), sq.data_ptr(), sh.data_ptr(), *tail)
         if rc != 0:
@@ -245,7 +277,7 @@ def time_ffn(torch, built) -> None:
         for name, (lib, ptxas) in built.items():
             got = runs[name](*args, **kw)
             torch.cuda.synchronize()
-            rel = ((got.double() - want.double()).norm() / want.double().norm()).item()
+            rel = _rel_l2(got, want)
             attrs = (kernel_attrs(lib, "fused_ffn", d, dff, 1)
                      if hasattr(lib, "vq_fused_ffn_attrs") else "n/a")
             print(f"{label} {name}: ptxas {ptxas}; attrs {attrs}; rel L2 vs plain {rel:.3g}; "
@@ -255,6 +287,110 @@ def time_ffn(torch, built) -> None:
         print(f"{label} (M={m} D={d} d_ff={dff}) ms per pass: {_fmt(times)}")
         times = _passes(built, lambda name: time_ms(lambda: runs[name](*args, **no_idct)))
         print(f"{label} IDCT flags off, ms per pass: {_fmt(times)}")
+
+
+def fm_argtypes(earlier: bool) -> list:
+    """ctypes argument types of ``vq_fused_matmul``: the present entry point,
+    or the earlier one (commit bb9b1b2), which takes the DCT matrix after
+    the bias and the row-scale scratch ``ss`` after ``sq``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return ([p, p, p, p, f, i, i, i, p, p, i, p] + [p] * earlier + [i] * 4 + [p] * 4
+            + [p] * earlier + [p] + [i] * 4 + [p])
+
+
+def fm_launcher(torch, lib: ctypes.CDLL):
+    """``fm(x, wv, ws, xs, bias, u, **kw)`` through this library's kernel, for
+    a call of ``measure.fused_matmul_inputs`` (f32 output, no activation,
+    WHT or requantization), with the grid and scratch the port's wrapper
+    gives it.  ``xs`` given: ``x`` is the pre-quantized int8 input."""
+    earlier = not hasattr(lib, "vq_fused_matmul_attrs")
+    fn = lib.vq_fused_matmul
+    fn.argtypes = fm_argtypes(earlier)
+    fn.restype = ctypes.c_int
+    per_sm = lib.vq_fused_matmul_blocks_per_sm
+    per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    per_sm.restype = ctypes.c_int
+
+    @functools.lru_cache(maxsize=None)
+    def blocks(n, k, flag):  # flag: the IDCT (earlier), a pre-quantized input (present)
+        b = ctypes.c_int(0)
+        if per_sm(n, k, 0, flag, ctypes.byref(b)) != 0:
+            raise RuntimeError("no block fits on an SM")
+        return b.value
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def fm(x, wv, ws, xs, bias, u, *, packed, a_bits, norm_kind, dct_block):
+        dev = x.device
+        (m, k), n = x.shape, wv.shape[1]
+        preq, idct = xs is not None, dct_block is not None
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = max(1, min(-(-m // 64), blocks(n, k, int(idct if earlier else preq)) * sms))
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        sq = torch.empty(grid * 64 * k, dtype=torch.int8, device=dev)
+        head = [None if preq else x.data_ptr(), x.data_ptr() if preq else None, ptr(xs), ptr(u),
+                1e-6, 0 if preq else _NORMS[norm_kind], 0, a_bits, wv.data_ptr(), ws.data_ptr(),
+                int(packed), ptr(bias)]
+        flags = [int(idct), _ACTS["none"], 0, 0, out.data_ptr(), None, None, sq.data_ptr()]
+        tail = [None, m, n, k, grid, torch.cuda.current_stream().cuda_stream]
+        if earlier:
+            ss = torch.empty(grid * 64, dtype=torch.float32, device=dev)
+            dct = _dct(torch, dev).data_ptr() if idct else None
+            rc = fn(*head, dct, *flags, ss.data_ptr(), *tail)
+        else:
+            rc = fn(*head, *flags, *tail)
+        if rc != 0:
+            raise RuntimeError(f"kernel launch failed: cudaError {rc}")
+        return out
+
+    return fm
+
+
+def time_fused_matmul(torch, built, split: bool) -> None:
+    from repro_torch.kernels import fused as fz
+    from repro_torch.kernels.measure import fused_matmul_inputs, kernel_attrs, time_ms
+
+    dev = torch.device("cuda")
+    runs = {name: fm_launcher(torch, lib) for name, (lib, _) in built.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for label, m, k, n, norm in SHAPES["fused_matmul"]:
+        args, kw = fused_matmul_inputs(lambda *s: torch.randn(s, generator=gen, device=dev), m, k,
+                                       n, norm=norm)
+        xq, xs = fz.norm_quant_plain(args[0], args[5], norm_kind=norm, a_bits=kw["a_bits"])
+        pre = (xq, *args[1:3], xs, args[4], None)
+        calls = {v: (pre if preq else args,
+                     {**kw, "dct_block": 64 if idct else None,
+                      "norm_kind": None if preq else norm})
+                 for v, idct, preq in (SPLIT if split else SPLIT[:1])}
+        for variant, (a, vkw) in calls.items():
+            want = fz.fused_matmul_plain(*a, **vkw)
+            for name, (lib, ptxas) in built.items():
+                got = runs[name](*a, **vkw)
+                torch.cuda.synchronize()
+                attrs = (kernel_attrs(lib, "fused_matmul", n, k, 0, int(a is pre))
+                         if hasattr(lib, "vq_fused_matmul_attrs") else "n/a")
+                print(f"{label} {variant} {name}: ptxas {ptxas}; attrs {attrs}; rel L2 vs plain "
+                      f"{_rel_l2(got, want):.3g}; max |err| {(got - want).abs().max().item():.3g}")
+            del want, got
+        keys = [f"{name}:{v}" for name in built for v in calls]
+
+        def run(key):
+            name, variant = key.split(":")
+            a, vkw = calls[variant]
+            return time_ms(lambda: runs[name](*a, **vkw))
+
+        times = _passes(keys, run)
+        print(f"{label} (M={m} K={k} N={n}) ms per pass: {_fmt(times)}")
+        if split:
+            for name in built:
+                med = {v: statistics.median(times[f"{name}:{v}"]) for v in calls}
+                parts = {"prologue": med["served"] - med["prequant"],
+                         "IDCT": med["served"] - med["idct off"],
+                         "matmul+store": med["both off"]}
+                parts["rest"] = med["served"] - sum(parts.values())
+                print(f"{label} {name} split of {med['served']:.4f} ms: " + ", ".join(
+                    f"{p} {t:.4f} ({100 * t / med['served']:.1f}%)" for p, t in parts.items()))
 
 
 def main(argv=None) -> int:
@@ -278,8 +414,10 @@ def main(argv=None) -> int:
             check=True).stdout)
     if args.kernel == "two_stage_attention":
         time_attention(torch, built)
-    else:
+    elif args.kernel == "fused_ffn":
         time_ffn(torch, built)
+    else:
+        time_fused_matmul(torch, built, args.split)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0
