@@ -17,11 +17,12 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    FFN, ragged M, causal and GQA attention); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
-   ``torch.matmul`` with the blocked Hadamard); for the two-stage kernel,
-   ``fused_matmul`` and ``fused_ffn`` also their registers, shared memory
-   per block, resident blocks per SM and spills (at the served widths), and
-   how many of the two-stage kernel's int8 probabilities differ from the
-   plain version's (read back through a one-hot V);
+   ``torch.matmul`` with the blocked Hadamard); for ``quant_matmul``, the
+   two-stage kernel, ``fused_matmul`` and ``fused_ffn`` also their
+   registers, shared memory per block, resident blocks per SM and spills
+   (at the served widths), and how many of the two-stage kernel's int8
+   probabilities differ from the plain version's (read back through a
+   one-hot V);
 3. runs vggt-1b width with 2 AA pairs once with the kernels and once with
    the plain versions, for the unfused W4A8 plan and for the fused one, and
    holds each block as in 5;
@@ -257,6 +258,8 @@ def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
              ("w8 check", d, dff, 8, 0)]
     e = _Entry("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
                "src/repro/kernels/quant_matmul.py:151")
+    attrs, res = _attrs("quant_matmul", d, d, 1)  # the W4 instance, at wq's widths
+    e.d.update(attrs)
     for label, k, n, bits, per_pair in cases:
         nper = per_pair * cfg.n_layers
         xq = quantize_per_token(randn(m, k), 8)
@@ -277,7 +280,7 @@ def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
         bound, by = _bound_ms(nbytes, 2.0 * m * k * n)
         print(f"quant_matmul {label:12s} M={m} K={k} N={n} W{bits}: err={err:.3g} "
               f"kernel={ms:.4f}ms plain={plain:.4f}ms int_mm={lib:.4f}ms bound={bound:.4f}ms "
-              f"({by}) x{nper}/forward")
+              f"({by}) x{nper}/forward; {res}")
         e.add(err, nper, ms, plain, bound, by, lib)
     return e.done()
 

@@ -52,8 +52,8 @@
 namespace vq {
 
 constexpr int FT_BM = 64;                 // rows per M tile
-constexpr int FT_BN = TILE_BN;            // output columns per N tile
-constexpr int FT_THREADS = TILE_THREADS;  // 8 warps: 2 (M) x 4 (N)
+constexpr int FT_BN = 128;                // output columns per N tile
+constexpr int FT_THREADS = 256;           // 8 warps: 2 (M) x 4 (N)
 constexpr int FT_WARPS = FT_THREADS / 32;
 constexpr int DCT_B = 64;                 // IDCT block
 constexpr int FT_SMEM_CAP = 227 * 1024;
@@ -269,28 +269,6 @@ __device__ void prologue_row(const float* src, int W, float* buf, int norm,
 // groups.  The packed layout is the reference's: packed row p holds K row
 // p (low nibble) and K/2 + p (high nibble), so a packed step's local k
 // 0..31 are K indices p0.. and its local 32..63 are K/2 + p0..
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, the first `bytes` read and the rest zero
-__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // four 8x8 b16 matrices; lane i addresses row i % 8 of matrix i / 8 and
 // receives bytes 4(i%4).. of row i/4 of each (an s8 fragment register)

@@ -1,139 +1,297 @@
 // Integer matmul for VersaQ quantized linears on Hopper (sm_90a):
 //   y[M,N] = float(xv[M,K] . wv[K,N]) * xs[M] * ws[N]
 //
-// Replaces the Pallas TPU kernel repro/kernels/quant_matmul.py::quant_matmul
-// (_w8_kernel, _w4_kernel).
+// Replaces the Pallas TPU kernel src/repro/kernels/quant_matmul.py:151
+// quant_matmul (_w8_kernel, _w4_kernel).
 //
 // * W8: wv is int8 [K, N].
 // * W4: wv is packed uint8 [K/2, N]; packed row p holds original K-row p in
 //   its low nibble and K-row K/2 + p in its high nibble (the reference's
-//   interleave-free layout).  One K step takes 32 packed rows and pairs them
-//   with the two contiguous activation column ranges [p0, p0+32) and
-//   [K/2 + p0, K/2 + p0 + 32) — the same trick as _w4_kernel's two index
-//   maps.  Nibbles are sign-extended to s8 while the tile is staged into
-//   shared memory: Hopper's tensor cores have no s4 type.
+//   interleave-free layout).  A step takes 32 packed rows and pairs their
+//   low nibbles with activation columns [p0, p0+32) and their high nibbles
+//   with [K/2 + p0, K/2 + p0 + 32) — the same trick as _w4_kernel's two
+//   index maps.  Nibbles are sign-extended to s8 in shared memory: Hopper's
+//   tensor cores have no s4 type.
 //
-// Design.  One 256-thread block computes one 128x128 output tile and loops
-// over K in steps of 64 (the TPU's cross-grid-step VMEM accumulator becomes
-// this in-block loop; blocks run in any order).  The tile staging, with the
-// nibble unpacking, is mma_s8.cuh's load_tile/store_tile.  Eight warps, 4 along M by 2
-// along N, each own a 32x64 sub-tile held as int32 accumulators in
-// registers and issue mma.sync.m16n8k32 s8.s8.s32.  The next K step's tiles
-// are fetched into registers while the current one is multiplied (register
-// double buffering).  The int32 sum is exact; the scales are applied once,
-// in the order float(acc) * xs * ws, as in the reference.  Ragged M and N
-// edges are masked in the kernel (zero-filled loads, guarded stores).
+// What bounds it.  At the served shapes (vggt-1b, M = 16464 tokens, W4A8)
+// the card's bound is 0.025 ms at K x N = 1024 x 1024 and 0.086 ms at
+// 1024 x 4096 (bytes: the f32 output), 0.070 ms at 4096 x 1024 (int8
+// operations at 1,979 TOP/s).  The earlier mma.sync core ran all three at
+// ~200-220 TOP/s, 7-9x those bounds, bound by instruction issue (tiles
+// staged through registers, 16 mma.sync and 24 lds32 a warp per 64-deep
+// step): only warpgroup MMA reaches the tensor cores' full rate.
 //
-// What bounds it.  At the model's shapes (M = 8232 tokens, K = 1024,
-// N = 4096) the operations take ~35 us at the 1,979 TOP/s int8 peak, while
-// the f32 output alone is 135 MB, ~40 us at 3.35 TB/s: the kernel is
-// bound by the bytes of its f32 output.  The design writes each output
-// element once and reads x and w through shared-memory tiles; a faster
-// version would use wgmma with TMA-fed multi-stage pipelines.
+// Design.  One 256-thread block computes one 128x128 output tile (no
+// persistence; the TPU's cross-grid-step accumulator becomes the block's K
+// loop).  Two warpgroups, each owning 64 rows, issue
+// wgmma.m64n128k32.s32.s8.s8 (wgmma_s8.cuh) on K-major operands in shared
+// memory, two per 64-deep step.
+// * A (xv, row-major, so already K-major) goes from device memory straight
+//   into the operand layout by 16-byte cp.async.
+// * W arrives N-contiguous.  Each step's raw weight bytes go by cp.async
+//   into a raw slot; the block's threads then turn the slot into the
+//   K-major B operand (4x4 byte transposes, nibble sign extension), one
+//   step ahead of the wgmma that reads it, into one of two B buffers.
+// * A ring of STAGES cp.async slots (A and raw W) keeps STAGES - 2 steps
+//   of loads in flight beyond the one being converted.  At step s the
+//   block issues the wgmma of s, waits until only it is in flight (so step
+//   s-1's slot and B buffer are free), loads step s + STAGES - 1, converts
+//   step s + 1, and fences the generic-proxy writes (cp.async data and the
+//   converted B) for the async proxy before the barrier.
+// * Two blocks fit on an SM (~80 KB of shared memory, <= 128 registers),
+//   so one block's epilogue overlaps the other's main loop.
+// The int32 sum is exact; the scales are applied once, in the order
+// float(acc) * xs * ws, as in the reference.  Ragged M, N and K edges are
+// zero-filled at the loads (cp.async with src-size 0) and masked at the
+// stores.
 #include "mma_s8.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = vq::TILE_BN;
-constexpr int BK = vq::TILE_BK;          // K columns (original K index) per step
-constexpr int THREADS = vq::TILE_THREADS;  // 8 warps: 4 (M) x 2 (N), 32x64 each
-constexpr int LDS = vq::TILE_LDS;        // smem row stride in bytes
+constexpr int BM = 128;      // output rows per block: two warpgroups of 64
+constexpr int BN = 128;      // output columns per block
+constexpr int BK = 64;       // K bytes of A per step: two k32 slices
+constexpr int THREADS = 256;
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * BK;
+constexpr int B_BYTES = BN * BK;
+using ALayout = vq::KMajor<BM>;
+using BLayout = vq::KMajor<BN>;
 
 template <bool PACKED>
-__global__ void __launch_bounds__(THREADS)
-    quant_matmul_kernel(const int8_t* __restrict__ xv, const float* __restrict__ xs,
-                        const uint8_t* __restrict__ wv, const float* __restrict__ ws,
-                        float* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) int8_t As[BM * LDS];  // [m][k]
-  __shared__ __align__(16) int8_t Bs[BN * LDS];  // [n][k]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int steps = PACKED ? (K / 2 + 31) / 32 : (K + BK - 1) / BK;
+struct Geo {
+  static constexpr int RAW_ROWS = PACKED ? 32 : 64;  // W rows per step
+  static constexpr int RAW_BYTES = RAW_ROWS * BN;
+  static constexpr int STAGE_BYTES = A_BYTES + RAW_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * B_BYTES;
+};
 
-  int acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+// The raw slot is row-major [W row q][BN bytes], with the 16-byte chunk c
+// of row q at chunk c ^ raw_swz(q): the conversion's reads (rows 4kq..,
+// 8 columns of 4 bytes per kq, four kq per warp) then hit 32 banks.
+__device__ __forceinline__ int raw_swz(int q) { return 2 * ((q >> 2) & 3); }
 
-  const int8_t* A = xv + (size_t)m0 * K;
-  vq::TileStage<PACKED, BM> st;
-  vq::load_tile<PACKED, BM>(st, A, M - m0, K, wv, N, n0, 0, tid);
-  for (int step = 0; step < steps; ++step) {
-    __syncthreads();  // previous step's fragments are consumed
-    vq::store_tile<PACKED, BM>(st, As, Bs, tid);
-    __syncthreads();
-    if (step + 1 < steps) vq::load_tile<PACKED, BM>(st, A, M - m0, K, wv, N, n0, step + 1, tid);
+// One step's loads into a ring slot: A's 128 rows x 4 chunks of 16 bytes
+// and the raw W rows of the step, zero past M, K and N.
+template <bool PACKED, bool VEC16>
+__device__ __forceinline__ void load_stage(uint8_t* slot, const int8_t* __restrict__ xv,
+                                           const uint8_t* __restrict__ wv, int M, int N, int K,
+                                           int m0, int n0, int step, int tid) {
+  int8_t* as = reinterpret_cast<int8_t*>(slot);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[2][4];
+  for (int i = 0; i < BM * BK / 16 / THREADS; ++i) {
+    const int c = tid + i * THREADS;  // a warp: 8 rows x 4 chunks
+    const int row = (c >> 5) * 8 + (c & 7), j = (c >> 3) & 3;
+    int col;
+    bool ok;
+    if (PACKED) {
+      const int p = step * 32 + (j & 1) * 16;
+      col = (j < 2 ? 0 : K / 2) + p;
+      ok = p < K / 2;
+    } else {
+      col = step * BK + 16 * j;
+      ok = col < K;
+    }
+    ok = ok && m0 + row < M;
+    vq::cp16(as + ALayout::offset(row, 16 * j), ok ? xv + (size_t)(m0 + row) * K + col : xv,
+             ok ? 16 : 0);
+  }
+  constexpr int ROWS = Geo<PACKED>::RAW_ROWS;
+  uint8_t* raw = slot + A_BYTES;
+  const int kmax = PACKED ? K / 2 : K;
+  if (VEC16) {  // N % 16 == 0 and wv 16-byte aligned
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* r0 = As + (wm + mi * 16 + g) * LDS + kk + 4 * t;
-        const int8_t* r1 = r0 + 8 * LDS;
-        a[mi][0] = vq::lds32(r0);
-        a[mi][1] = vq::lds32(r1);
-        a[mi][2] = vq::lds32(r0 + 16);
-        a[mi][3] = vq::lds32(r1 + 16);
-      }
+    for (int i = 0; i < ROWS * BN / 16 / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      const int q = c >> 3, ch = c & 7;
+      const int k = step * ROWS + q, n = n0 + 16 * ch;
+      const bool ok = k < kmax && n < N;
+      vq::cp16(raw + q * BN + ((ch ^ raw_swz(q)) << 4), ok ? wv + (size_t)k * N + n : wv,
+               ok ? 16 : 0);
+    }
+  } else {  // N % 4 == 0: 4-byte copies
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int8_t* br = Bs + (wn + ni * 8 + g) * LDS + kk + 4 * t;
-        const uint32_t b0 = vq::lds32(br), b1 = vq::lds32(br + 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          vq::mma_s8_16832(acc[mi][ni], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b0, b1);
-      }
+    for (int i = 0; i < ROWS * BN / 4 / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      const int q = c >> 5, wd = c & 31;
+      const int k = step * ROWS + q, n = n0 + 4 * wd;
+      const bool ok = k < kmax && n < N;
+      vq::cp4(raw + q * BN + 4 * (wd ^ (raw_swz(q) << 2)), ok ? wv + (size_t)k * N + n : wv,
+              ok ? 4 : 0);
     }
   }
+}
 
-  // epilogue: float(acc) * xs[m] * ws[n], masked at the ragged edges
+// Raw slot -> K-major B operand.  A unit is 4 W rows (4kq..) x 4 columns
+// (4nq..): four words read, transposed to one word of 4 K bytes per
+// column, stored at (n, k).  A warp holds nq % 8 (lane % 8) and kq % 4
+// (lane / 8); each lane rotates its columns by rot = (nq >> 1) & 3, so the
+// j-th store of the 32 lanes covers all 8 rows and 4 K words of a core
+// matrix: 32 distinct banks.
+template <bool PACKED>
+__device__ __forceinline__ void convert_stage(int8_t* bop, const uint8_t* raw, int tid) {
+  constexpr int UNITS = Geo<PACKED>::RAW_ROWS / 4 * (BN / 4);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int i = 0; i < UNITS / THREADS; ++i) {
+    const int u = tid + i * THREADS;
+    const int lane = u & 31, w = u >> 5;
+    const int nq = (lane & 7) + 8 * (w & 3), kq = (lane >> 3) + 4 * (w >> 2);
+    const int rot = (nq >> 1) & 3;
+    const uint32_t sel = (0x32103210u >> (4 * rot)) & 0xFFFFu;
+    uint32_t v[4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + mi * 16 + g + 8 * h;
-      if (m >= M) continue;
-      const float sx = xs[m];
+    for (int r = 0; r < 4; ++r) {
+      const int q = 4 * kq + r;
+      const uint32_t x =
+          *reinterpret_cast<const uint32_t*>(raw + q * BN + 4 * (nq ^ (raw_swz(q) << 2)));
+      v[r] = __byte_perm(x, 0, sel);  // byte c holds column (c + rot) & 3
+    }
+    vq::transpose4x4_bytes(v);  // v[c] = W rows 4kq..4kq+3 of column 4nq + ((c + rot) & 3)
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int n = n0 + wn + ni * 8 + 2 * t;
-        if (n >= N) continue;  // N % 4 == 0, so n + 1 < N too
-        float2 v;
-        v.x = (float)acc[mi][ni][2 * h] * sx * ws[n];
-        v.y = (float)acc[mi][ni][2 * h + 1] * sx * ws[n + 1];
-        *reinterpret_cast<float2*>(out + (size_t)m * N + n) = v;
+    for (int c = 0; c < 4; ++c) {
+      const int n = 4 * nq + ((c + rot) & 3);
+      if (PACKED) {
+        const uint32_t lo = vq::sext_nibbles(v[c] & 0x0F0F0F0Fu);
+        const uint32_t hi = vq::sext_nibbles((v[c] >> 4) & 0x0F0F0F0Fu);
+        *reinterpret_cast<uint32_t*>(bop + BLayout::offset(n, 4 * kq)) = lo;
+        *reinterpret_cast<uint32_t*>(bop + BLayout::offset(n, 32 + 4 * kq)) = hi;
+      } else {
+        *reinterpret_cast<uint32_t*>(bop + BLayout::offset(n, 4 * kq)) = v[c];
       }
     }
   }
 }
 
+template <bool PACKED, bool VEC16>
+__global__ void __launch_bounds__(THREADS, 2)
+    quant_matmul_kernel(const int8_t* __restrict__ xv, const float* __restrict__ xs,
+                        const uint8_t* __restrict__ wv, const float* __restrict__ ws,
+                        float* __restrict__ out, int M, int N, int K) {
+  using G = Geo<PACKED>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* ring = smem;
+  int8_t* bops = reinterpret_cast<int8_t*>(smem + STAGES * G::STAGE_BYTES);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int steps = PACKED ? (K / 2 + 31) / 32 : (K + BK - 1) / BK;
+
+  // descriptors of this warpgroup's slice 0 in ring slot 0 and B buffer 0
+  const uint64_t da0 = vq::wgmma_desc(ring + wg * (64 / 8) * ALayout::SBO, ALayout::LBO,
+                                      ALayout::SBO);
+  const uint64_t db0 = vq::wgmma_desc(bops, BLayout::LBO, BLayout::SBO);
+  constexpr uint64_t SLICE_A = 2 * ALayout::LBO >> 4, SLICE_B = 2 * BLayout::LBO >> 4;
+
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_stage<PACKED, VEC16>(ring + s * G::STAGE_BYTES, xv, wv, M, N, K, m0, n0, s, tid);
+    vq::cp_commit();
+  }
+  vq::cp_wait<STAGES - 2>();  // step 0 has landed
+  __syncthreads();
+  convert_stage<PACKED>(bops, ring + A_BYTES, tid);
+  vq::fence_proxy_async();
+  __syncthreads();
+  vq::wgmma_fence_operand(acc);
+
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % STAGES;
+    const uint64_t da = da0 + ((uint64_t)(slot * G::STAGE_BYTES) >> 4);
+    const uint64_t db = db0 + ((uint64_t)((s & 1) * B_BYTES) >> 4);
+    vq::wgmma_fence();
+    vq::wgmma_m64n128k32_s8(acc, da, db);
+    vq::wgmma_m64n128k32_s8(acc, da + SLICE_A, db + SLICE_B);
+    vq::wgmma_commit();
+    vq::wgmma_wait<1>();           // this warpgroup's step s-1 is done
+    vq::cp_wait<STAGES - 3>();     // this thread's copies of step s+1 have landed
+    __syncthreads();               // both warpgroups past s-1; step s+1 visible
+    const int next = s + STAGES - 1;  // into step s-1's slot
+    if (next < steps)
+      load_stage<PACKED, VEC16>(ring + (next % STAGES) * G::STAGE_BYTES, xv, wv, M, N, K, m0,
+                                n0, next, tid);
+    vq::cp_commit();
+    if (s + 1 < steps)
+      convert_stage<PACKED>(bops + ((s + 1) & 1) * B_BYTES,
+                            ring + ((s + 1) % STAGES) * G::STAGE_BYTES + A_BYTES, tid);
+    vq::fence_proxy_async();       // step s+1's A and B, for the async proxy
+    __syncthreads();
+  }
+  vq::wgmma_wait<0>();
+  vq::wgmma_fence_operand(acc);
+
+  // epilogue: float(acc) * xs[m] * ws[n], masked at the ragged edges
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = m0 + 64 * wg + 16 * ((tid >> 5) & 3) + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = wrow + 8 * h;
+    if (m >= M) continue;
+    const float sx = xs[m];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
+      if (n >= N) continue;  // N % 4 == 0, so n + 1 < N too
+      float2 v;
+      v.x = (float)acc[4 * i + 2 * h] * sx * ws[n];
+      v.y = (float)acc[4 * i + 2 * h + 1] * sx * ws[n + 1];
+      *reinterpret_cast<float2*>(out + (size_t)m * N + n) = v;
+    }
+  }
+}
+
+using Kernel = void (*)(const int8_t*, const float*, const uint8_t*, const float*, float*, int,
+                        int, int);
+
+// The instance for these operands, and its dynamic shared memory.
+Kernel pick(int N, const void* wv, int packed, int* smem) {
+  const bool vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(wv) % 16 == 0;
+  *smem = packed ? Geo<true>::SMEM : Geo<false>::SMEM;
+  if (packed) return vec16 ? quant_matmul_kernel<true, true> : quant_matmul_kernel<true, false>;
+  return vec16 ? quant_matmul_kernel<false, true> : quant_matmul_kernel<false, false>;
+}
+
 }  // namespace
+
+// The resources of the instance a launch at these widths takes (with a
+// 16-byte aligned wv): out[0] registers per thread, out[1] shared memory per
+// block in bytes, out[2] resident blocks per SM, out[3] spilled bytes per
+// thread.  K is not needed by the kernel's resources; it is taken for the
+// same signature as the launch.  Returns a cudaError_t.
+extern "C" int vq_quant_matmul_attrs(int N, int K, int packed, int* out) {
+  (void)K;
+  int smem = 0;
+  const Kernel k = pick(N, nullptr, packed, &smem);
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], k, THREADS, smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes) + smem;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
 
 // C entry point (ctypes).  Shapes: xv [M,K] s8, xs [M] f32, ws [N] f32,
 // out [M,N] f32; wv [K,N] s8, or [K/2,N] u8 when packed.  Requires
-// K % 16 == 0 (W8) or K % 32 == 0 (W4), N % 4 == 0 and 16-byte aligned
-// rows — the Python wrapper checks these.  Returns cudaGetLastError().
+// K % 16 == 0 (W8) or K % 32 == 0 (W4), N % 4 == 0, xv 16-byte and wv
+// 4-byte aligned — the Python wrapper checks these.  Returns
+// cudaGetLastError().
 extern "C" int vq_quant_matmul(const void* xv, const void* xs, const void* wv, const void* ws,
                                void* out, int M, int N, int K, int packed, void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (packed) {
-    quant_matmul_kernel<true><<<grid, THREADS, 0, s>>>(
-        static_cast<const int8_t*>(xv), static_cast<const float*>(xs),
-        static_cast<const uint8_t*>(wv), static_cast<const float*>(ws),
-        static_cast<float*>(out), M, N, K);
-  } else {
-    quant_matmul_kernel<false><<<grid, THREADS, 0, s>>>(
-        static_cast<const int8_t*>(xv), static_cast<const float*>(xs),
-        static_cast<const uint8_t*>(wv), static_cast<const float*>(ws),
-        static_cast<float*>(out), M, N, K);
-  }
+  int smem = 0;
+  const Kernel k = pick(N, wv, packed, &smem);
+  const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  k<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xv), static_cast<const float*>(xs),
+      static_cast<const uint8_t*>(wv), static_cast<const float*>(ws), static_cast<float*>(out),
+      M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,28 +32,67 @@ def _normal(rng, shape, dev):
 
 
 _MM_SHAPES = [(1, 64, 4), (37, 128, 132), (130, 256, 260), (300, 1024, 512), (129, 96, 64)]
+# inputs at +-127 with rank-one signs on even columns: |acc| = 4096 * 127^2,
+# past 2^24, so the f32 conversion of the int32 sum rounds
+_SATURATED = {(False, 300, 4096, 256)}
 
 
-# K=96 ends in a partial K step (W4: 48 packed rows of a 32-row step), K=48
-# too (W8 only: packing needs K % 32 == 0); N=132/260 end in a partial N
-# tile, M=1/37/129/130 in a partial M tile
+# The kernel runs 128 x 128 output tiles, each of two 64-row warpgroups,
+# over 64-deep K steps (W4: 32 packed rows) through a 4-slot load ring.
+# K=32 (W8) is a single step; K=96 ends in a partial K step (W4: 48 packed
+# rows of a 32-row step), K=48 too (W8 only: packing needs K % 32 == 0),
+# K=1056 after 16.5 steps in a partial ring pass; N=132/260/388 end in a
+# partial N tile with N % 16 != 0 (4-byte weight copies), N=64/400 with
+# N % 16 == 0; M=1/37/65/129/130/191 leave a partial M tile or warpgroup;
+# M=16464 is the served w_down and w_up.
 @pytest.mark.parametrize(
     "packed,m,k,n",
-    [(p, *s) for p in (False, True) for s in _MM_SHAPES] + [(False, 65, 48, 36)],
+    [(p, *s) for p in (False, True) for s in _MM_SHAPES] + [(False, 65, 48, 36)]
+    + [(False, 64, 32, 128), (True, 65, 256, 128), (False, 191, 512, 256),
+       (True, 129, 256, 132), (False, 200, 128, 388), (True, 96, 96, 388),
+       (True, 77, 1056, 400), (False, 150, 1056, 128), *_SATURATED,
+       (True, 16464, 4096, 1024), (True, 16464, 1024, 4096)],
 )
 def test_quant_matmul_matches_plain(dev, packed, m, k, n):
     rng = np.random.default_rng(m + k + n)
     x = _normal(rng, (m, k), dev)
     wq = quantize_weight(_normal(rng, (k, n), dev), 4 if packed else 8)
     xq = quantize_per_token(x, 8)
-    ws = wq.scale.reshape(1, -1)
+    xv, xs, wv, ws = xq.values, xq.scale, wq.values, wq.scale.reshape(1, -1)
+    if (packed, m, k, n) in _SATURATED:
+        def sign(*shape):
+            return torch.as_tensor(rng.choice([-127, 127], size=shape).astype(np.int8))
+
+        t = sign(k) // 127
+        xv = (sign(m, 1) * t).to(dev)  # row m: +-127 * t[k]
+        w = sign(k, n)
+        w[:, ::2] = t.reshape(-1, 1) * sign(1, n // 2)  # even columns: +-127 * t[k]
+        wv = w.to(dev)
+        assert (xv.double() @ wv.double()).abs().max() > 2**24
     with probe.tracking() as log:
-        got = qm.quant_matmul(xq.values, xq.scale, wq.values, ws, packed=packed)
+        got = qm.quant_matmul(xv, xs, wv, ws, packed=packed)
     torch.cuda.synchronize()
-    want = qm.quant_matmul_plain(xq.values, xq.scale, wq.values, ws, packed=packed)
+    want = qm.quant_matmul_plain(xv, xs, wv, ws, packed=packed)
     assert log.by_name() == {"quant_matmul": 1}
     # the integer part is exact; only the two float scale multiplies round
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_quant_matmul_unaligned_weights(dev):
+    """Weights 4 bytes off a 16-byte boundary take the 4-byte copies even
+    at N % 16 == 0."""
+    rng = np.random.default_rng(5)
+    for packed in (False, True):
+        xq = quantize_per_token(_normal(rng, (130, 256), dev), 8)
+        wq = quantize_weight(_normal(rng, (256, 256), dev), 4 if packed else 8)
+        buf = torch.empty(wq.values.numel() + 4, dtype=wq.values.dtype, device=dev)
+        wv = buf[4:].view(wq.values.shape)
+        wv.copy_(wq.values)
+        assert wv.data_ptr() % 16 == 4
+        ws = wq.scale.reshape(1, -1)
+        got = qm.quant_matmul(xq.values, xq.scale, wv, ws, packed=packed)
+        want = qm.quant_matmul_plain(xq.values, xq.scale, wq.values, ws, packed=packed)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
 def test_quant_matmul_rejects_bad_k(dev):

@@ -74,12 +74,16 @@ def test_tool_parses_kernel_and_sources():
     assert not a.split
     a = tool.parse_args(["--kernel", "fused_matmul", "--split", "pr16=build/pr16/fused_matmul.cu"])
     assert a.kernel == "fused_matmul" and a.split and list(a.sources) == ["pr16"]
+    a = tool.parse_args(["--kernel", "quant_matmul", "pr18=build/pr18/quant_matmul.cu"])
+    assert a.kernel == "quant_matmul" and not a.split and list(a.sources) == ["pr18"]
+    assert a.sources["pr18"] == Path("build/pr18/quant_matmul.cu").resolve()
 
 
 @pytest.mark.parametrize("argv", [
     ["noequals"], ["=x.cu"], ["a="], ["committed=x.cu"], ["a=x.cu", "a=y.cu"],
     ["--kernel", "wht"], ["--kernel"], ["--sass"],
-    ["--split"], ["--kernel", "fused_ffn", "--split"],
+    ["--split"], ["--kernel", "fused_ffn", "--split"], ["--kernel", "quant_matmul", "--split"],
+    ["--kernel", "quant_matmul", "committed=x.cu"],
 ])
 def test_tool_rejects_bad_arguments(argv):
     with pytest.raises(SystemExit):
@@ -93,6 +97,10 @@ def test_tool_shape_tables_are_the_served_shapes():
     assert tool.SHAPES["two_stage_attention"] == [("frame", 16, 16, 1029), ("global", 2, 16, 8232)]
     assert tool.SHAPES["fused_ffn"] == [("served", m, 1024, 4096)]
     assert tool.SHAPES["fused_matmul"] == [("wqkv", m, 1024, 3072, "ln"), ("wo", m, 1024, 1024, None)]
+    # the unfused plan's W4A8 projections (wq/wk/wv/wo, w_up, w_down) and the W8 check
+    assert tool.SHAPES["quant_matmul"] == [("wq", m, 1024, 1024, 4), ("w_up", m, 1024, 4096, 4),
+                                           ("w_down", m, 4096, 1024, 4),
+                                           ("w8 check", m, 1024, 4096, 8)]
     # the split: served, then each part taken out by a launch argument, then both
     assert tool.SPLIT == [("served", True, False), ("idct off", False, False),
                           ("prequant", True, True), ("both off", False, True)]
@@ -124,6 +132,22 @@ def test_tool_fused_matmul_argtypes(earlier):
     want = now[:12] + [p] + now[12:20] + [p] + now[20:] if earlier else now
     assert _tool().fm_argtypes(earlier) == want and len(want) == 26 + 2 * earlier
     assert _tool().fm_argtypes(False) == fz._ARGTYPES["fused_matmul"]
+
+
+def test_tool_quant_matmul_launcher_types():
+    """The launcher declares the C entry point every version of the source
+    has: five pointers, M, N, K, the packing flag and the stream."""
+    import ctypes
+    import types
+
+    class Fn:
+        argtypes = restype = None
+
+    lib = types.SimpleNamespace(vq_quant_matmul=Fn())
+    _tool().qm_launcher(torch, lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert lib.vq_quant_matmul.argtypes == [p] * 5 + [i] * 4 + [p]
+    assert lib.vq_quant_matmul.restype is ctypes.c_int
 
 
 def test_fused_matmul_inputs_build_a_served_style_call():

@@ -6,8 +6,8 @@ Run from the repository root on a machine with an NVIDIA GPU and nvcc:
     PYTHONPATH=src python3 tools/time_kernel_sources.py [--kernel KERNEL] [NAME=PATH.cu ...]
         [--sass PATH] [--split]
 
-``--kernel`` is ``two_stage_attention`` (the default), ``fused_ffn`` or
-``fused_matmul``.  Each
+``--kernel`` is ``two_stage_attention`` (the default), ``fused_ffn``,
+``fused_matmul`` or ``quant_matmul``.  Each
 ``NAME=PATH`` is a source with the same C entry point as
 ``src/repro_torch/csrc/<kernel>.cu`` (an earlier version unpacked from git,
 or a design variant written under ``build/``, such as one with a phase
@@ -44,6 +44,13 @@ sources.
   pre-quantized), the IDCT (served less IDCT off) and the matmul with its
   scaling and store (both off) of each source, in ms and as shares.
 
+* quant_matmul: the unfused plan's W4A8 projections of vggt-1b, M =
+  16464: wq (K=1024, N=1024, also wk, wv and wo), w_up (1024 x 4096) and
+  w_down (4096 x 1024), and the W8 check (1024 x 4096, int8 weights);
+  each source's maximum error against the plain version (0: the integer
+  sum is exact), and ``torch._int_mm`` with the scaling on the same
+  inputs.  Every version of the source has the same entry point.
+
 ``--sass PATH`` writes the committed source's SASS there.
 """
 from __future__ import annotations
@@ -59,7 +66,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "kernel_sources"
-KERNELS = ("two_stage_attention", "fused_ffn", "fused_matmul")
+KERNELS = ("two_stage_attention", "fused_ffn", "fused_matmul", "quant_matmul")
 S_FRAMES, N_PATCHES, N_SPECIAL, BATCH = 8, 1024, 5, 2
 TOKENS = BATCH * S_FRAMES * (N_SPECIAL + N_PATCHES)
 # shapes of a vggt-1b forward of 2 scenes x 8 frames
@@ -71,6 +78,9 @@ SHAPES = {
     "fused_ffn": [("served", TOKENS, 1024, 4096)],
     # (label, M, K, N, prologue norm)
     "fused_matmul": [("wqkv", TOKENS, 1024, 3072, "ln"), ("wo", TOKENS, 1024, 1024, None)],
+    # (label, M, K, N, weight bits)
+    "quant_matmul": [("wq", TOKENS, 1024, 1024, 4), ("w_up", TOKENS, 1024, 4096, 4),
+                     ("w_down", TOKENS, 4096, 1024, 4), ("w8 check", TOKENS, 1024, 4096, 8)],
 }
 # the launch-argument split of fused_matmul: (variant, IDCT on, pre-quantized input)
 SPLIT = [("served", True, False), ("idct off", False, False), ("prequant", True, True),
@@ -393,6 +403,53 @@ def time_fused_matmul(torch, built, split: bool) -> None:
                     f"{p} {t:.4f} ({100 * t / med['served']:.1f}%)" for p, t in parts.items()))
 
 
+def qm_launcher(torch, lib: ctypes.CDLL):
+    """``qm(xv, xs, wv, ws, packed)`` through this library's kernel."""
+    fn = lib.vq_quant_matmul
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+
+    def qm(xv, xs, wv, ws, packed):
+        (m, k), n = xv.shape, wv.shape[1]
+        out = torch.empty((m, n), dtype=torch.float32, device=xv.device)
+        rc = fn(xv.data_ptr(), xs.data_ptr(), wv.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n,
+                k, int(packed), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel launch failed: cudaError {rc}")
+        return out
+
+    return qm
+
+
+def time_quant_matmul(torch, built) -> None:
+    from repro_torch.core.quantize import quantize_per_token, quantize_weight, unpack_int4
+    from repro_torch.kernels import quant_matmul as qmk
+    from repro_torch.kernels.measure import kernel_attrs, time_ms
+
+    dev = torch.device("cuda")
+    runs = {name: qm_launcher(torch, lib) for name, (lib, _) in built.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for label, m, k, n, bits in SHAPES["quant_matmul"]:
+        xq = quantize_per_token(torch.randn((m, k), generator=gen, device=dev), 8)
+        wq = quantize_weight(torch.randn((k, n), generator=gen, device=dev), bits)
+        a = (xq.values, xq.scale, wq.values, wq.scale.reshape(1, -1).contiguous(), wq.packed)
+        want = qmk.quant_matmul_plain(*a[:4], packed=wq.packed)
+        for name, (lib, ptxas) in built.items():
+            got = runs[name](*a)
+            torch.cuda.synchronize()
+            attrs = (kernel_attrs(lib, "quant_matmul", n, k, int(wq.packed))
+                     if hasattr(lib, "vq_quant_matmul_attrs") else "n/a")
+            print(f"{label} {name}: ptxas {ptxas}; attrs {attrs}; max |err| vs plain "
+                  f"{(got - want).abs().max().item():.3g}")
+        del want, got
+        times = _passes(runs, lambda name: time_ms(lambda: runs[name](*a)))
+        w_cm = (unpack_int4(wq.values, 0) if wq.packed else wq.values).t().contiguous().t()
+        lib_ms = time_ms(lambda: torch._int_mm(a[0], w_cm).float() * a[1] * a[3])
+        print(f"{label} (M={m} K={k} N={n} W{bits}A8) ms per pass: {_fmt(times)}; "
+              f"torch._int_mm + scaling {lib_ms:.4f}")
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
@@ -416,6 +473,8 @@ def main(argv=None) -> int:
         time_attention(torch, built)
     elif args.kernel == "fused_ffn":
         time_ffn(torch, built)
+    elif args.kernel == "quant_matmul":
+        time_quant_matmul(torch, built)
     else:
         time_fused_matmul(torch, built, args.split)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
