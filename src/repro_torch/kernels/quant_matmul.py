@@ -76,6 +76,7 @@ def quant_matmul(
     _check(wv.dtype == (torch.uint8 if packed else torch.int8), f"wv dtype {wv.dtype}")
     _check(wv.shape[0] * (2 if packed else 1) == k, f"wv {tuple(wv.shape)} vs K={k}")
     _check(k % (32 if packed else 16) == 0, f"K={k} must be a multiple of {32 if packed else 16}")
+    _check(not packed or k < 1 << 17, f"K={k}: W4 needs K < 2^17 (the kernel sums 16 w in int32)")
     _check(n % 4 == 0, f"N={n} must be a multiple of 4")
     _check(xs.numel() == m and ws.numel() == n, "scale shapes")
     _check(xs.dtype == torch.float32 and ws.dtype == torch.float32, "scales must be float32")

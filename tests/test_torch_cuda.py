@@ -78,6 +78,15 @@ def test_quant_matmul_matches_plain(dev, packed, m, k, n):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
+def test_quant_matmul_rejects_w4_k_past_2_17(dev):
+    """W4 sums 16 w exactly in int32, which holds for K < 2^17."""
+    k = 1 << 17
+    xv = torch.ones((1, k), dtype=torch.int8, device=dev)
+    wv = torch.zeros((k // 2, 4), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        qm.quant_matmul(xv, torch.ones(1, device=dev), wv, torch.ones(4, device=dev), packed=True)
+
+
 def test_quant_matmul_unaligned_weights(dev):
     """Weights 4 bytes off a 16-byte boundary take the 4-byte copies even
     at N % 16 == 0."""
