@@ -504,16 +504,21 @@ def _kernel_norm_quant(torch, dev, cfg, m, randn) -> dict:
     from repro_torch.kernels.measure import time_ms
 
     d = cfg.d_model
-    u = V.make_folded_norm("ln", d, device=dev).u
-    # (label, M, D, norm, WHT, bits, launches per prologue pass)
+    # (label, M, D, norm, WHT, bits, launches per prologue pass): the served
+    # call, then one case for each other instance the kernel dispatches to
+    # (register rows of 1, 2, 4, 16 and 32 chunks a lane; the shared-memory
+    # routine for D % 128 != 0)
     cases = [("served ln+wht", m, d, "ln", True, 8, 1), ("rms a4 ragged", 999, 4096, "rms", True, 4, 0),
-             ("none no-wht", 1000, 768, None, False, 8, 0)]
+             ("none no-wht", 1000, 768, None, False, 8, 0), ("ln D=128", 777, 128, "ln", True, 8, 0),
+             ("rms D=256", 500, 256, "rms", True, 4, 0), ("ln D=512", 600, 512, "ln", True, 8, 0),
+             ("ln D=2048", 1000, 2048, "ln", True, 8, 0), ("ln D=96 smem", 333, 96, "ln", True, 8, 0)]
     e = _Entry("norm_quant", "src/repro_torch/csrc/norm_quant.cu", "src/repro/kernels/fused.py:195",
                library_note="no single PyTorch call computes norm+WHT+per-token quantization")
+    e.d.update(_attrs("norm_quant", d)[0])  # at the served width
     for label, mm, dd, norm, wht, bits, nper in cases:
         x = randn(mm, dd)
         kw = dict(norm_kind=norm, wht_block=(dd & -dd) if wht else None, a_bits=bits)
-        nu = u if norm == "ln" else None
+        nu = V.make_folded_norm("ln", dd, device=dev).u if norm == "ln" else None
         q, s = fz.norm_quant(x, nu, **kw)
         wq, ws = fz.norm_quant_plain(x, nu, **kw)
         torch.cuda.synchronize()
@@ -524,10 +529,12 @@ def _kernel_norm_quant(torch, dev, cfg, m, randn) -> dict:
         ms = time_ms(lambda: fz.norm_quant(x, nu, **kw))
         plain = time_ms(lambda: fz.norm_quant_plain(x, nu, **kw), reps=5)
         f32 = mm * dd * (5 + (math.log2(kw["wht_block"]) + 2 if wht else 0) + 3)
-        bound, by = _bound_ms(5 * mm * dd + 4 * mm, f32_ops=f32)
+        nbytes = 5 * mm * dd + 4 * mm
+        bound, by = _bound_ms(nbytes, f32_ops=f32)
         print(f"norm_quant {label:14s} M={mm} D={dd} norm={norm} wht={wht} A{bits}: "
-              f"scale err={err:.3g} int8 flips={flips} kernel={ms:.4f}ms plain={plain:.4f}ms "
-              f"bound={bound:.4f}ms ({by}) x{nper}/pass")
+              f"scale err={err:.3g} int8 flips={flips} kernel={ms:.4f}ms "
+              f"({nbytes / ms / 1e9:.3f} TB/s) plain={plain:.4f}ms bound={bound:.4f}ms ({by}) "
+              f"x{nper}/pass; {_attrs('norm_quant', dd)[1]}")
         e.add(err, nper, ms, plain, bound, by)
     return e.done()
 
@@ -537,9 +544,15 @@ def _kernel_wht(torch, dev, cfg, m, randn) -> dict:
     from repro_torch.kernels import wht as whtk
     from repro_torch.kernels.measure import time_ms
 
+    # the served call, then one case for each other instance the kernel
+    # dispatches to (register rows of 1, 2, 4, 8 and 16 chunks a lane; the
+    # shared-memory routine for d % 128 != 0)
     cases = [("ffn hidden", m, cfg.d_ff, None, 1), ("d=1024 blk128", 1000, 1024, 128, 0),
-             ("d=64", 999, 64, None, 0)]
+             ("d=64", 999, 64, None, 0), ("d=128", 700, 128, None, 0),
+             ("d=256 blk64", 500, 256, 64, 0), ("d=512", 600, 512, None, 0),
+             ("d=2048", 1000, 2048, None, 0)]
     e = _Entry("wht", "src/repro_torch/csrc/wht.cu", "src/repro/kernels/wht.py:74")
+    e.d.update(_attrs("wht", cfg.d_ff)[0])  # at the served width
     for label, r, d, block, nper in cases:
         x = randn(r, d)
         got = whtk.wht(x, block=block)
@@ -556,10 +569,12 @@ def _kernel_wht(torch, dev, cfg, m, randn) -> dict:
         xb = x.view(r, d // blk, blk)
         lib = time_ms(lambda: torch.matmul(xb, hb))
         lrel = _rel(torch, torch.matmul(xb, hb).view(r, d), want)
-        bound, by = _bound_ms(8.0 * r * d, f32_ops=r * d * (math.log2(blk) + 2))
+        nbytes = 8.0 * r * d
+        bound, by = _bound_ms(nbytes, f32_ops=r * d * (math.log2(blk) + 2))
         print(f"wht {label:14s} R={r} d={d} block={blk}: err={err:.3g} rel={rel:.3g} "
-              f"kernel={ms:.4f}ms plain={plain:.4f}ms matmul={lib:.4f}ms (rel {lrel:.3g}) "
-              f"bound={bound:.4f}ms ({by}) x{nper}/pass")
+              f"kernel={ms:.4f}ms ({nbytes / ms / 1e9:.3f} TB/s) plain={plain:.4f}ms "
+              f"matmul={lib:.4f}ms (rel {lrel:.3g}) bound={bound:.4f}ms ({by}) x{nper}/pass; "
+              f"{_attrs('wht', d)[1]}")
         e.add(err, nper, ms, plain, bound, by, lib)
     return e.done()
 

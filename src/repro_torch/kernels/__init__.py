@@ -6,8 +6,10 @@
   launch (``csrc/two_stage_attention.cu``)
 - fused.py: the unified datapath (§IV-B) — ``fused_matmul``, ``fused_ffn``
   and ``norm_quant`` (``csrc/fused_matmul.cu``, ``fused_ffn.cu``,
-  ``norm_quant.cu``, sharing ``csrc/fused_rows.cuh``)
-- wht.py: blocked Walsh-Hadamard transform (``csrc/wht.cu``)
+  ``norm_quant.cu``, sharing ``csrc/fused_rows.cuh``; ``norm_quant.cu``
+  keeps its rows in registers through ``csrc/rows_async.cuh``)
+- wht.py: blocked Walsh-Hadamard transform (``csrc/wht.cu``, on
+  ``csrc/rows_async.cuh``)
 
 Each module holds its kernel's wrapper and its plain PyTorch version;
 ``ops.py`` holds the public wrappers, ``_build.py`` the nvcc build, and

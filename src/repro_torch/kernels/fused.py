@@ -57,6 +57,7 @@ LANE = 128
 BM = 64  # rows per M tile of fused_matmul (csrc/fused_rows.cuh FT_BM)
 FFN_BM = 64  # rows per M tile of fused_ffn (csrc/fused_ffn.cu BM)
 DCT_BLOCK = 64  # the only IDCT block the CUDA kernels take
+ROW_WARPS = 4  # rows a block of the row kernels (norm_quant, wht) holds at once
 _NORMS = {None: 0, "rms": 1, "ln": 2}
 _ACTS = {"none": 0, "gelu": 1, "silu": 2}
 
@@ -298,9 +299,10 @@ def norm_quant(x: torch.Tensor, norm_u=None, *, norm_kind: Optional[str] = None,
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m == 0:
         return q, s
+    grid = grid_for(x.device, -(-m // ROW_WARPS), _blocks_per_sm("norm_quant", x.device, d))
     with torch.cuda.device(x.device):
         _launch("norm_quant", x.data_ptr(), _ptr(u), norm_eps, _NORMS[norm_kind], wht, a_bits,
-                q.data_ptr(), s.data_ptr(), m, d, grid_for(x.device, -(-m // 8), 8))
+                q.data_ptr(), s.data_ptr(), m, d, grid)
     return q, s
 
 

@@ -4,8 +4,9 @@
 The accelerator's "±1 WHT mode" (§IV-B): the Hadamard matrix is never
 stored.  The TPU kernel ran the factor across the 128-wide groups as an
 add/sub butterfly and the 128-wide factor as one MXU dot; the CUDA kernel
-(``csrc/wht.cu``, device code shared with the fused FFN's hidden rotation
-in ``csrc/fused_rows.cuh``) runs both as butterflies.  :func:`wht`
+(``csrc/wht.cu`` on ``csrc/rows_async.cuh``: rows in registers, fed by a
+ring of bulk copies) runs both as butterflies, bit-identical to the fused
+FFN's hidden rotation (``csrc/fused_rows.cuh``).  :func:`wht`
 launches it for CUDA tensors (and counts the launch in ``kernels.probe``)
 and runs :func:`wht_plain`, the Pallas kernel body op for op, for CPU
 tensors.
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.core import transforms
 from repro_torch.kernels import _build, probe
-from repro_torch.kernels.fused import grid_for, wht_rows
+from repro_torch.kernels.fused import ROW_WARPS, _blocks_per_sm, grid_for, wht_rows
 
 __all__ = ["wht", "wht_plain"]
 
@@ -57,9 +58,10 @@ def wht(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
     y = torch.empty_like(x)
     if r == 0:
         return y
+    grid = grid_for(x.device, -(-r // ROW_WARPS), _blocks_per_sm("wht", x.device, d))
     with torch.cuda.device(x.device):
-        rc = _kernel()(x.data_ptr(), y.data_ptr(), r, d, block,
-                       grid_for(x.device, -(-r // 8), 8), torch.cuda.current_stream().cuda_stream)
+        rc = _kernel()(x.data_ptr(), y.data_ptr(), r, d, block, grid,
+                       torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wht kernel launch failed: cudaError {rc}")
     probe.record("wht")

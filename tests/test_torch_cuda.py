@@ -325,13 +325,19 @@ def test_fused_ffn_rejects_rows_wider_than_a_block(dev):
                      packed_u=True, packed_d=True)
 
 
+# Register rows (D a multiple of 128, at most 4096: 21x256, 130x1024, the
+# served 16464x1024, 999x4096 at A4, 77x768 and 50x768 without the WHT,
+# whose 6 chunks a lane fill 6 of an instance's 8) and the shared-memory
+# routine (7x96).
 @pytest.mark.parametrize("norm", [None, "rms", "ln"])
 @pytest.mark.parametrize("bits,wht,m,d", [(8, True, 21, 256), (4, True, 130, 1024),
-                                          (8, False, 7, 96)])
+                                          (8, False, 7, 96), (8, True, 16464, 1024),
+                                          (4, True, 999, 4096), (8, True, 77, 768),
+                                          (8, False, 50, 768)])
 def test_norm_quant_matches_plain(dev, norm, bits, wht, m, d):
     x = _normal(np.random.default_rng(m + d), (m, d), dev)
     u = tvq.make_folded_norm("ln", d, device=dev).u if norm == "ln" else None
-    kw = dict(norm_kind=norm, wht_block=d if wht else None, a_bits=bits)
+    kw = dict(norm_kind=norm, wht_block=(d & -d) if wht else None, a_bits=bits)
     with probe.tracking() as log:
         q, s = fz.norm_quant(x, u, **kw)
     torch.cuda.synchronize()
@@ -341,8 +347,98 @@ def test_norm_quant_matches_plain(dev, norm, bits, wht, m, d):
     torch.testing.assert_close(s, ws, rtol=1e-6, atol=0)
 
 
+def _wave_rows(dev, kernel, d):
+    """One row past what the persistent grid's warps take in one pass at
+    width d, so one warp takes a second row."""
+    per_sm = fz._blocks_per_sm(kernel, dev, d)
+    return fz.grid_for(dev, 1 << 30, per_sm) * fz.ROW_WARPS + 1
+
+
+@pytest.mark.parametrize("d", [1024, 4096, 96])
+def test_norm_quant_one_row_past_a_wave(dev, d):
+    m = _wave_rows(dev, "norm_quant", d)
+    x = _normal(np.random.default_rng(d), (m, d), dev)
+    u = tvq.make_folded_norm("ln", d, device=dev).u
+    kw = dict(norm_kind="ln", wht_block=d & -d, a_bits=8)
+    q, s = fz.norm_quant(x, u, **kw)
+    wq, ws = fz.norm_quant_plain(x, u, **kw)
+    _assert_q_close(q, wq, "norm_quant values")
+    torch.testing.assert_close(s, ws, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [1024, 96])
+def test_norm_quant_zero_and_nan_rows(dev, d):
+    """An all-zero row takes the amax floor (scale 1e-8 / 127, values 0); a
+    NaN in a row makes its scale NaN, so its dequantized values are NaN;
+    the other rows are untouched by either."""
+    x = _normal(np.random.default_rng(5), (9, d), dev)
+    x[2] = 0.0
+    x[6, 17] = float("nan")
+    kw = dict(norm_kind="rms", wht_block=d & -d, a_bits=8)
+    q, s = fz.norm_quant(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(q[2], torch.zeros_like(q[2]))
+    assert s[2, 0].item() == (torch.tensor(1e-8, dtype=torch.float32) / 127.0).item()
+    assert torch.isnan(s[6, 0]) and torch.isnan(q[6].float() * s[6]).all()
+    keep = [i for i in range(9) if i != 6]
+    wq, ws = fz.norm_quant_plain(x[keep], **kw)
+    _assert_q_close(q[keep], wq, "norm_quant values")
+    torch.testing.assert_close(s[keep], ws, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bits,d", [(8, 1024), (4, 4096), (8, 96)])
+def test_norm_quant_divides_exactly(dev, bits, d):
+    """Without norm and WHT the kernel quantizes x itself: its values are
+    round-half-even(x / s) clamped, with IEEE division by its own scale s
+    = max(amax, 1e-8) / qmax, bit for bit.  Rows span magnitudes from 1e-30
+    to 1e30 (and the amax floor), and some hold exact and near ties
+    (k + 1/2) s, one ulp either side."""
+    rng = np.random.default_rng(bits + d)
+    x = _normal(rng, (600, d), dev) * torch.as_tensor(
+        10.0 ** rng.uniform(-30, 30, size=(600, 1)).astype(np.float32), device=dev)
+    x[0] *= 1e-12
+    qmax = 2 ** (bits - 1) - 1
+    k = torch.as_tensor(rng.integers(-qmax, qmax, size=(100, d)).astype(np.float32), device=dev)
+    sc = torch.as_tensor(10.0 ** rng.uniform(-5, 5, size=(100, 1)).astype(np.float32), device=dev)
+    ties = (k + 0.5) * sc
+    ties[:, 0] = qmax * sc[:, 0]
+    ties[:, 1::3] = torch.nextafter(ties[:, 1::3], torch.full_like(ties[:, 1::3], float("inf")))
+    ties[:, 2::3] = torch.nextafter(ties[:, 2::3], torch.full_like(ties[:, 2::3], -float("inf")))
+    x = torch.cat([x, ties])
+    q, s = fz.norm_quant(x, a_bits=bits)
+    torch.cuda.synchronize()
+    amax = x.abs().amax(dim=1, keepdim=True)
+    assert torch.equal(s, torch.clamp_min(amax, 1e-8) / torch.full_like(amax, qmax))
+    assert torch.equal(q, torch.round(x / s).clamp(-qmax, qmax).to(torch.int8))
+
+
+@pytest.mark.parametrize("m", [333, 16464])
+def test_fused_matmul_prologue_equals_norm_quant(dev, m):
+    """wqkv's widths (K=1024, N=3072, W4A8, IDCT, bias) with the ln + WHT
+    prologue: fused_matmul's own prologue and its pre-quantized path fed by
+    norm_quant give the same outputs bit for bit, since norm_quant
+    computes what the prologue computes."""
+    k, n = 1024, 3072
+    rng = np.random.default_rng(m)
+    x = _normal(rng, (m, k), dev)
+    wq = quantize_weight(_normal(rng, (k, n), dev) / np.sqrt(k), 4)
+    bias = _normal(rng, (n,), dev)
+    u = tvq.make_folded_norm("ln", k, device=dev).u
+    ws = wq.scale.reshape(1, -1)
+    own = fz.fused_matmul(x, wq.values, ws, None, bias, u, packed=True, norm_kind="ln",
+                          pro_wht_block=k, dct_block=64)
+    q, s = fz.norm_quant(x, u, norm_kind="ln", wht_block=k)
+    fed = fz.fused_matmul(q, wq.values, ws, s, bias, packed=True, dct_block=64)
+    torch.cuda.synchronize()
+    assert torch.equal(own, fed), (own - fed).abs().max().item()
+
+
+# Register rows (d a multiple of 128, at most 4096; 768 fills 6 of an
+# instance's 8 chunks a lane; block 4096 at the served 16464x4096) and the
+# shared-memory routine (d 64 and 12, not multiples of 128).
 @pytest.mark.parametrize("r,d,block", [(5, 64, None), (37, 256, None), (300, 4096, None),
-                                       (64, 1024, 128), (3, 12, 4)])
+                                       (64, 1024, 128), (3, 12, 4), (16464, 4096, None),
+                                       (77, 768, None), (40, 1024, 64)])
 def test_wht_matches_plain(dev, r, d, block):
     x = _normal(np.random.default_rng(r + d), (r, d), dev)
     with probe.tracking() as log:
@@ -351,6 +447,29 @@ def test_wht_matches_plain(dev, r, d, block):
     assert log.by_name() == {"wht": 1}
     want = whtk.wht_plain(x, block=block)
     assert _rel(got, want) < 1e-6, _rel(got, want)
+
+
+@pytest.mark.parametrize("d", [4096, 1024, 64])
+def test_wht_one_row_past_a_wave(dev, d):
+    r = _wave_rows(dev, "wht", d)
+    x = _normal(np.random.default_rng(d), (r, d), dev)
+    got = whtk.wht(x)
+    assert _rel(got, whtk.wht_plain(x)) < 1e-6
+
+
+def test_wht_zero_and_nan_rows(dev):
+    """A zero row stays zero; a NaN fills its block with NaN and nothing
+    else (block 1024 of d 4096)."""
+    x = _normal(np.random.default_rng(6), (6, 4096), dev)
+    x[1] = 0.0
+    x[4, 2000] = float("nan")
+    got = whtk.wht(x, block=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert torch.isnan(got[4, 1024:2048]).all() and torch.isfinite(got[4, :1024]).all()
+    assert torch.isfinite(got[4, 2048:]).all()
+    keep = [0, 1, 2, 3, 5]
+    assert _rel(got[keep], whtk.wht_plain(x[keep], block=1024)) < 1e-6
 
 
 def test_fused_ops_wrappers_launch_kernels(dev):

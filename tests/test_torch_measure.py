@@ -77,13 +77,18 @@ def test_tool_parses_kernel_and_sources():
     a = tool.parse_args(["--kernel", "quant_matmul", "pr18=build/pr18/quant_matmul.cu"])
     assert a.kernel == "quant_matmul" and not a.split and list(a.sources) == ["pr18"]
     assert a.sources["pr18"] == Path("build/pr18/quant_matmul.cu").resolve()
+    for kernel in ("norm_quant", "wht"):
+        a = tool.parse_args(["--kernel", kernel, f"pr19=build/pr19/{kernel}.cu"])
+        assert a.kernel == kernel and not a.split and list(a.sources) == ["pr19"]
+        assert a.sources["pr19"] == Path(f"build/pr19/{kernel}.cu").resolve()
 
 
 @pytest.mark.parametrize("argv", [
     ["noequals"], ["=x.cu"], ["a="], ["committed=x.cu"], ["a=x.cu", "a=y.cu"],
-    ["--kernel", "wht"], ["--kernel"], ["--sass"],
+    ["--kernel", "norm"], ["--kernel"], ["--sass"],
     ["--split"], ["--kernel", "fused_ffn", "--split"], ["--kernel", "quant_matmul", "--split"],
-    ["--kernel", "quant_matmul", "committed=x.cu"],
+    ["--kernel", "quant_matmul", "committed=x.cu"], ["--kernel", "wht", "--split"],
+    ["--kernel", "norm_quant", "--split"],
 ])
 def test_tool_rejects_bad_arguments(argv):
     with pytest.raises(SystemExit):
@@ -101,6 +106,9 @@ def test_tool_shape_tables_are_the_served_shapes():
     assert tool.SHAPES["quant_matmul"] == [("wq", m, 1024, 1024, 4), ("w_up", m, 1024, 4096, 4),
                                            ("w_down", m, 4096, 1024, 4),
                                            ("w8 check", m, 1024, 4096, 8)]
+    # the prologue phase's calls: ln + WHT 1024 + A8 at D=1024, the FFN hidden's WHT
+    assert tool.SHAPES["norm_quant"] == [("served", m, 1024, "ln", 1024, 8)]
+    assert tool.SHAPES["wht"] == [("ffn hidden", m, 4096, 4096)]
     # the split: served, then each part taken out by a launch argument, then both
     assert tool.SPLIT == [("served", True, False), ("idct off", False, False),
                           ("prequant", True, True), ("both off", False, True)]
@@ -148,6 +156,57 @@ def test_tool_quant_matmul_launcher_types():
     p, i = ctypes.c_void_p, ctypes.c_int
     assert lib.vq_quant_matmul.argtypes == [p] * 5 + [i] * 4 + [p]
     assert lib.vq_quant_matmul.restype is ctypes.c_int
+
+
+def test_tool_row_kernel_argtypes():
+    """The wht and norm_quant entry points every version of the sources
+    has, as the port's wrappers declare them."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    tool = _tool()
+    assert tool.row_argtypes("wht") == [p, p, i, i, i, i, p]
+    assert tool.row_argtypes("norm_quant") == fz._ARGTYPES["norm_quant"]
+
+
+@pytest.mark.parametrize("kernel", ["norm_quant", "wht"])
+def test_tool_row_launcher_grid(kernel):
+    """A source with ``vq_<kernel>_blocks_per_sm`` gets the wrapper's grid
+    (ROW_WARPS rows a block, its resident blocks on every SM); one without
+    it gets the earlier wrappers' (8 rows a block, 8 blocks an SM)."""
+    import ctypes
+    import types
+
+    calls = []
+
+    class Fn:
+        argtypes = restype = None
+
+        def __call__(self, *a):
+            calls.append(a)
+            return 0
+
+    class PerSm(Fn):
+        def __call__(self, width, out):
+            out._obj.value = 3
+            return 0
+
+    class Props:
+        multi_processor_count = 132
+
+    fake = types.SimpleNamespace(
+        empty=torch.empty, empty_like=torch.empty_like, int8=torch.int8, float32=torch.float32,
+        cuda=types.SimpleNamespace(get_device_properties=lambda dev: Props(),
+                                   current_stream=lambda: types.SimpleNamespace(cuda_stream=0)))
+    x = torch.zeros((20000, 1024))
+    args = (x, 1024) if kernel == "wht" else (x, None, "rms", 1024, 8)
+    for per_sm, grid in ((PerSm(), min(-(-20000 // fz.ROW_WARPS), 3 * 132)),
+                         (None, min(-(-20000 // 8), 8 * 132))):
+        lib = types.SimpleNamespace(**{f"vq_{kernel}": Fn()})
+        if per_sm is not None:
+            setattr(lib, f"vq_{kernel}_blocks_per_sm", per_sm)
+        _tool().row_launcher(fake, lib, kernel)(*args)
+        assert calls[-1][-2] == grid and getattr(lib, f"vq_{kernel}").restype is ctypes.c_int
 
 
 def test_fused_matmul_inputs_build_a_served_style_call():

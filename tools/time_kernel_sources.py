@@ -7,7 +7,7 @@ Run from the repository root on a machine with an NVIDIA GPU and nvcc:
         [--sass PATH] [--split]
 
 ``--kernel`` is ``two_stage_attention`` (the default), ``fused_ffn``,
-``fused_matmul`` or ``quant_matmul``.  Each
+``fused_matmul``, ``quant_matmul``, ``norm_quant`` or ``wht``.  Each
 ``NAME=PATH`` is a source with the same C entry point as
 ``src/repro_torch/csrc/<kernel>.cu`` (an earlier version unpacked from git,
 or a design variant written under ``build/``, such as one with a phase
@@ -51,6 +51,17 @@ sources.
   sum is exact), and ``torch._int_mm`` with the scaling on the same
   inputs.  Every version of the source has the same entry point.
 
+* norm_quant and wht: the prologue phase's shapes, M = 16464 rows:
+  ``norm_quant`` at D=1024 (ln, WHT block 1024, A8) and ``wht`` at d=4096
+  (block 4096, the FFN hidden's shape).  For each source: its maximum
+  difference from the committed kernel's output on the same inputs (int8
+  values and scales for ``norm_quant``: 0 where the two are bit-identical)
+  and from the plain version, and per pass its time, its rate in TB/s (the
+  bytes the function must move: each input read once, each output written
+  once) and its ratio to that byte bound at 3.35 TB/s.  Every version has
+  the same entry point; one without ``vq_<kernel>_blocks_per_sm`` gets the
+  earlier wrappers' grid (8 rows a block, at most 8 blocks an SM).
+
 ``--sass PATH`` writes the committed source's SASS there.
 """
 from __future__ import annotations
@@ -66,7 +77,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "kernel_sources"
-KERNELS = ("two_stage_attention", "fused_ffn", "fused_matmul", "quant_matmul")
+KERNELS = ("two_stage_attention", "fused_ffn", "fused_matmul", "quant_matmul", "norm_quant", "wht")
 S_FRAMES, N_PATCHES, N_SPECIAL, BATCH = 8, 1024, 5, 2
 TOKENS = BATCH * S_FRAMES * (N_SPECIAL + N_PATCHES)
 # shapes of a vggt-1b forward of 2 scenes x 8 frames
@@ -81,12 +92,17 @@ SHAPES = {
     # (label, M, K, N, weight bits)
     "quant_matmul": [("wq", TOKENS, 1024, 1024, 4), ("w_up", TOKENS, 1024, 4096, 4),
                      ("w_down", TOKENS, 4096, 1024, 4), ("w8 check", TOKENS, 1024, 4096, 8)],
+    # (label, M, D, norm, WHT block, bits)
+    "norm_quant": [("served", TOKENS, 1024, "ln", 1024, 8)],
+    # (label, R, d, block)
+    "wht": [("ffn hidden", TOKENS, 4096, 4096)],
 }
 # the launch-argument split of fused_matmul: (variant, IDCT on, pre-quantized input)
 SPLIT = [("served", True, False), ("idct off", False, False), ("prequant", True, True),
          ("both off", False, True)]
 DH = 64
 PASSES = 4
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 _NORMS = {None: 0, "rms": 1, "ln": 2}
 _ACTS = {"none": 0, "gelu": 1, "silu": 2}
 
@@ -450,6 +466,108 @@ def time_quant_matmul(torch, built) -> None:
               f"torch._int_mm + scaling {lib_ms:.4f}")
 
 
+def row_argtypes(kernel: str) -> list:
+    """ctypes argument types of ``vq_wht`` or ``vq_norm_quant``, the same in
+    every version of the two sources."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return {"wht": [p, p, i, i, i, i, p], "norm_quant": [p, p, f, i, i, i, p, p, i, i, i, p]}[kernel]
+
+
+def row_launcher(torch, lib: ctypes.CDLL, kernel: str):
+    """``run(x, *rest)`` through this library's row kernel: ``wht(x,
+    block)`` -> y, ``norm_quant(x, u, norm, block, bits)`` -> (q, s), with
+    the grid its wrapper gives it."""
+    from repro_torch.kernels.fused import ROW_WARPS
+
+    fn = getattr(lib, f"vq_{kernel}")
+    fn.argtypes = row_argtypes(kernel)
+    fn.restype = ctypes.c_int
+    per_sm = getattr(lib, f"vq_{kernel}_blocks_per_sm", None)
+    if per_sm is not None:
+        per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        per_sm.restype = ctypes.c_int
+
+    @functools.lru_cache(maxsize=None)
+    def grid(rows, width):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        if per_sm is None:  # the earlier wrappers: 8 rows a block, 8 blocks an SM
+            return max(1, min(-(-rows // 8), 8 * sms))
+        b = ctypes.c_int(0)
+        if per_sm(width, ctypes.byref(b)) != 0 or b.value < 1:
+            raise RuntimeError("no block fits on an SM")
+        return max(1, min(-(-rows // ROW_WARPS), b.value * sms))
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(f"kernel launch failed: cudaError {rc}")
+
+    def run_wht(x, block):
+        (r, d), y = x.shape, torch.empty_like(x)
+        check(fn(x.data_ptr(), y.data_ptr(), r, d, block, grid(r, d),
+                 torch.cuda.current_stream().cuda_stream))
+        return y
+
+    def run_norm_quant(x, u, norm, block, bits):
+        m, d = x.shape
+        q = torch.empty((m, d), dtype=torch.int8, device=x.device)
+        s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+        check(fn(x.data_ptr(), None if u is None else u.data_ptr(), 1e-6, _NORMS[norm], block,
+                 bits, q.data_ptr(), s.data_ptr(), m, d, grid(m, d),
+                 torch.cuda.current_stream().cuda_stream))
+        return q, s
+
+    return run_wht if kernel == "wht" else run_norm_quant
+
+
+def _max_diff(got, want) -> float:
+    """Largest |difference| over a tensor or over each of a tuple's."""
+    if isinstance(got, tuple):
+        return max(_max_diff(g, w) for g, w in zip(got, want))
+    return (got.double() - want.double()).abs().max().item()
+
+
+def time_rows(torch, built, kernel: str) -> None:
+    from repro_torch.core.versaq import make_folded_norm
+    from repro_torch.kernels import fused as fz
+    from repro_torch.kernels import wht as whtk
+    from repro_torch.kernels.measure import kernel_attrs, time_ms
+
+    dev = torch.device("cuda")
+    runs = {name: row_launcher(torch, lib, kernel) for name, (lib, _) in built.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for label, m, d, *rest in SHAPES[kernel]:
+        x = torch.randn((m, d), generator=gen, device=dev)
+        if kernel == "wht":
+            (block,) = rest
+            a = (x, block)
+            want = whtk.wht_plain(x, block=block)
+            nbytes = 8.0 * m * d
+            shape = f"R={m} d={d} block={block}"
+        else:
+            norm, block, bits = rest
+            u = make_folded_norm("ln", d, device=dev).u if norm == "ln" else None
+            a = (x, u, norm, block, bits)
+            want = fz.norm_quant_plain(x, u, norm_kind=norm, wht_block=block, a_bits=bits)
+            nbytes = 5.0 * m * d + 4 * m + (4 * d if u is not None else 0)
+            shape = f"M={m} D={d} norm={norm} block={block} A{bits}"
+        outs = {name: run(*a) for name, run in runs.items()}
+        torch.cuda.synchronize()
+        for name, (lib, ptxas) in built.items():
+            attrs = (kernel_attrs(lib, kernel, d) if hasattr(lib, f"vq_{kernel}_attrs") else "n/a")
+            print(f"{label} {name}: ptxas {ptxas}; attrs {attrs}; max |diff| vs committed "
+                  f"{_max_diff(outs[name], outs['committed']):.3g}; vs plain "
+                  f"{_max_diff(outs[name], want):.3g}")
+        del outs, want
+        times = _passes(runs, lambda name: time_ms(lambda: runs[name](*a)))
+        bound = nbytes / PEAK_BYTES * 1e3
+        print(f"{label} ({shape}) ms per pass: {_fmt(times)}; byte bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB)")
+        for name, ts in times.items():
+            print(f"{label} {name}: TB/s per pass "
+                  + "/".join(f"{nbytes / t / 1e9:.3f}" for t in ts)
+                  + "; x bound per pass " + "/".join(f"{t / bound:.2f}" for t in ts))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
@@ -475,6 +593,8 @@ def main(argv=None) -> int:
         time_ffn(torch, built)
     elif args.kernel == "quant_matmul":
         time_quant_matmul(torch, built)
+    elif args.kernel in ("norm_quant", "wht"):
+        time_rows(torch, built, args.kernel)
     else:
         time_fused_matmul(torch, built, args.split)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
