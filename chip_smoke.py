@@ -45,9 +45,24 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    other plan's block (< 1e-2), which no LayerScale hides or amplifies;
 6. drives ``ops.norm_quant_prologue`` into three pre-quantized
    ``ops.fused_linear`` launches sharing its output (Q/K/V), and
-   ``ops.online_wht_2d`` on the FFN hidden's shape.
+   ``ops.online_wht_2d`` on the FFN hidden's shape;
+7. serves vggt-1b (full width and depth, the same seed-0 weights) the way
+   ``python -m repro_torch.launch.serve`` does: one ``VGGTEngine`` with the
+   tiers ``quality=fp,balanced=w4a8,fast=w4a8:fused`` behind
+   ``AsyncServer(metrics_port=0)`` with live telemetry on, 6 requests of one
+   scene round-robin over the tiers, the second carrying the fault plan
+   ``nan@scene:req=1``.  It checks that only that request fails (with
+   ``NumericFault``), each tier's kernel launches (``quality`` none,
+   ``balanced`` ``quant_matmul`` + ``two_stage_attention``, ``fast``
+   ``fused_matmul`` + ``fused_ffn`` + ``two_stage_attention``), each tier's
+   outputs against the plain versions' forward (rel L2 < 1e-3; ``quality``
+   against ``models/vggt.py::forward`` on the raw weights, < 1e-5),
+   ``/metrics`` (the per-tier bucket series, kernel counters equal to the
+   probe's global counters) and ``/healthz``; then that a second engine
+   with ``max_pending=1`` refuses a second request with ``QueueFull`` and
+   serves the first on ``flush``.
 
-Each of the paths 4-6 runs with the launch counts set to 0 just before it
+Each of the paths 4-7 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -128,6 +143,8 @@ def main() -> int:
     unfused = phase_serve(torch, dev, fused=False)
     fused = phase_serve(torch, dev, fused=True, compare=unfused)
     paths = {"serve_unfused": unfused, "serve_fused": fused, "prologue": phase_prologue(torch, dev)}
+    del unfused["outs"], fused["outs"]
+    paths["server"] = phase_server(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -898,6 +915,158 @@ def phase_prologue(torch, dev) -> dict:
     print(f"prologue: launches {counts}; q/k/v vs plain rel L2 {rels[:3]}, wht {rels[3]:.3g}")
     _check(all(r < 1e-3 for r in rels[:3]) and rels[3] < 1e-6, f"prologue vs plain: {rels}")
     return {"counts": counts, "runs": 1, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the server a user starts (launch/serve.py's engine and server)
+# ---------------------------------------------------------------------------
+
+SERVER_TIERS = "quality=fp,balanced=w4a8,fast=w4a8:fused"
+
+
+def phase_server(torch, dev) -> dict:
+    """Six requests, round-robin over three tiers, through ``AsyncServer``;
+    see the module docstring (7).  With a long ``max_wait_s`` and
+    ``max_batch=2`` a tier's pair fills its group and runs inside the
+    second request's ``submit``, so each submit is its own counted window."""
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import vggt
+    from repro_torch.serving.batching import NumericFault, QueueFull
+    from repro_torch.serving.server import AsyncServer
+    from repro_torch.serving.vggt_engine import VGGTEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("vggt-1b")
+    params = vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tiers = {n: s.materialize() for n, s in ServeSpec.parse_tiers(SERVER_TIERS).items()}
+    names = list(tiers)
+    kw = dict(tiers=tiers, attn_impl="two_stage", max_batch=BATCH, max_wait_s=60.0, device="cuda")
+    eng = VGGTEngine(cfg, params, faults="nan@scene:req=1", **kw)
+    t0 = time.perf_counter()
+    for t in names:  # quantize every tier before the measured requests
+        eng.tier_params(t)
+    torch.cuda.synchronize()
+    print(f"server: tiers {SERVER_TIERS}, quantized in {time.perf_counter() - t0:.1f}s")
+    requests = [_scenes(torch, dev, 1, step=200 + r) for r in range(6)]
+    torch.cuda.synchronize()
+    pairs = cfg.n_layers
+    want = {"quality": {},
+            "balanced": {"quant_matmul": 12 * pairs, "two_stage_attention": 2 * pairs},
+            "fast": {"fused_matmul": 4 * pairs, "fused_ffn": 2 * pairs,
+                     "two_stage_attention": 2 * pairs}}
+    logs, peak, latency, reqs = {}, {}, {}, []
+    try:
+        with AsyncServer(eng, metrics_port=0) as srv:
+            _check(obs.enabled(), "server: telemetry is not on")
+            for i, x in enumerate(requests):
+                tier = names[i % len(names)]
+                torch.cuda.reset_peak_memory_stats()
+                with probe.tracking() as log:  # counts start at 0 here
+                    reqs.append(srv.submit(x, tier=tier))
+                torch.cuda.synchronize()
+                if i < len(names):
+                    _check(log.count == 0, f"server: request {i} ran early: {log.by_name()}")
+                    continue
+                now = time.perf_counter()
+                logs[tier], peak[tier] = log.by_name(), torch.cuda.max_memory_allocated() / 2**30
+                latency[tier] = [now - r.t_enqueue for r in reqs[i - len(names)::len(names)]]
+            outs = []
+            for i, r in enumerate(reqs):
+                try:
+                    outs.append(srv.result(r, timeout=600))
+                except NumericFault:
+                    outs.append(None)
+            host, port = srv.metrics_address
+            with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=60) as resp:
+                _check(resp.status == 200, f"/metrics answered {resp.status}")
+                text = resp.read().decode()
+            with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=60) as resp:
+                health = (resp.status, resp.read().decode().strip())
+            counts = dict(probe.global_counters().counts)
+    finally:
+        obs.disable_all()
+    print(f"server: launches per tier {logs}")
+    _check([o is None for o in outs] == [i == 1 for i in range(6)],
+           f"server: failed requests {[i for i, o in enumerate(outs) if o is None]}, expected [1]")
+    _check(eng.stats.scheduler.numeric_faults == 1, "server: numeric faults")
+    for o in outs:
+        if o is not None:
+            for k in ("pose", "points", "depth", "conf"):
+                _check(bool(torch.isfinite(o[k]).all()), f"server: {k} not finite")
+    for tier in names:
+        _check(logs[tier] == want[tier], f"server {tier}: launches {logs[tier]}, expected "
+                                         f"{want[tier]}")
+    total = {}
+    for log in logs.values():
+        for k, v in log.items():
+            total[k] = total.get(k, 0) + v
+    _check(counts == total, f"server: global counters {counts} vs the tiers' launches {total}")
+
+    # each tier against its reference forward of the same scenes
+    rels = {}
+    with torch.inference_mode():
+        for tier, idx in (("quality", [0, 3]), ("balanced", [4]), ("fast", [2, 5])):
+            x = torch.cat([requests[i] for i in idx], dim=0)
+            if tier == "quality":
+                want_out = vggt.forward(eng.cfg, params, x)
+            else:
+                with _PlainKernels():
+                    want_out = vggt.forward(eng.cfg, eng.tier_params(tier), x)
+            got = {k: torch.cat([outs[i][k] for i in idx], dim=0)
+                   for k in ("pose", "points", "depth")}
+            rels[tier] = _rel_l2(torch, got, want_out)
+            del want_out
+    print(f"server: each tier vs its reference forward, rel L2 {rels}")
+    for tier, rel in rels.items():
+        bound = 1e-5 if tier == "quality" else 1e-3
+        _check(all(v < bound for v in rel.values()), f"server {tier} vs reference: {rel}")
+
+    # telemetry: per-tier bucket series, kernel counters equal to the probe's
+    bucket = f"b{BATCH}xs{S_FRAMES}xp{N_PATCHES}"
+    for tier in names:
+        line = (f'serve_bucket_calls_total{{kind="vggt",bucket="{tier}:{bucket}",tier="{tier}"}} 1')
+        _check(line in text, f"/metrics lacks {line}")
+    for name, n in counts.items():
+        line = f'kernel_launches_total{{kernel="{name}"}} {n}'
+        _check(line in text, f"/metrics lacks {line}")
+    _check(health == (200, "ok"), f"/healthz answered {health}")
+    print(f"server: /metrics {len(text.splitlines())} lines, kernel counters {counts}, "
+          f"/healthz {health}")
+    for tier in names:
+        bs = eng.stats.buckets[next(b for b in eng.stats.buckets if b.tier == tier)]
+        print(f"server {tier}: p50 request latency {statistics.median(latency[tier]) * 1e3:.1f}ms "
+              f"(enqueue to delivery, {len(latency[tier])} requests), forward "
+              f"{bs.p50_ms:.1f}ms, {bs.scenes_per_s:.2f} scenes/s, peak memory "
+              f"{peak[tier]:.2f} GiB")
+    print(eng.stats.format())
+    del outs, reqs
+    # where the quality tier's time goes (no kernel: float projections and
+    # the float two-stage emulation), one forward of its pair replayed
+    pair = torch.cat([requests[0], requests[3]], dim=0)
+    profile_forwards(torch, [lambda: vggt.forward(eng.cfg, params, pair)])
+
+    # admission: a second engine, the same tiers, room for one request
+    adm = VGGTEngine(cfg, params, max_pending=1, **kw)
+    first = adm.enqueue(requests[0], tier="fast")
+    refused = False
+    try:
+        adm.enqueue(requests[1], tier="fast")
+    except QueueFull as e:
+        refused = True
+        print(f"admission: second request refused: {e}")
+    _check(refused and adm.stats.scheduler.rejected == 1, "admission: no QueueFull")
+    _check(not first.ready, "admission: the first request ran before flush")
+    adm.flush()
+    _check(bool(torch.isfinite(first.result()["points"]).all()), "admission: flush result")
+    print("admission: flush served the first request")
+    del adm, eng, params
+    return {"counts": total, "runs": 1, "inplace": {}}
 
 
 if __name__ == "__main__":

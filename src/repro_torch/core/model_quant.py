@@ -95,18 +95,18 @@ def _prep(w: torch.Tensor, pol: _Resolver, site: str, **kw):
     per_group = []
     for gi in range(w.shape[0]):
         kg = {k: (v[gi] if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
-        per_group.append(_prepare_site(w[gi], pol, site_policy, **kg))
+        per_group.append(_prepare_site(w[gi], pol, site_policy, site=site, **kg))
     return tree_stack(per_group)
 
 
-def _prepare_site(w, pol: _Resolver, site_policy, *, out_scale=None, **kw):
+def _prepare_site(w, pol: _Resolver, site_policy, *, out_scale=None, site=None, **kw):
     if out_scale is not None:
         w = w * out_scale[None, :]
         if kw.get("bias") is not None:
             kw["bias"] = kw["bias"] * out_scale
     if site_policy is None:  # bf16 passthrough site
         return prepare_linear_fp(w, use_wht=pol.use_wht, **kw)
-    return prepare_linear(w, site_policy, use_kernel=pol.use_kernel, **kw)
+    return prepare_linear(w, site_policy, use_kernel=pol.use_kernel, site=site, **kw)
 
 
 def _fold_fp(w, gamma=None, beta=None, bias=None, rotate_in=False):
@@ -199,8 +199,10 @@ def _concat_sites(parts, *, prologue=None, norm_u=None) -> QuantLinear:
     bias = None
     if any(p.bias is not None for p in parts):
         bias = torch.cat([p.bias if p.bias is not None else _zeros_bias(p) for p in parts], dim=-1)
+    # merged quant-health attribution: "….attn.wq" -> "….attn.wqkv"
+    site = f.site.rsplit(".", 1)[0] + ".wqkv" if f.site else None
     return dataclasses.replace(f, qw=qw, bias=bias, use_kernel=True, prologue=prologue,
-                               epilogue=Epilogue(), norm_u=norm_u)
+                               epilogue=Epilogue(), norm_u=norm_u, site=site)
 
 
 def _norm_u_for(kind: str, dim: int, groups: int | None, device=None):

@@ -30,6 +30,7 @@ from repro_torch.core import transforms
 from repro_torch.core.quantize import QTensor, quantize_per_token, quantize_weight
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.fused import act_rows as _act_fn
+from repro_torch.obs import quant_health
 
 __all__ = [
     "QuantPolicy",
@@ -139,6 +140,9 @@ class QuantLinear:
     prologue: Optional[Prologue] = None
     epilogue: Optional[Epilogue] = None
     norm_u: Optional[torch.Tensor] = None
+    # Dotted PrecisionPlan site path ("frame.ffn.w_down", ...) — the
+    # attribution key for quant-health telemetry (obs/quant_health.py).
+    site: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,6 +244,16 @@ def _kernel_ready(p: QuantLinear) -> bool:
     return p.use_kernel and p.qw.bits <= 8 and p.a_bits <= 8
 
 
+def _monitor_quant(p: QuantLinear, x: torch.Tensor) -> None:
+    """Quant-health tap: observe the activation a site is about to
+    quantize (obs/quant_health.py; off by default and free when off).  On
+    the fused-kernel path this sees the site *input* — the in-kernel
+    norm/WHT run before the actual quantize — so the signal is a proxy
+    there; the unfused path observes the exact pre-quant tensor."""
+    if p.site is not None:
+        quant_health.monitor(p.site, x, p.a_bits)
+
+
 def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
     """Dispatching linear: plain {"w", "b"} dict or QuantLinear.
 
@@ -259,6 +273,7 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
                 "requant epilogues return QTensors — call kernels.ops.fused_linear directly"
             )
         if fused and _kernel_ready(p):
+            _monitor_quant(p, x)
             return kernel_ops.fused_linear(x, p).to(dtype)
         if p.prologue is not None and p.prologue.norm is not None:
             x = folded_norm_stats(
@@ -266,6 +281,7 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
             ).to(dtype)
         if p.rotate_input:
             x = online_wht(x)
+        _monitor_quant(p, x)
         if _kernel_ready(p):
             y = kernel_ops.quant_linear_matmul(x, p.qw, a_bits=p.a_bits)
         else:
@@ -294,6 +310,7 @@ def apply_ffn(f: FusedFFN, x: torch.Tensor) -> torch.Tensor:
     dtype = x.dtype
     members = (f.w_up, f.w_down) + (() if f.w_gate is None else (f.w_gate,))
     if all(_kernel_ready(ql) for ql in members):
+        _monitor_quant(f.w_up, x)  # the in-kernel hidden is unobservable
         return kernel_ops.fused_ffn_apply(x, f).to(dtype)
     if f.norm is not None:
         x = folded_norm_stats(x.to(torch.float32), f.norm, f.norm_u, f.norm_eps).to(dtype)
@@ -412,6 +429,7 @@ def prepare_linear(
     prologue: Optional[Prologue] = None,
     epilogue: Optional[Epilogue] = None,
     norm_u: Optional[torch.Tensor] = None,
+    site: Optional[str] = None,
 ) -> QuantLinear:
     """Fuse transforms into a [in, out] weight and quantize (Eq. 7).
 
@@ -426,6 +444,7 @@ def prepare_linear(
     ``use_kernel``: route this site's matmul through the CUDA kernel.
     ``prologue``/``epilogue``/``norm_u``: unified-datapath descriptors
     carried onto the prepared layer (see :class:`QuantLinear`).
+    ``site``: the plan's site path, for quant-health attribution.
     """
     w, b, has_bias = _fuse_weight(
         w,
@@ -453,6 +472,7 @@ def prepare_linear(
         prologue=prologue,
         epilogue=epilogue,
         norm_u=norm_u,
+        site=site,
     )
 
 

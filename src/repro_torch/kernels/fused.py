@@ -270,11 +270,18 @@ def _check_matmul(kernel: str, wv, packed: bool, k: int, n: int, dct_block) -> N
                f"IDCT block {dct_block} over N={n}: the kernel takes 64-blocks")
 
 
-def _launch(kernel: str, *args) -> None:
+def _launch(kernel: str, *args, nbytes: int) -> None:
+    """Launch ``vq_<kernel>`` on the current stream and record it with the
+    bytes its function moves (each input read once, each output written
+    once; scratch is the kernel's own traffic and not counted)."""
     rc = _kernel(kernel)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    probe.record(kernel)
+    probe.record(kernel, nbytes=nbytes)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def norm_quant(x: torch.Tensor, norm_u=None, *, norm_kind: Optional[str] = None,
@@ -302,7 +309,7 @@ def norm_quant(x: torch.Tensor, norm_u=None, *, norm_kind: Optional[str] = None,
     grid = grid_for(x.device, -(-m // ROW_WARPS), _blocks_per_sm("norm_quant", x.device, d))
     with torch.cuda.device(x.device):
         _launch("norm_quant", x.data_ptr(), _ptr(u), norm_eps, _NORMS[norm_kind], wht, a_bits,
-                q.data_ptr(), s.data_ptr(), m, d, grid)
+                q.data_ptr(), s.data_ptr(), m, d, grid, nbytes=_nbytes(x, u, q, s))
     return q, s
 
 
@@ -366,6 +373,8 @@ def fused_matmul(x: torch.Tensor, wv: torch.Tensor, ws: torch.Tensor, xs=None, b
                 a_bits, wv.data_ptr(), ws.data_ptr(), int(packed), _ptr(bias),
                 int(dct_block is not None), _ACTS[act], epi_wht, requant_bits or 0, _ptr(out),
                 _ptr(out_q), _ptr(out_s), _ptr(sq), _ptr(sh), m, n, k, grid,
+                nbytes=_nbytes(x, xs, u, wv, ws, bias, out, out_q, out_s)
+                + (DCT_BLOCK * DCT_BLOCK * 4 if dct_block is not None else 0),
             )
     return (out_q, out_s) if requant_bits is not None else out
 
@@ -429,5 +438,7 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
             wd.data_ptr(), wds.data_ptr(), _ptr(bd), int(packed_g), int(packed_u),
             int(packed_d), int(idct_h), int(idct_out), _ACTS[act], mid_wht, a_bits_mid,
             out.data_ptr(), sq.data_ptr(), sh.data_ptr(), m, d, dff, n_out, grid,
+            nbytes=_nbytes(x, u, wg, wgs, bg, wu, wus, bu, wd, wds, bd, out)
+            + (DCT_BLOCK * DCT_BLOCK * 4 if (idct_h or idct_out) else 0),
         )
     return out

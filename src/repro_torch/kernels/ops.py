@@ -69,9 +69,11 @@ def two_stage_mha(
     hkv, lk = k.shape[1], k.shape[2]
     if h % hkv:
         raise ValueError(f"{h} query heads do not share {hkv} K/V heads evenly")
-    qf = q.reshape(b * h, lq, dh)
-    kf = k.reshape(b * hkv, lk, dh)
-    vf = v.reshape(b * hkv, lk, dh)
+    # contiguous: with b = 1 the reshape of a head-transposed view stays a
+    # strided view, and the quantized values keep its strides
+    qf = q.reshape(b * h, lq, dh).contiguous()
+    kf = k.reshape(b * hkv, lk, dh).contiguous()
+    vf = v.reshape(b * hkv, lk, dh).contiguous()
     qq = quantize_per_token(qf, 8)
     kq = quantize_per_token(kf, 8)
     vmax = vf.abs().amax(dim=(1, 2), keepdim=True)

@@ -95,5 +95,6 @@ def quant_matmul(
         )
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: cudaError {rc}")
-    probe.record("quant_matmul")
+    # bytes of the function: x, its scales, the stored weight, its scales, y
+    probe.record("quant_matmul", nbytes=m * k + 4 * m + wv.numel() + 4 * n + 4 * m * n)
     return out

@@ -171,5 +171,7 @@ def two_stage_attention(
         )
     if rc != 0:
         raise RuntimeError(f"two_stage_attention kernel launch failed: cudaError {rc}")
-    probe.record("two_stage_attention")
+    # bytes of the function: int8 q/k/v and their f32 scales in, f32 out
+    probe.record("two_stage_attention",
+                 nbytes=bh * lq * (dh + 4) + bhkv * lk * (2 * dh + 4) + 4 * bh + 4 * bh * lq * dh)
     return out

@@ -64,5 +64,5 @@ def wht(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wht kernel launch failed: cudaError {rc}")
-    probe.record("wht")
+    probe.record("wht", nbytes=8 * r * d)  # f32 x read once, y written once
     return y

@@ -565,3 +565,65 @@ def test_fused_engine_serves_masked_bucket(dev):
     for k in ("pose", "points", "depth"):
         w = direct[k] if k == "pose" else direct[k][:, :, :20]
         assert torch.isfinite(got[k]).all() and _rel(got[k], w) < 1e-6, (k, _rel(got[k], w))
+
+
+def test_server_serves_each_tier_through_its_kernels(dev):
+    """One request per tier of ``quality=fp,balanced=w4a8,fast=w4a8:fused``
+    through ``AsyncServer`` at the smoke width: ``quality`` launches no
+    kernel, ``balanced`` the per-site matmul and the two-stage attention,
+    ``fast`` the fused projections and FFN and the two-stage attention;
+    ``/metrics`` carries the global launch counts."""
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import vggt
+    from repro_torch.serving.server import AsyncServer
+    from repro_torch.serving.vggt_engine import VGGTEngine
+
+    cfg = get_config("vggt-1b-smoke")
+    params = vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tiers = {n: s.materialize() for n, s in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8,fast=w4a8:fused").items()}
+    eng = VGGTEngine(cfg, params, tiers=tiers, attn_impl="two_stage", max_batch=2,
+                     max_wait_s=0.0, device=dev)
+    pairs = cfg.n_layers
+    want = {"quality": {},
+            "balanced": {"quant_matmul": 12 * pairs, "two_stage_attention": 2 * pairs},
+            "fast": {"fused_matmul": 4 * pairs, "fused_ffn": 2 * pairs,
+                     "two_stage_attention": 2 * pairs}}
+    scenes = _normal(np.random.default_rng(4), (1, 2, 16, cfg.d_model), dev)
+    try:
+        with AsyncServer(eng, metrics_port=0) as srv:
+            for tier in want:
+                eng.tier_params(tier)  # quantize outside the counted window
+                with probe.tracking() as log:
+                    out = srv.result(srv.submit(scenes, tier=tier), timeout=600)
+                torch.cuda.synchronize()
+                assert log.by_name() == want[tier], (tier, log.by_name())
+                assert all(torch.isfinite(out[k]).all() for k in ("pose", "points", "depth"))
+            host, port = srv.metrics_address
+            with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=60) as r:
+                text = r.read().decode()
+            counts = probe.global_counters().counts
+        for name, n in counts.items():
+            assert f'kernel_launches_total{{kernel="{name}"}} {n}' in text
+        assert counts["two_stage_attention"] == 4 * pairs
+    finally:
+        obs.disable_all()
+
+
+def test_two_stage_mha_takes_strided_single_batch_views(dev):
+    """One scene (B = 1): the attention's head-transposed Q/K/V views stay
+    strided after the wrapper's reshape; the wrapper hands the kernel
+    contiguous operands, and the result is that of contiguous inputs."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_normal(rng, (1, 42, 4, 32), dev).movedim(2, 1) for _ in range(3))
+    assert not q.reshape(4, 42, 32).is_contiguous()
+    with probe.tracking() as log:
+        got = ops.two_stage_mha(q, k, v)
+    want = ops.two_stage_mha(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert log.by_name() == {"two_stage_attention": 1}
+    assert torch.equal(got, want)

@@ -1,0 +1,158 @@
+"""The port's serving launcher: ``ServeSpec`` against the JAX package's
+(parse, format, tier maps, errors, materialization), the launcher's helpers
+against the reference's, and ``python -m repro_torch.launch.serve`` run in
+a subprocess that cannot import JAX or the JAX package."""
+import argparse
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from repro.launch import serve as jserve
+from repro.launch.specs import ServeSpec as JServeSpec
+from repro_torch.core.precision.plan import PrecisionPlan
+from repro_torch.launch import serve
+from repro_torch.launch.specs import ServeSpec
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+SPECS = ["fp", "bf16", " W4A8 ", "w4a8", "w4a16", "w8a8", "w4a4", "w4a8:fused", "W8A8:FUSED",
+         "plan", "plan:fused", "schedule=out/lm.schedule.json", "SCHEDULE=Out/X.json"]
+BAD_SPECS = ["", "w4", "w4a", "4a8", "w4a8:quant", "bf16:fused", "fp:fused", "nope",
+             "schedule=", "plan:slow"]
+TIER_MAPS = ["quality=fp,balanced=w4a8,fast=w4a8:fused", "quality=fp, balanced=w4a8, fast=plan:fused",
+             "a=schedule=x.json,b=W4A16", None, ""]
+BAD_TIER_MAPS = ["fast", "=w4a8", "fast=", "a=fp,a=w4a8", "a=w4"]
+
+
+def _fields(spec):
+    return dataclasses.astuple(spec)
+
+
+@pytest.mark.parametrize("s", SPECS)
+def test_serve_spec_parse_format_matches(s):
+    got, want = ServeSpec.parse(s, "rtn"), JServeSpec.parse(s, "rtn")
+    assert _fields(got) == _fields(want)
+    assert got.format() == want.format() == str(got)
+    assert ServeSpec.parse(got.format(), "rtn") == got
+
+
+@pytest.mark.parametrize("s", BAD_SPECS)
+def test_serve_spec_errors_match(s):
+    with pytest.raises(ValueError) as want:
+        JServeSpec.parse(s)
+    with pytest.raises(ValueError) as got:
+        ServeSpec.parse(s)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("s", TIER_MAPS)
+def test_tier_maps_match(s):
+    got, want = ServeSpec.parse_tiers(s), JServeSpec.parse_tiers(s)
+    if want is None:
+        assert got is None
+        return
+    assert list(got) == list(want)
+    assert [_fields(v) for v in got.values()] == [_fields(v) for v in want.values()]
+    assert ServeSpec.format_tiers(got) == JServeSpec.format_tiers(want)
+    assert ServeSpec.parse_tiers(ServeSpec.format_tiers(got)) == got
+
+
+@pytest.mark.parametrize("s", BAD_TIER_MAPS)
+def test_tier_map_errors_match(s):
+    with pytest.raises(ValueError) as want:
+        JServeSpec.parse_tiers(s)
+    with pytest.raises(ValueError) as got:
+        ServeSpec.parse_tiers(s)
+    assert str(got.value) == str(want.value)
+
+
+SITES = ["frame.attn.wq", "global.ffn.w_down", "frame.ffn.w_up"]
+
+
+@pytest.mark.parametrize("s", ["w4a8", "w8a8", "w4a16", "w4a4"])
+@pytest.mark.parametrize("method", ["versaq", "rtn"])
+def test_materialize_uniform_level_routes_the_kernels(s, method):
+    """A uniform level is the reference's policy at every site, with the
+    integer matmul on the kernel."""
+    got, want = ServeSpec.parse(s, method).materialize(), JServeSpec.parse(s, method).materialize()
+    assert isinstance(got, PrecisionPlan) and got.use_kernel and not got.fuse
+    for site in SITES:
+        pol = got.policy_for(site)
+        assert (pol.w_bits, pol.a_bits, pol.method) == (want.w_bits, want.a_bits, want.method)
+
+
+def test_materialize_fp_and_fused_match():
+    assert ServeSpec.parse("fp").materialize() is JServeSpec.parse("fp").materialize() is None
+    got, want = ServeSpec.parse("w4a8:fused").materialize(), JServeSpec.parse("w4a8:fused").materialize()
+    for f in ("default", "overrides", "method", "use_kernel", "fuse", "name"):
+        assert getattr(got, f) == getattr(want, f), f
+
+
+@pytest.mark.parametrize("s", ["plan", "plan:fused", "schedule=out/x.json"])
+def test_materialize_refuses_planner_and_schedules(s):
+    with pytest.raises(ValueError, match="not ported yet"):
+        ServeSpec.parse(s).materialize()
+    with pytest.raises(ValueError):
+        serve._parse_policy(s, "versaq")
+
+
+def _args(**kw):
+    base = dict(max_pending=None, max_queued_tokens=None, admission="reject", degrade=False,
+                faults=None)
+    return argparse.Namespace(**{**base, **kw})
+
+
+@pytest.mark.parametrize("kw", [{}, dict(max_pending=3), dict(max_queued_tokens=99, admission="shed"),
+                                dict(degrade=True, faults="nan@scene:req=1")])
+def test_launcher_helpers_match(kw):
+    assert serve._robustness_kwargs(_args(**kw)) == jserve._robustness_kwargs(_args(**kw))
+    tiers = {"quality": None, "balanced": 1, "fast": 2}
+    for n in (0, 1, 5, 7):
+        assert serve._tier_cycle(tiers, n) == jserve._tier_cycle(tiers, n)
+        assert serve._tier_cycle(None, n) == jserve._tier_cycle(None, n)
+
+
+# The launcher in a process where JAX and the JAX package cannot be
+# imported (a None entry in sys.modules makes their import raise).
+_NO_JAX = ("import runpy, sys; sys.modules.update(jax=None, jaxlib=None, repro=None); "
+           "sys.argv = ['serve'] + sys.argv[1:]; "
+           "runpy.run_module('repro_torch.launch.serve', run_name='__main__')")
+
+
+def _launch(*argv):
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return subprocess.run([sys.executable, "-c", _NO_JAX, *argv], capture_output=True, text=True,
+                          timeout=300, env=env, cwd=ROOT)
+
+
+def test_launcher_serves_on_the_cpu_without_jax():
+    out = _launch("--device", "cpu", "--arch", "vggt-1b-smoke", "--tiers",
+                  "quality=fp,balanced=w4a8,fast=w4a8:fused", "--requests", "3", "--frames", "2",
+                  "--patches", "16", "--metrics-port", "0", "--faults", "latency@prefill:seconds=0")
+    assert out.returncode == 0, out.stderr
+    assert "served 3/3 requests" in out.stdout
+    for tier in ("quality", "balanced", "fast"):
+        assert f"{tier}:b2xs2xp16" in out.stdout  # one bucket per tier
+    assert "telemetry: http://127.0.0.1:" in out.stdout
+
+
+@pytest.mark.skipif(__import__("torch").cuda.is_available(), reason="this machine has a card")
+def test_launcher_without_a_card_fails_rather_than_using_the_cpu():
+    out = _launch("--arch", "vggt-1b-smoke", "--tiers", "quality=fp", "--requests", "1",
+                  "--frames", "2", "--patches", "16")
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "served" not in out.stdout
+
+
+def test_launcher_refuses_other_archs_and_unported_specs():
+    out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke")
+    assert out.returncode != 0 and "queue 1 item 7" in out.stderr
+    out = _launch("--device", "cpu", "--tiers", "fast=schedule=x.json")
+    assert out.returncode != 0 and "compiler" in out.stderr
+    out = _launch("--device", "cpu", "--tiers", "fast=plan", "--frames", "2", "--patches", "16")
+    assert out.returncode != 0 and "planner" in out.stderr
