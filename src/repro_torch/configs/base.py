@@ -32,13 +32,12 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     attn_bias: bool = False
     attn_impl: str = "flash"  # flash | two_stage | vanilla (ablation)
-    # two_stage + quantized weights route through the INT8 Pallas kernel;
-    # False pins the jnp emulation (dryrun cost analysis counts its
-    # unrolled chunk loop — see launch/specs.py)
+    # two_stage + quantized weights route through the INT8 two-stage CUDA
+    # kernel; False pins the float emulation
     attn_use_kernel: bool = True
-    # compiled-KernelSchedule attention tile targets: hashable tuple of
-    # (name, int) pairs (bq_target/bk_target/bkv_target) resolved through
-    # kernels.ops.attention_tiles at trace time; None = policy defaults
+    # a compiled KernelSchedule's attention launch tiles: hashable tuple of
+    # (name, int) pairs (bq/bk/bkv), checked against the two-stage kernel's
+    # own by kernels.ops.two_stage_mha; None = the kernel's launch tiles
     attn_tiles: tuple | None = None
     attn_dtype: str = "f32"  # f32 | bf16 streaming-attention compute dtype
     act: str = "swiglu"  # swiglu | geglu | gelu

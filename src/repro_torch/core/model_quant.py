@@ -15,9 +15,10 @@ Fig. 6) — port of ``repro/core/model_quant.py::quantize_vggt``.
   prologue, ``wo`` runs its IDCT/bias in the kernel epilogue, and each
   dense FFN becomes one ``FusedFFN`` launch.
 
-Both a uniform ``QuantPolicy`` and a per-site ``PrecisionPlan`` are
-accepted (a compiled ``KernelSchedule`` waits for
-``core/precision/compiler.py``).  The reference prepares the stacked scan
+A uniform ``QuantPolicy``, a per-site ``PrecisionPlan`` and a compiled
+``KernelSchedule`` (``core/precision/compiler.py``) are accepted.  With a
+schedule, fusion decisions and kernel launch tiles are read from it
+instead of decided inline.  The reference prepares the stacked scan
 groups with ``vmap``; here each group is prepared in a loop and the
 results are stacked, which yields the same leaves.
 """
@@ -54,12 +55,25 @@ _USE_WHT_METHODS = ("quarot", "versaq")
 class _Resolver:
     """Uniform ``QuantPolicy`` or per-site ``PrecisionPlan`` behind one
     interface, duck-typed on ``policy_for`` (a plan) so this module never
-    imports ``core.precision``.
+    imports ``core.precision`` (the planner imports this module for its
+    proxy-error loop).
 
     ``fuse`` (plan field) turns on the unified-datapath fusion; fusion
-    implies kernel routing at the fused sites."""
+    implies kernel routing at the fused sites.
+
+    A compiled ``KernelSchedule`` (duck-typed on ``fuse_decision``) is
+    also accepted: its embedded plan drives per-site levels exactly as
+    before, but fusion decisions and kernel tiles are *read from the
+    schedule* instead of re-derived inline.  A schedule compiled for
+    another backend (the reference's ``interpret`` or ``tpu``) is refused:
+    its tiles are TPU tilings."""
 
     def __init__(self, policy):
+        self._schedule = None
+        if hasattr(policy, "fuse_decision"):  # compiled KernelSchedule
+            policy.check_servable()
+            self._schedule = policy
+            policy = policy.plan
         if hasattr(policy, "policy_for"):  # PrecisionPlan
             self._plan = policy
             self.method = policy.method
@@ -86,27 +100,44 @@ class _Resolver:
             return self._policy
         return self._plan.policy_for(site)
 
+    def tiles_at(self, site: str) -> Optional[tuple]:
+        """Compiled kernel launch tiles for a site (hashable tuple), or
+        None for the kernel's own launch tiles."""
+        if self._schedule is None:
+            return None
+        return self._schedule.tiles_for(site)
+
+    def fuse_decision(self, group: str):
+        """None -> no schedule, decide fusion inline; else a
+        ``(fuse: bool, group_entry)`` pair read from the schedule."""
+        if self._schedule is None:
+            return None
+        return self._schedule.fuse_decision(group)
+
 
 def _prep(w: torch.Tensor, pol: _Resolver, site: str, **kw):
     """Per-site prepare (quantized or bf16-fused) of a stacked [G, K, N]
     weight, one scan group at a time.  Tensor kwargs (gamma/beta/bias/
     out_scale) carry the same leading group dim."""
     site_policy = pol.at(site)
+    tiles = pol.tiles_at(site)
     per_group = []
     for gi in range(w.shape[0]):
         kg = {k: (v[gi] if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
-        per_group.append(_prepare_site(w[gi], pol, site_policy, site=site, **kg))
+        per_group.append(_prepare_site(w[gi], pol, site_policy, site=site, tiles=tiles, **kg))
     return tree_stack(per_group)
 
 
-def _prepare_site(w, pol: _Resolver, site_policy, *, out_scale=None, site=None, **kw):
+def _prepare_site(w, pol: _Resolver, site_policy, *, out_scale=None, tiles=None, site=None,
+                  **kw):
     if out_scale is not None:
         w = w * out_scale[None, :]
         if kw.get("bias") is not None:
             kw["bias"] = kw["bias"] * out_scale
     if site_policy is None:  # bf16 passthrough site
         return prepare_linear_fp(w, use_wht=pol.use_wht, **kw)
-    return prepare_linear(w, site_policy, use_kernel=pol.use_kernel, site=site, **kw)
+    return prepare_linear(w, site_policy, use_kernel=pol.use_kernel, tiles=tiles, site=site,
+                          **kw)
 
 
 def _fold_fp(w, gamma=None, beta=None, bias=None, rotate_in=False):
@@ -181,7 +212,7 @@ def _zeros_bias(p: QuantLinear) -> torch.Tensor:
     return torch.zeros(tuple(v.shape[:-2]) + (v.shape[-1],), dtype=torch.float32, device=v.device)
 
 
-def _concat_sites(parts, *, prologue=None, norm_u=None) -> QuantLinear:
+def _concat_sites(parts, *, prologue=None, norm_u=None, tiles=None) -> QuantLinear:
     """One QuantLinear over the output-concat of separately *prepared*
     sites (Q/K/V): they consume the same input, so the per-token
     quantization runs once and the matmuls become one launch.  Each site's
@@ -202,7 +233,7 @@ def _concat_sites(parts, *, prologue=None, norm_u=None) -> QuantLinear:
     # merged quant-health attribution: "….attn.wq" -> "….attn.wqkv"
     site = f.site.rsplit(".", 1)[0] + ".wqkv" if f.site else None
     return dataclasses.replace(f, qw=qw, bias=bias, use_kernel=True, prologue=prologue,
-                               epilogue=Epilogue(), norm_u=norm_u, site=site)
+                               epilogue=Epilogue(), norm_u=norm_u, tiles=tiles, site=site)
 
 
 def _norm_u_for(kind: str, dim: int, groups: int | None, device=None):
@@ -214,20 +245,35 @@ def _norm_u_for(kind: str, dim: int, groups: int | None, device=None):
     return u
 
 
-def _fuse_qkv(mx: dict, mn_kind: str, d_model: int, groups, rotated: bool, device=None) -> dict:
+def _fuse_qkv(mx: dict, mn_kind: str, d_model: int, groups, rotated: bool, device=None,
+              decision=None) -> dict:
     """Merge prepared wq/wk/wv into one ``wqkv`` site with a norm→quantize
-    prologue, and move wo's IDCT/bias epilogue in-kernel (the reference's
-    ``decision=None`` path: eligibility is checked inline)."""
+    prologue, and move wo's IDCT/bias epilogue in-kernel.
+
+    ``decision`` is None for the inline eligibility checks, or the
+    resolver's ``(fuse, group_entry)`` pair when a compiled schedule
+    already settled the question (the entry carries the ``wo`` epilogue
+    flag and the fused launch's tiles)."""
     parts = [mx["wq"], mx["wk"], mx["wv"]]
-    if not _same_mode(parts):
-        return mx  # mixed-precision Q/K/V (or bf16 islands): keep per-site
-    if sum(_panel_bytes(p, groups) for p in parts) > FUSED_PANEL_BUDGET:
-        return mx
-    wo_epi = isinstance(mx["wo"], QuantLinear) and _panel_bytes(mx["wo"], groups) <= FUSED_PANEL_BUDGET
+    tiles = None
+    if decision is not None:
+        fuse, entry = decision
+        if not fuse:
+            return mx
+        wo_epi = entry.wo_epilogue
+        tiles = entry.tiles
+    else:
+        if not _same_mode(parts):
+            return mx  # mixed-precision Q/K/V (or bf16 islands): keep per-site
+        if sum(_panel_bytes(p, groups) for p in parts) > FUSED_PANEL_BUDGET:
+            return mx
+        wo_epi = (isinstance(mx["wo"], QuantLinear)
+                  and _panel_bytes(mx["wo"], groups) <= FUSED_PANEL_BUDGET)
     mx["wqkv"] = _concat_sites(
         parts,
         prologue=Prologue(norm=mn_kind) if rotated else None,
         norm_u=_norm_u_for(mn_kind, d_model, groups, device) if rotated else None,
+        tiles=tiles,
     )
     for name in ("wq", "wk", "wv"):
         del mx[name]
@@ -236,19 +282,25 @@ def _fuse_qkv(mx: dict, mn_kind: str, d_model: int, groups, rotated: bool, devic
     return mx
 
 
-def _fuse_ffn(f: dict, act: str, fn_kind: str, d_model: int, groups, rotated: bool, device=None):
+def _fuse_ffn(f: dict, act: str, fn_kind: str, d_model: int, groups, rotated: bool, device=None,
+              decision=None):
     """Prepared dense-FFN dict -> :class:`FusedFFN` (one launch per layer)
-    when every member site is quantized compatibly; else unchanged."""
+    when every member site is quantized compatibly; else unchanged.
+    ``decision`` as in :func:`_fuse_qkv`."""
     gate, up, down = f.get("w_gate"), f.get("w_up"), f.get("w_down")
     parts = [p for p in (gate, up, down) if p is not None]
-    if not all(isinstance(p, QuantLinear) for p in parts):
-        return f
-    if gate is not None and not _same_mode([gate, up]):
-        return f  # gate/up share one quantized input: bits must agree
-    if up.dct_block != down.dct_block:
-        return f
-    if sum(_panel_bytes(p, groups) for p in parts) > FUSED_PANEL_BUDGET:
-        return f
+    if decision is not None:
+        if not decision[0]:
+            return f
+    else:
+        if not all(isinstance(p, QuantLinear) for p in parts):
+            return f
+        if gate is not None and not _same_mode([gate, up]):
+            return f  # gate/up share one quantized input: bits must agree
+        if up.dct_block != down.dct_block:
+            return f
+        if sum(_panel_bytes(p, groups) for p in parts) > FUSED_PANEL_BUDGET:
+            return f
     return FusedFFN(
         w_up=up,
         w_down=down,
@@ -261,7 +313,8 @@ def _fuse_ffn(f: dict, act: str, fn_kind: str, d_model: int, groups, rotated: bo
 
 def quantize_vggt(cfg: ModelConfig, params: dict, policy) -> dict:
     """Quantize the VGGT tree (``models/vggt.py``) with a uniform
-    ``QuantPolicy`` or a per-site ``PrecisionPlan``: rotated stream via the
+    ``QuantPolicy``, a per-site ``PrecisionPlan`` or a compiled
+    ``KernelSchedule``: rotated stream via the
     patch projection + rotated special tokens; AA blocks quantized per
     site with LayerScale folded; heads stay fp with the final-norm fold."""
     pol = _Resolver(policy)
@@ -300,7 +353,8 @@ def quantize_vggt(cfg: ModelConfig, params: dict, policy) -> dict:
                          bias=bp["attn"]["wo"].get("b"), out_scale=bp.get("ls1"),
                          head_rot_in=(cfg.n_heads, dh), rotate_out_offline=rotated)
         if pol.fuse:
-            at = _fuse_qkv(at, an.kind, cfg.d_model, groups, rotated, dev)
+            at = _fuse_qkv(at, an.kind, cfg.d_model, groups, rotated, dev,
+                           decision=pol.fuse_decision(f"{pfx}.attn.wqkv"))
         nb["attn"] = at
         ff = dict(bp["ffn"])
         for name in ("w_gate", "w_up"):
@@ -311,7 +365,8 @@ def quantize_vggt(cfg: ModelConfig, params: dict, policy) -> dict:
                              bias=bp["ffn"]["w_down"].get("b"), out_scale=bp.get("ls2"),
                              rotate_input_online=True, rotate_out_offline=rotated)
         if pol.fuse:
-            ff = _fuse_ffn(ff, cfg.act, fn.kind, cfg.d_model, groups, rotated, dev)
+            ff = _fuse_ffn(ff, cfg.act, fn.kind, cfg.d_model, groups, rotated, dev,
+                           decision=pol.fuse_decision(f"{pfx}.ffn"))
         nb["ffn"] = ff
         nb.pop("ls1", None)
         nb.pop("ls2", None)

@@ -28,7 +28,14 @@ from typing import Iterable, Optional
 
 from repro_torch.core.versaq import QuantPolicy
 
-__all__ = ["LEVELS", "LayerPolicy", "PrecisionPlan", "level_policy", "parse_level"]
+__all__ = [
+    "LEVELS",
+    "LayerPolicy",
+    "PrecisionPlan",
+    "level_policy",
+    "level_weight_bits",
+    "parse_level",
+]
 
 # The accelerator's three datapath modes (paper §IV-B).  ``bf16`` means the
 # site is not quantized at all: its weight stays a (transform-fused) float
@@ -55,6 +62,12 @@ def level_policy(level: str, method: str = "versaq") -> Optional[QuantPolicy]:
     if bits is None:
         return None
     return QuantPolicy(w_bits=bits[0], a_bits=bits[1], method=method)
+
+
+def level_weight_bits(level: str) -> int:
+    """Stored bits per weight element at a level (bf16 -> 16)."""
+    bits = parse_level(level)
+    return 16 if bits is None else bits[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,9 +129,19 @@ class PrecisionPlan:
         """The uniform-policy equivalent for one site (None = bf16)."""
         return level_policy(self.resolve(site), self.method)
 
+    def with_override(self, pattern: str, level: str) -> "PrecisionPlan":
+        return dataclasses.replace(self, overrides=self.overrides + ((pattern, level),))
+
     def describe(self, sites: Iterable[str]) -> list[LayerPolicy]:
         """Resolve every site — the printable per-site bit map."""
         return [LayerPolicy(site=s, level=self.resolve(s)) for s in sites]
+
+    def levels_used(self, sites: Iterable[str]) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for s in sites:
+            lv = self.resolve(s)
+            out[lv] = out.get(lv, 0) + 1
+        return out
 
     # ---- serialization ---------------------------------------------------
 
@@ -146,3 +169,8 @@ class PrecisionPlan:
             fuse=bool(d.get("fuse", False)),
             name=d.get("name", "mixed"),
         )
+
+    @property
+    def tag(self) -> str:
+        """Short display name (engine stats, benchmark rows)."""
+        return f"{self.name}({self.method},{self.default}+{len(self.overrides)})"

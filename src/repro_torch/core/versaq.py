@@ -140,6 +140,11 @@ class QuantLinear:
     prologue: Optional[Prologue] = None
     epilogue: Optional[Epilogue] = None
     norm_u: Optional[torch.Tensor] = None
+    # Compiled-schedule launch tiles of the site's kernel, as a hashable
+    # ``(("bk", 64), ("bm", 128), ("bn", 256))`` tuple (see
+    # ``core/precision/compiler.py``); the kernel wrappers raise for tiles
+    # their kernel cannot launch.  None = the kernel's own launch tiles.
+    tiles: Optional[tuple] = None
     # Dotted PrecisionPlan site path ("frame.ffn.w_down", ...) — the
     # attribution key for quant-health telemetry (obs/quant_health.py).
     site: Optional[str] = None
@@ -283,7 +288,7 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
             x = online_wht(x)
         _monitor_quant(p, x)
         if _kernel_ready(p):
-            y = kernel_ops.quant_linear_matmul(x, p.qw, a_bits=p.a_bits)
+            y = kernel_ops.quant_linear_matmul(x, p.qw, a_bits=p.a_bits, tiles=p.tiles)
         else:
             y = _int_matmul(quantize_per_token(x, p.a_bits), p.qw)
         if p.idct:
@@ -429,6 +434,7 @@ def prepare_linear(
     prologue: Optional[Prologue] = None,
     epilogue: Optional[Epilogue] = None,
     norm_u: Optional[torch.Tensor] = None,
+    tiles: Optional[tuple] = None,
     site: Optional[str] = None,
 ) -> QuantLinear:
     """Fuse transforms into a [in, out] weight and quantize (Eq. 7).
@@ -444,6 +450,7 @@ def prepare_linear(
     ``use_kernel``: route this site's matmul through the CUDA kernel.
     ``prologue``/``epilogue``/``norm_u``: unified-datapath descriptors
     carried onto the prepared layer (see :class:`QuantLinear`).
+    ``tiles``: the site's compiled kernel launch tiles.
     ``site``: the plan's site path, for quant-health attribution.
     """
     w, b, has_bias = _fuse_weight(
@@ -472,6 +479,7 @@ def prepare_linear(
         prologue=prologue,
         epilogue=epilogue,
         norm_u=norm_u,
+        tiles=tiles,
         site=site,
     )
 

@@ -51,11 +51,20 @@ __all__ = [
     "norm_quant",
     "norm_quant_plain",
     "wht_rows",
+    "MATMUL_TILES",
+    "FFN_TILES",
+    "matmul_function_bytes",
+    "ffn_function_bytes",
 ]
 
 LANE = 128
 BM = 64  # rows per M tile of fused_matmul (csrc/fused_rows.cuh FT_BM)
 FFN_BM = 64  # rows per M tile of fused_ffn (csrc/fused_ffn.cu BM)
+BN = 128  # output columns per N tile of both (csrc/fused_rows.cuh FT_BN)
+# The tiles the two kernels launch with: a block walks 64-row M tiles and,
+# within one, the weight panel in 128-column N tiles.
+MATMUL_TILES = {"bm": BM, "bn": BN}
+FFN_TILES = {"bm": FFN_BM, "bn": BN}
 DCT_BLOCK = 64  # the only IDCT block the CUDA kernels take
 ROW_WARPS = 4  # rows a block of the row kernels (norm_quant, wht) holds at once
 _NORMS = {None: 0, "rms": 1, "ln": 2}
@@ -284,6 +293,36 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def _w_bytes(k: int, n: int, packed: bool) -> int:
+    return (k // 2 if packed else k) * n
+
+
+def matmul_function_bytes(m: int, k: int, n: int, *, packed: bool, prequant: bool = False,
+                          norm_u: bool = False, bias: bool = False, requant: bool = False,
+                          idct: bool = False) -> int:
+    """Bytes of :func:`fused_matmul`'s function, each moved once: x (f32,
+    or int8 and its scales), the LayerNorm vector, the stored weight, its
+    scales, the bias, y (f32, or int8 and its scales) and the DCT matrix."""
+    x = m * k + 4 * m if prequant else 4 * m * k
+    out = m * n + 4 * m if requant else 4 * m * n
+    return (x + (4 * k if norm_u else 0) + _w_bytes(k, n, packed) + 4 * n
+            + (4 * n if bias else 0) + out + (4 * DCT_BLOCK * DCT_BLOCK if idct else 0))
+
+
+def ffn_function_bytes(m: int, d: int, dff: int, n_out: int, *, packed_u: bool,
+                       packed_d: bool, packed_g: bool = False, gated: bool = False,
+                       norm_u: bool = False, bias_g: bool = False, bias_u: bool = False,
+                       bias_d: bool = False, idct: bool = False) -> int:
+    """Bytes of :func:`fused_ffn`'s function, each moved once: x, the
+    LayerNorm vector, each stored weight with its scales and bias, y and
+    the DCT matrix."""
+    gate = _w_bytes(d, dff, packed_g) + 4 * dff + (4 * dff if bias_g else 0) if gated else 0
+    return (4 * m * d + (4 * d if norm_u else 0) + gate
+            + _w_bytes(d, dff, packed_u) + 4 * dff + (4 * dff if bias_u else 0)
+            + _w_bytes(dff, n_out, packed_d) + 4 * n_out + (4 * n_out if bias_d else 0)
+            + 4 * m * n_out + (4 * DCT_BLOCK * DCT_BLOCK if idct else 0))
+
+
 def norm_quant(x: torch.Tensor, norm_u=None, *, norm_kind: Optional[str] = None,
                norm_eps: float = 1e-6, wht_block: Optional[int] = None, a_bits: int = 8):
     """Fused prologue over f32 [M, D]: folded-norm statistics → blocked WHT
@@ -373,8 +412,10 @@ def fused_matmul(x: torch.Tensor, wv: torch.Tensor, ws: torch.Tensor, xs=None, b
                 a_bits, wv.data_ptr(), ws.data_ptr(), int(packed), _ptr(bias),
                 int(dct_block is not None), _ACTS[act], epi_wht, requant_bits or 0, _ptr(out),
                 _ptr(out_q), _ptr(out_s), _ptr(sq), _ptr(sh), m, n, k, grid,
-                nbytes=_nbytes(x, xs, u, wv, ws, bias, out, out_q, out_s)
-                + (DCT_BLOCK * DCT_BLOCK * 4 if dct_block is not None else 0),
+                nbytes=matmul_function_bytes(
+                    m, k, n, packed=packed, prequant=prequant, norm_u=u is not None,
+                    bias=bias is not None, requant=requant_bits is not None,
+                    idct=dct_block is not None),
             )
     return (out_q, out_s) if requant_bits is not None else out
 
@@ -438,7 +479,9 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
             wd.data_ptr(), wds.data_ptr(), _ptr(bd), int(packed_g), int(packed_u),
             int(packed_d), int(idct_h), int(idct_out), _ACTS[act], mid_wht, a_bits_mid,
             out.data_ptr(), sq.data_ptr(), sh.data_ptr(), m, d, dff, n_out, grid,
-            nbytes=_nbytes(x, u, wg, wgs, bg, wu, wus, bu, wd, wds, bd, out)
-            + (DCT_BLOCK * DCT_BLOCK * 4 if (idct_h or idct_out) else 0),
+            nbytes=ffn_function_bytes(
+                m, d, dff, n_out, packed_u=packed_u, packed_d=packed_d, packed_g=packed_g,
+                gated=wg is not None, norm_u=u is not None, bias_g=bg is not None,
+                bias_u=bu is not None, bias_d=bd is not None, idct=idct_h or idct_out),
         )
     return out

@@ -106,12 +106,14 @@ def pq_flips(args, attention=tsa.two_stage_attention) -> tuple[int, int]:
 
 
 def ffn_inputs(randn, m: int, d: int, dff: int, *, w_bits: int = 4, a_bits: int = 8,
-               gated: bool = False, norm: str | None = "ln", pro_wht: bool = False):
+               a_bits_mid: int | None = None, gated: bool = False, norm: str | None = "ln",
+               pro_wht: bool = False):
     """One fused FFN call at [M, D] -> d_ff -> D with biases, drawn from
     ``randn(*shape)``: weights scaled by 1/sqrt(fan-in) and quantized to
-    ``w_bits`` (4: packed), GELU (SiLU when gated), the hidden WHT over
-    4096 where d_ff allows it (else its largest power-of-two factor), the
-    64-block IDCT on the hidden and the output.  Returns ``(args, kw)`` for
+    ``w_bits`` (4: packed), the input quantized to ``a_bits`` and the
+    hidden to ``a_bits_mid`` (default: ``a_bits``), GELU (SiLU when gated),
+    the hidden WHT over 4096 where d_ff allows it (else its largest
+    power-of-two factor), the 64-block IDCT on the hidden and the output.  Returns ``(args, kw)`` for
     :func:`repro_torch.kernels.fused.fused_ffn`."""
     from repro_torch.core.versaq import make_folded_norm
 
@@ -126,7 +128,8 @@ def ffn_inputs(randn, m: int, d: int, dff: int, *, w_bits: int = 4, a_bits: int 
             randn(d), u)
     packed = w_bits == 4
     kw = dict(packed_g=gated and packed, packed_u=packed, packed_d=packed, a_bits_in=a_bits,
-              a_bits_mid=a_bits, norm_kind=norm, act="silu" if gated else "gelu",
+              a_bits_mid=a_bits if a_bits_mid is None else a_bits_mid, norm_kind=norm,
+              act="silu" if gated else "gelu",
               pro_wht_block=d if pro_wht else None,
               mid_wht_block=4096 if dff % 4096 == 0 else dff & -dff, idct_h=True,
               idct_out=True, dct_block=64)

@@ -5,15 +5,23 @@ The unfused W4A8 path's :func:`quant_linear_matmul` and
 :func:`fused_ffn_apply` and :func:`norm_quant_prologue`; and
 :func:`online_wht_2d`.
 
-Tile policy.  The TPU wrappers chose tiles per call (``lane_tile`` with
-``LANE=8`` sublanes, padding token axes to a tile multiple).  The Hopper
-kernels instead use fixed tiles chosen for the card (128x128x64 for the
-matmul; 64 query rows x 64 keys, with a 2048-key int32 carry period, for
-attention; 64-row tiles and 128-column N tiles for the fused kernels — see
-``csrc/``) and mask ragged M/N and Lq/Lk edges inside the kernel, so the
-wrappers never pad.  Results for the real rows equal the
-padded TPU path's: padded rows are independent per token and padded keys
-are masked to ``-1e30`` there.
+Tiles.  The TPU wrappers chose tiles per call (``lane_tile`` with
+``LANE=8`` sublanes, padding token axes to a tile multiple).  Each Hopper
+kernel instead launches one fixed tiling chosen for the card and masks
+ragged M/N and Lq/Lk edges itself, so the wrappers never pad: 128x256
+output tiles with 64 K bytes a step for the matmul
+(``quant_matmul.LAUNCH_TILES``); 128 query rows (16 per warp x 8 warps) x
+64-key tiles with a 2048-key int32 carry for attention
+(``two_stage_attention.LAUNCH_TILES``); 64-row M tiles and 128-column N
+tiles for the fused kernels (``fused.MATMUL_TILES``, ``fused.FFN_TILES``).
+Results for the real rows equal the padded TPU path's: padded rows are
+independent per token and padded keys are masked to ``-1e30`` there.
+
+A compiled ``KernelSchedule`` carries these launch tiles per site
+(``QuantLinear.tiles``, ``ModelConfig.attn_tiles``).  The wrappers take
+them as ``tiles=`` and raise ``ValueError`` for tiles their kernel cannot
+launch (:func:`launch_tiles`) — a schedule compiled for the TPU, say —
+rather than ignore them.
 
 On CPU tensors the kernel modules run their plain PyTorch versions.
 """
@@ -29,6 +37,7 @@ from repro_torch.kernels import two_stage_attention as _tsa
 from repro_torch.kernels import wht as _wht
 
 __all__ = [
+    "launch_tiles",
     "quant_linear_matmul",
     "two_stage_mha",
     "online_wht_2d",
@@ -38,11 +47,38 @@ __all__ = [
 ]
 
 
-def quant_linear_matmul(x: torch.Tensor, wq: QTensor, a_bits: int = 8) -> torch.Tensor:
+_LAUNCH_TILES = {
+    "quant_matmul": _qm.LAUNCH_TILES,
+    "two_stage_attention": _tsa.LAUNCH_TILES,
+    "fused_matmul": _fused.MATMUL_TILES,
+    "fused_ffn": _fused.FFN_TILES,
+}
+
+
+def launch_tiles(kernel: str, tiles=None) -> dict[str, int]:
+    """The tiles ``kernel``'s CUDA kernel launches with.  ``tiles`` (a dict
+    or a schedule's ``(name, size)`` pairs) may name any of them at their
+    launch size; any other name or size raises ``ValueError``."""
+    fixed = _LAUNCH_TILES[kernel]
+    if tiles:
+        asked = dict(tiles)
+        bad = {k: v for k, v in asked.items() if fixed.get(k) != v}
+        if bad:
+            raise ValueError(
+                f"{kernel}: cannot launch tiles {bad}; its kernel launches {fixed} "
+                "(recompile the schedule with repro_torch.launch.compile)"
+            )
+    return dict(fixed)
+
+
+def quant_linear_matmul(
+    x: torch.Tensor, wq: QTensor, a_bits: int = 8, *, tiles=None
+) -> torch.Tensor:
     """Quantize activations per token and run the integer matmul kernel.
 
-    x: [..., K] float -> [..., N] float32.
+    x: [..., K] float -> [..., N] float32.  ``tiles``: see :func:`launch_tiles`.
     """
+    launch_tiles("quant_matmul", tiles)
     lead = tuple(x.shape[:-1])
     k = x.shape[-1]
     n = wq.shape[-1]
@@ -55,7 +91,7 @@ def quant_linear_matmul(x: torch.Tensor, wq: QTensor, a_bits: int = 8) -> torch.
 
 
 def two_stage_mha(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False, tiles=None
 ) -> torch.Tensor:
     """Paper-Alg.-1 attention over float [B, H, L, dh] inputs.
 
@@ -63,8 +99,10 @@ def two_stage_mha(
     two-stage kernel.  K/V may carry fewer (GQA-shared) heads than Q
     ([B, Hkv, Lk, dh]); shared heads are indexed inside the kernel, never
     copied.  ``v_scale`` stays per *query* head, exactly as the reference
-    keeps it.  Returns [B, H, Lq, dh] float32.
+    keeps it.  Returns [B, H, Lq, dh] float32.  ``tiles``: see
+    :func:`launch_tiles`.
     """
+    launch_tiles("two_stage_attention", tiles)
     b, h, lq, dh = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     if h % hkv:
@@ -110,7 +148,7 @@ def _wht_block(on: bool, width: int):
     return transforms.block_size_for(width) if on else None
 
 
-def fused_linear(x, p):
+def fused_linear(x, p, *, tiles=None):
     """One-launch QuantLinear apply: prologue (norm → WHT → quantize) +
     integer matmul + epilogue (IDCT → bias → act → WHT → requant), driven
     by the layer's ``prologue``/``epilogue`` descriptors
@@ -119,8 +157,10 @@ def fused_linear(x, p):
     ``x``: float [..., K], or a pre-quantized ``QTensor`` (e.g. from
     :func:`norm_quant_prologue`, shared across several projections).
     Returns float32 [..., N], or a per-token-scaled ``QTensor`` when the
-    epilogue requantizes.
+    epilogue requantizes.  ``tiles`` (default: the site's own
+    ``p.tiles``): see :func:`launch_tiles`.
     """
+    launch_tiles("fused_matmul", getattr(p, "tiles", None) if tiles is None else tiles)
     pro, epi = p.prologue, p.epilogue
     prequant = isinstance(x, QTensor)
     src = x.values if prequant else x
@@ -152,11 +192,16 @@ def fused_linear(x, p):
     return out.reshape(lead + (n,))
 
 
-def fused_ffn_apply(x: torch.Tensor, f) -> torch.Tensor:
+def fused_ffn_apply(x: torch.Tensor, f, *, tiles=None) -> torch.Tensor:
     """The whole gated/plain FFN layer in ONE launch
     (``core.versaq.FusedFFN``): norm prologue → shared A-quant → gate/up
     int matmuls → act·gate → hidden WHT → requant → down int matmul →
-    IDCT/biases.  x: float [..., D] -> float32 [..., d_out]."""
+    IDCT/biases.  x: float [..., D] -> float32 [..., d_out].  ``tiles``
+    (default: the member sites' ``tiles``, which a schedule sets to its
+    FFN group's): see :func:`launch_tiles`."""
+    members = (f.w_up, f.w_down) + (() if f.w_gate is None else (f.w_gate,))
+    for t in [tiles] if tiles is not None else [getattr(m, "tiles", None) for m in members]:
+        launch_tiles("fused_ffn", t)
     lead = tuple(x.shape[:-1])
     d = x.shape[-1]
     wu, wd, wg = f.w_up, f.w_down, f.w_gate

@@ -22,7 +22,12 @@ import torch
 from repro_torch.core.quantize import unpack_int4
 from repro_torch.kernels import _build, probe
 
-__all__ = ["quant_matmul", "quant_matmul_plain"]
+__all__ = ["quant_matmul", "quant_matmul_plain", "function_bytes", "LAUNCH_TILES"]
+
+# The tile the kernel launches with (csrc/quant_matmul.cu ``BM``, ``BN``
+# and ``Geom::BK``): one block per 128x256 output tile, 64 K bytes of A a
+# ring step.  Ragged M and N edges are masked in the kernel.
+LAUNCH_TILES = {"bm": 128, "bn": 256, "bk": 64}
 
 _fn = None
 
@@ -40,6 +45,12 @@ def quant_matmul_plain(
         wv = unpack_int4(wv, axis=0)
     acc = xv.to(torch.float64) @ wv.to(torch.float64)
     return acc.to(torch.float32) * xs.reshape(-1, 1) * ws.reshape(1, -1)
+
+
+def function_bytes(m: int, k: int, n: int, *, packed: bool) -> int:
+    """Bytes of the function: x, its scales, the stored weight, its scales
+    and y, each moved once (what a launch records in ``kernels.probe``)."""
+    return m * k + 4 * m + (k // 2 if packed else k) * n + 4 * n + 4 * m * n
 
 
 def _kernel():
@@ -95,6 +106,5 @@ def quant_matmul(
         )
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: cudaError {rc}")
-    # bytes of the function: x, its scales, the stored weight, its scales, y
-    probe.record("quant_matmul", nbytes=m * k + 4 * m + wv.numel() + 4 * n + 4 * m * n)
+    probe.record("quant_matmul", nbytes=function_bytes(m, k, n, packed=packed))
     return out

@@ -35,10 +35,15 @@ import torch
 
 from repro_torch.kernels import _build, probe
 
-__all__ = ["two_stage_attention", "two_stage_attention_plain", "NEG_INF", "T_V"]
+__all__ = ["two_stage_attention", "two_stage_attention_plain", "function_bytes", "NEG_INF",
+           "T_V", "LAUNCH_TILES"]
 
 NEG_INF = -1e30
 T_V = 2048  # keys per int32 P·V partial before the float32 carry (as in the kernel)
+# The tiles the kernel launches with (csrc/two_stage_attention.cu): 128
+# query rows a block (``BQ``, 16 per warp x 8 warps), 64-key tiles
+# (``BKT``) and the 2048-key int32 carry period (``TV_TILES`` tiles).
+LAUNCH_TILES = {"bq": 128, "bk": 64, "bkv": T_V}
 
 _fn = None
 
@@ -97,6 +102,12 @@ def two_stage_attention_plain(
             acc += (pq[:, c0 : c0 + T_V].to(torch.float64) @ vb[c0 : c0 + T_V]).to(torch.float32)
         out[b] = acc * (1.0 / 127.0) / l * v_scale[b]
     return out
+
+
+def function_bytes(bh: int, bhkv: int, lq: int, lk: int, dh: int) -> int:
+    """Bytes of the function: int8 q/k/v and their f32 scales in, f32 out
+    (what a launch records in ``kernels.probe``)."""
+    return bh * lq * (dh + 4) + bhkv * lk * (2 * dh + 4) + 4 * bh + 4 * bh * lq * dh
 
 
 def _kernel():
@@ -171,7 +182,5 @@ def two_stage_attention(
         )
     if rc != 0:
         raise RuntimeError(f"two_stage_attention kernel launch failed: cudaError {rc}")
-    # bytes of the function: int8 q/k/v and their f32 scales in, f32 out
-    probe.record("two_stage_attention",
-                 nbytes=bh * lq * (dh + 4) + bhkv * lk * (2 * dh + 4) + 4 * bh + 4 * bh * lq * dh)
+    probe.record("two_stage_attention", nbytes=function_bytes(bh, bhkv, lq, lk, dh))
     return out

@@ -3,17 +3,24 @@ bucketed engine behind the async server loop (port of the VGGT branch of
 ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
-      --tiers quality=fp,balanced=w4a8,fast=w4a8:fused --attn-impl two_stage \\
-      --requests 6 --scenes 1 --frames 8 --patches 1024 --batch 2 --metrics-port 0
+      --tiers quality=fp,balanced=w4a8,planned=plan:fused,fast=w4a8:fused \\
+      --attn-impl two_stage --requests 8 --scenes 1 --frames 8 --patches 1024 \\
+      --batch 2 --metrics-port 0
+
+  # serve a schedule compiled by ``python -m repro_torch.launch.compile``
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
+      --schedule build/vggt.schedule.json --attn-impl two_stage ...
 
 Precision tiers (one engine, several quantization levels; requests are
 assigned tiers round-robin and only coalesce within their tier).  Tier
 specs: ``fp`` (full precision), ``w<bits>a<bits>`` (uniform, on the
-``quant_matmul`` kernel), and ``:fused`` variants (``w4a8:fused``) that
-serve through the unified-datapath kernels (``fused_matmul`` for Q/K/V
-and ``wo``, one ``fused_ffn`` launch per FFN).  The ``plan`` and
-``schedule=`` specs (and the reference's ``--schedule``) wait for the
-port of the precision planner and compiler.
+``quant_matmul`` kernel), ``plan`` (the sensitivity planner's mixed plan
+on the seed-0 weights), ``schedule=<path>`` (a compiled kernel schedule),
+and ``:fused`` variants (``w4a8:fused``, ``plan:fused``) that serve
+through the unified-datapath kernels (``fused_matmul`` for Q/K/V and
+``wo``, one ``fused_ffn`` launch per FFN) wherever the plan lets a group
+fuse.  ``--schedule`` serves one compiled schedule (its launch tiles, its
+hash in the bucket keys) and conflicts with ``--tiers``.
 
 The launcher runs on the CUDA device; ``--device cpu`` runs it on the
 CPU (each kernel wrapper then takes its plain PyTorch version).  Without
@@ -145,7 +152,8 @@ def serve_vggt(cfg, args) -> None:
     eng = VGGTEngine(
         cfg,
         params,
-        policy=None if tiers else _policy(args),
+        policy=None if (tiers or args.schedule) else _policy(args),
+        schedule=args.schedule,
         tiers=tiers,
         attn_impl=args.attn_impl,
         max_batch=args.batch,
@@ -183,7 +191,12 @@ def main(argv=None) -> int:
                     help="w<bits>a<bits>[:fused] (w4a8, w4a16, w4a8:fused) | fp")
     ap.add_argument("--tiers", default=None,
                     help="serve precision tiers: name=spec[,name=spec...], "
-                         "spec in {fp, w<bits>a<bits>[:fused]}; overrides --policy")
+                         "spec in {fp, w<bits>a<bits>[:fused], plan[:fused], "
+                         "schedule=<path>}; overrides --policy")
+    ap.add_argument("--schedule", default=None,
+                    help="serve from a compiled KernelSchedule JSON "
+                         "(repro_torch.launch.compile output); overrides --policy "
+                         "and conflicts with --tiers")
     ap.add_argument("--method", default="versaq", help="versaq|quarot|rtn")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-wait-s", type=float, default=0.005,
@@ -231,7 +244,7 @@ def main(argv=None) -> int:
                  "(ROADMAP.md, queue 1 item 7) is not")
     try:
         serve_vggt(cfg, args)
-    except (RuntimeError, ValueError) as e:
+    except (RuntimeError, ValueError, OSError) as e:
         print(f"serve: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     return 0

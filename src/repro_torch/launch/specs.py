@@ -28,16 +28,12 @@ class ServeSpec:
 
     ``parse``/``format`` round-trip exactly, malformed input raises one
     informative ``ValueError``, and ``materialize`` turns the spec into
-    what the engine takes — ``None`` (full precision) or a
-    ``PrecisionPlan``.
+    what the engine takes — ``None`` (full precision), a
+    ``PrecisionPlan`` (uniform, ``:fused`` or the sensitivity planner's
+    mixed plan) or a compiled ``KernelSchedule``.
 
         ServeSpec.parse("w4a8:fused").materialize(cfg, params)
-        ServeSpec.parse_tiers("quality=fp,fast=w4a8:fused")  # name -> ServeSpec
-
-    ``plan`` (the sensitivity planner's mixed plan) and ``schedule=``
-    (a compiled kernel schedule) parse and format as in the reference;
-    ``materialize`` refuses them until ``core/precision/planner.py`` and
-    ``compiler.py`` are ported.
+        ServeSpec.parse_tiers("quality=fp,fast=plan:fused")  # name -> ServeSpec
     """
 
     level: str  # "fp" | "w<bits>a<bits>" | "plan" | "schedule"
@@ -125,31 +121,44 @@ class ServeSpec:
         self, cfg: Optional[ModelConfig] = None, params: Any = None,
         *, name: str = "default", verbose: bool = False,
     ):
-        """What the serving engine takes: ``None`` (fp) or a
-        ``PrecisionPlan``.
+        """What the serving engine takes: ``None`` (fp), a
+        ``PrecisionPlan`` or a ``KernelSchedule``.
 
         A uniform ``w<bits>a<bits>`` level becomes a one-level plan with
         ``use_kernel=True``, where the reference returns the level's
         ``QuantPolicy``: every site is the same, but the port's
         kernel-ready sites (bits <= 8) then run the ``quant_matmul``
         kernel rather than the float emulation of the integer matmul.
-        ``:fused`` adds ``fuse=True`` as in the reference.  ``cfg``,
-        ``params``, ``name`` and ``verbose`` are for the planner's
-        ``plan`` level."""
+        ``plan`` runs the sensitivity planner against ``(cfg, params)`` —
+        both required for that level only — and stamps its plan
+        ``use_kernel=True`` for the same reason.  ``:fused`` adds
+        ``fuse=True`` as in the reference.  ``schedule=<path>`` loads a
+        compiled schedule, refusing one the JAX package compiled."""
         from repro_torch.core.precision.plan import PrecisionPlan
 
-        del cfg, params, name, verbose
         if self.level == "fp":
             return None
         if self.level == "schedule":
-            raise ValueError(
-                f"serve spec {self.format()!r}: compiled kernel schedules need "
-                "core/precision/compiler.py, which is not ported yet"
-            )
+            # a compiled KernelSchedule (launch/compile.py output); the
+            # engine also accepts the raw path via its ``schedule=`` kwarg,
+            # which additionally applies attention tiles + bucket hashing
+            from repro_torch.serving.batching import load_schedule
+
+            return load_schedule(self.path)[0]
         if self.level == "plan":
-            raise ValueError(
-                f"serve spec {self.format()!r}: the sensitivity planner "
-                "(core/precision/planner.py) is not ported yet"
-            )
+            if cfg is None or params is None:
+                raise ValueError(
+                    f"serve spec {self.format()!r} needs a model to plan "
+                    f"against (cfg and params)"
+                )
+            from repro_torch.core.precision import plan_model
+
+            plan, report = plan_model(cfg, params, method=self.method, name=name,
+                                      use_kernel=True, fuse=self.fused)
+            if verbose:
+                print(f"tier {name!r}: planned mixed precision "
+                      f"{report['level_counts']} "
+                      f"({report['weight_bytes']/1e6:.2f}MB modeled weights)")
+            return plan
         return PrecisionPlan(default=self.level, method=self.method, use_kernel=True,
                              fuse=self.fused, name=self.level)

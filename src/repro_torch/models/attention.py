@@ -152,17 +152,18 @@ def sdpa_dispatch(cfg, q, k, v, *, causal: bool, kv_mask=None):
                           compute_dtype=getattr(cfg, "attn_dtype", "f32"), kv_mask=kv_mask)
 
 
-def _two_stage_kernel_sdpa(q, k, v, *, causal: bool):
+def _two_stage_kernel_sdpa(q, k, v, *, causal: bool, tiles: tuple | None = None):
     """Quantized fast path: the INT8 two-stage CUDA kernel (paper Alg. 1).
 
     q: [B,Lq,H,dh]; k/v: [B,Lk,Hkv,dh] float, already per-head rotated.
-    Returns None for sequences under 8 tokens, which take the emulation
-    as in the reference."""
+    ``tiles``: a compiled schedule's launch tiles (``cfg.attn_tiles``),
+    checked by ``kernels.ops.two_stage_mha``.  Returns None for sequences
+    under 8 tokens, which take the emulation as in the reference."""
     lq, lk = q.shape[1], k.shape[1]
     if min(lq, lk) < 8:
         return None
     o = kernel_ops.two_stage_mha(
-        q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal=causal
+        q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal=causal, tiles=tiles
     )
     return o.movedim(1, 2)
 
@@ -210,7 +211,8 @@ def gqa_attention(
         and getattr(cfg, "attn_use_kernel", True)
         and kv_mask is None
     ):
-        o = _two_stage_kernel_sdpa(q, k, v, causal=causal)
+        o = _two_stage_kernel_sdpa(q, k, v, causal=causal,
+                                   tiles=getattr(cfg, "attn_tiles", None))
     if o is None:
         o = sdpa_dispatch(cfg, q, k, v, causal=causal, kv_mask=kv_mask)
     o = o.reshape(b, lq, h * dh).to(x.dtype)

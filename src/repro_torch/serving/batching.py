@@ -15,8 +15,8 @@ The engines serve traffic the same way:
   latency, throughput (``BucketStats`` / ``ServeStats``).
 
 This module holds the engine-agnostic pieces; the engines own the model
-calls, padding/masking, and result splitting.  ``load_schedule`` (compiled
-kernel schedules) waits for the port of ``core/precision/compiler.py``.
+calls, padding/masking, and result splitting; ``load_schedule`` resolves
+an engine's compiled kernel schedule.
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ __all__ = [
     "PendingRequest",
     "MicroBatchQueue",
     "TierSet",
+    "load_schedule",
     "next_pow2",
     "pick_bucket",
     "LATENCY_WINDOW",
@@ -173,6 +174,31 @@ class TierSet:
             p = self._raw if pol is None else self._quantize(pol)
             self._params[t] = p
         return p
+
+
+def load_schedule(schedule):
+    """Resolve an engine's ``schedule=`` argument -> ``(schedule, hash)``.
+
+    Accepts ``None`` (implicit path), a path to a compiled
+    ``KernelSchedule`` JSON file, or an in-memory ``KernelSchedule``.
+    The returned hash goes into the engine's bucket keys so work under
+    different schedules can never be confused.  A schedule compiled by
+    the JAX package (backend ``interpret`` or ``tpu``) is refused with a
+    ``ValueError`` that says to recompile it.
+    """
+    if schedule is None:
+        return None, None
+    if isinstance(schedule, str):
+        from repro_torch.core.precision.compiler import KernelSchedule
+
+        schedule = KernelSchedule.load(schedule)
+    if not hasattr(schedule, "fuse_decision"):
+        raise TypeError(
+            f"schedule= expects a KernelSchedule or a path to one, got "
+            f"{type(schedule).__name__}"
+        )
+    schedule.check_servable()
+    return schedule, schedule.hash
 
 
 def next_pow2(n: int, floor: int = 16) -> int:

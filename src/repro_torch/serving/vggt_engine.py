@@ -30,10 +30,14 @@ quantized fast path + precision tiers and robustness (port of
   quarantine: a request whose outputs are non-finite fails alone with
   ``NumericFault``; co-batched requests are delivered.
 
+* **Compiled schedules** — ``schedule=`` (a ``KernelSchedule`` or a path
+  to one, from ``python -m repro_torch.launch.compile``) replaces
+  ``policy=``: fusion decisions and kernel launch tiles come from the
+  schedule, its attention tiles land on ``cfg.attn_tiles``, and its hash
+  is part of every bucket key.
+
 The engine runs on the CUDA device unless ``device`` says otherwise; it
-raises when asked for CUDA on a machine without it.  A compiled kernel
-schedule (the reference's ``schedule=``) waits for the port of
-``core/precision/compiler.py``.
+raises when asked for CUDA on a machine without it.
 """
 from __future__ import annotations
 
@@ -117,8 +121,10 @@ class VGGTEngine:
         out = eng.infer(scenes, tier="fast")
 
     ``params`` is the raw ``vggt.init_params`` tree; each tier's policy
-    (``QuantPolicy`` or ``PrecisionPlan``; None = full precision) is
-    applied on the tier's first use.
+    (``QuantPolicy``, ``PrecisionPlan`` or ``KernelSchedule``; None = full
+    precision) is applied on the tier's first use.  ``schedule=`` (a
+    compiled ``KernelSchedule`` or its path) serves one tier from it and
+    is refused together with ``policy=`` or ``tiers=``.
     """
 
     def __init__(
@@ -127,6 +133,7 @@ class VGGTEngine:
         params: Any,
         *,
         policy: Optional[Any] = None,
+        schedule: Optional[Any] = None,
         tiers: Optional[dict[str, Any]] = None,
         default_tier: Optional[str] = None,
         attn_impl: Optional[str] = None,
@@ -151,6 +158,16 @@ class VGGTEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg.with_(attn_impl=attn_impl) if attn_impl is not None else cfg
+        # A compiled KernelSchedule (or a path to one) replaces the implicit
+        # policy: the walker reads its fusion decisions and launch tiles.
+        self.schedule, self._schedule_hash = batching.load_schedule(schedule)
+        if self.schedule is not None:
+            if policy is not None or tiers is not None:
+                raise ValueError("pass either schedule= or policy=/tiers=, not both")
+            policy = self.schedule
+            targets = self.schedule.attention_targets()
+            if targets:
+                self.cfg = self.cfg.with_(attn_tiles=targets)
         self._raw = to_device(params, self.device)
         # ``tiers``: tier name -> QuantPolicy | PrecisionPlan | None (fp).
         # Tier is part of the bucket identity (own first uses + stats rows
@@ -168,7 +185,7 @@ class VGGTEngine:
         self.max_wait_s = max_wait_s
         self.pad_patches = pad_patches
         self.stats = VGGTServeStats()
-        self._seen: set[tuple[Bucket, bool]] = set()
+        self._seen: set[tuple[Bucket, bool, Optional[str]]] = set()
         self._queue = batching.MicroBatchQueue(self._run, self.max_batch, max_wait_s)
         # robustness layer (docs/robustness.md): bounded admission,
         # degradation ladder, and the chaos injector — all off by default
@@ -212,9 +229,10 @@ class VGGTEngine:
         ``compiles`` field.  Eager PyTorch compiles nothing; the field keeps
         the reference's stats schema and here means "bucket first use".
         Masked and unmasked calls count apart (the mask-free one keeps the
-        two-stage kernel path live)."""
-        if (bucket, masked) not in self._seen:
-            self._seen.add((bucket, masked))
+        two-stage kernel path live); the key holds the schedule's hash."""
+        key = (bucket, masked, self._schedule_hash)
+        if key not in self._seen:
+            self._seen.add(key)
             self.stats.bucket(bucket).compiles += 1
 
     # ---- request path ----------------------------------------------------

@@ -37,7 +37,7 @@ _MM_SHAPES = [(1, 64, 4), (37, 128, 132), (130, 256, 260), (300, 1024, 512), (12
 _SATURATED = {(False, 300, 4096, 256)}
 
 
-# The kernel runs 128 x 128 output tiles, each of two 64-row warpgroups,
+# The kernel runs 128 x 256 output tiles, each of two 64-row warpgroups,
 # over 64-deep K steps (W4: 32 packed rows) through a 4-slot load ring.
 # K=32 (W8) is a single step; K=96 ends in a partial K step (W4: 48 packed
 # rows of a 32-row step), K=48 too (W8 only: packing needs K % 32 == 0),
@@ -627,3 +627,71 @@ def test_two_stage_mha_takes_strided_single_batch_views(dev):
     torch.cuda.synchronize()
     assert log.by_name() == {"two_stage_attention": 1}
     assert torch.equal(got, want)
+
+
+def test_tuner_times_the_kernels_on_the_card_and_fills_the_db(dev, tmp_path):
+    """The tuner on ``cuda`` times each kernel signature of a fused mixed
+    plan (CUDA events, L2 flushed) and persists it; a recompile on the
+    filled DB times nothing and yields the same schedule, whose tiles are
+    the kernels' launch tiles."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import Autotuner, PrecisionPlan, TuningDB, compile_schedule
+
+    cfg = get_config("vggt-1b-smoke").with_(attn_impl="two_stage")
+    plan = PrecisionPlan(default="w4a8", use_kernel=True, fuse=True, name="mixed",
+                         overrides=(("frame.attn.wk", "w4a4"), ("global.ffn.w_down", "w8a8")))
+    db = str(tmp_path / "tune.json")
+    tuner = Autotuner(db=TuningDB(db), device="cuda")
+    with probe.tracking() as log:
+        sched = compile_schedule(cfg, plan, tuner=tuner)
+    assert sched.backend == "cuda" and tuner.timing_runs == len(tuner.db.entries) > 0
+    assert all(k.endswith("|cuda") and 0 < e["cost"] < 1e3 for k, e in tuner.db.entries.items())
+    kinds = {k.split("|")[0] for k in tuner.db.entries}
+    assert kinds == {"quant_matmul", "fused_ffn", "two_stage_mha"}
+    assert {"quant_matmul", "fused_matmul", "fused_ffn", "two_stage_attention"} <= set(log.by_name())
+    again = Autotuner(db=TuningDB(db), device="cuda")
+    assert compile_schedule(cfg, plan, tuner=again).hash == sched.hash
+    assert again.timing_runs == 0 and again.db.misses == 0
+    for s in sched.sites:
+        if s.kernel == "matmul":
+            kernel = "fused_matmul" if s.epilogue or s.prologue else "quant_matmul"
+            assert dict(s.tiles) == ops.launch_tiles(kernel), s.site
+
+
+def test_planned_tier_launches_what_its_schedule_says(dev, tmp_path):
+    """The planner's fused plan on the card, compiled and served through
+    ``VGGTEngine(schedule=path)``: the launches equal the schedule's
+    prediction, the outputs the plain versions' forward of the same tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import compile_schedule, plan_model
+    from repro_torch.models import vggt
+    from repro_torch.serving.vggt_engine import VGGTEngine
+
+    cfg = get_config("vggt-1b-smoke")
+    params = vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    plan, report = plan_model(cfg, params, use_kernel=True, fuse=True)
+    assert sum(report["level_counts"].values()) == 12
+    path = str(tmp_path / "s.json")
+    compile_schedule(cfg, plan).save(path)
+    eng = VGGTEngine(cfg, params, schedule=path, attn_impl="two_stage", max_batch=2, device=dev)
+    served = eng.params
+    scenes = _normal(np.random.default_rng(6), (2, 2, 16, cfg.d_model), dev)
+    with probe.tracking() as log:
+        out = eng.infer(scenes)
+    torch.cuda.synchronize()
+    assert log.by_name() == eng.schedule.launches_per_forward(two_stage_attention=True)
+    saved = {n: getattr(m, n) for m, n in ((qm, "quant_matmul"), (tsa, "two_stage_attention"))}
+    from repro_torch.kernels import fused as fz
+
+    saved_fz = {n: getattr(fz, n) for n in ("fused_matmul", "fused_ffn")}
+    try:
+        qm.quant_matmul, tsa.two_stage_attention = qm.quant_matmul_plain, tsa.two_stage_attention_plain
+        fz.fused_matmul, fz.fused_ffn = fz.fused_matmul_plain, fz.fused_ffn_plain
+        with torch.inference_mode():
+            want = vggt.forward(eng.cfg, served, scenes)
+    finally:
+        qm.quant_matmul, tsa.two_stage_attention = saved["quant_matmul"], saved["two_stage_attention"]
+        fz.fused_matmul, fz.fused_ffn = saved_fz["fused_matmul"], saved_fz["fused_ffn"]
+    for k in ("pose", "points", "depth"):
+        rel = ((out[k] - want[k]).norm() / want[k].norm()).item()
+        assert torch.isfinite(out[k]).all() and rel < 1e-3, (k, rel)

@@ -92,12 +92,21 @@ def test_materialize_fp_and_fused_match():
         assert getattr(got, f) == getattr(want, f), f
 
 
-@pytest.mark.parametrize("s", ["plan", "plan:fused", "schedule=out/x.json"])
+@pytest.mark.parametrize("s", ["plan", "plan:fused", "schedule=tests/goldens/schedule_vggt_smoke.json"])
 def test_materialize_refuses_planner_and_schedules(s):
-    with pytest.raises(ValueError, match="not ported yet"):
-        ServeSpec.parse(s).materialize()
-    with pytest.raises(ValueError):
+    """``--policy`` refuses the planner as the reference does (it needs
+    named tiers and weights), and a schedule the JAX package compiled (its
+    tiles are TPU tilings), saying how to recompile it."""
+    with pytest.raises(ValueError) as got:
         serve._parse_policy(s, "versaq")
+    if s.startswith("plan"):
+        with pytest.raises(ValueError) as want:
+            jserve._parse_policy(s, "versaq")
+        assert str(got.value) == str(want.value)
+    else:
+        assert "recompile it with python -m repro_torch.launch.compile" in str(got.value)
+        with pytest.raises(ValueError, match="'interpret'"):
+            ServeSpec.parse(s).materialize()
 
 
 def _args(**kw):
@@ -150,9 +159,23 @@ def test_launcher_without_a_card_fails_rather_than_using_the_cpu():
 
 
 def test_launcher_refuses_other_archs_and_unported_specs():
+    """The LM archs wait for their slice; ``--policy plan`` needs named
+    tiers; a schedule the JAX package compiled must be recompiled; a
+    missing schedule file is reported, not a traceback."""
     out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke")
     assert out.returncode != 0 and "queue 1 item 7" in out.stderr
+    out = _launch("--device", "cpu", "--tiers", "fast=schedule=tests/goldens/schedule_vggt_smoke.json")
+    assert out.returncode != 0 and "recompile it with" in out.stderr
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=x.json")
-    assert out.returncode != 0 and "compiler" in out.stderr
-    out = _launch("--device", "cpu", "--tiers", "fast=plan", "--frames", "2", "--patches", "16")
-    assert out.returncode != 0 and "planner" in out.stderr
+    assert out.returncode != 0 and "serve: FileNotFoundError" in out.stderr
+    out = _launch("--device", "cpu", "--policy", "plan", "--frames", "2", "--patches", "16")
+    assert out.returncode != 0 and "only valid in --tiers" in out.stderr
+
+
+def test_launcher_serves_a_planned_tier_without_jax():
+    out = _launch("--device", "cpu", "--arch", "vggt-1b-smoke", "--tiers",
+                  "planned=plan:fused,fast=w4a8:fused", "--attn-impl", "two_stage",
+                  "--requests", "4", "--frames", "2", "--patches", "16", "--batch", "2")
+    assert out.returncode == 0, out.stderr
+    assert "tier 'planned': planned mixed precision {'w4a4': " in out.stdout
+    assert "served 4/4 requests" in out.stdout and "planned:b2xs2xp16" in out.stdout
