@@ -1,14 +1,17 @@
-"""Whole-model VersaQ quantization of VGGT (the paper's offline pipeline,
-Fig. 6) — port of ``repro/core/model_quant.py::quantize_vggt``.
+"""Whole-model VersaQ quantization (the paper's offline pipeline, Fig. 6)
+— port of ``repro/core/model_quant.py``: ``quantize_vggt`` and, for
+attention-only dense LMs, ``quantize_lm``.
 
-* The **residual stream is rotated once** (H fused on the patch
-  projection's output side, special tokens rotated) and stays rotated.
+* The **residual stream is rotated once** (VGGT: H fused on the patch
+  projection's output side, special tokens rotated; LM: E ← E·H on the
+  embedding) and stays rotated.
 * Every pre-norm becomes a ``FoldedNorm`` with its γ/β folded into every
   consumer; projections are fused per Eq. 7 and quantized per channel.
 * V/O projections carry the per-head Hadamard pair; LayerScale folds into
   the output projections; the FFN hidden→down projection keeps the one
   online WHT.
-* Heads stay full precision and absorb the final norm.
+* Heads (VGGT's camera/DPT heads, the LM's ``lm_head``) stay full
+  precision and absorb the final norm; qk-norm and RoPE stay full precision.
 
 * With ``PrecisionPlan(fuse=True)`` the unified datapath is built: Q/K/V
   merge into one ``wqkv`` site that absorbs the LayerNorm as its kernel
@@ -47,7 +50,7 @@ from repro_torch.core.versaq import (
 from repro_torch.core import transforms
 from repro_torch.tree import tree_stack
 
-__all__ = ["quantize_vggt", "FUSED_PANEL_BUDGET"]
+__all__ = ["quantize_vggt", "quantize_lm", "FUSED_PANEL_BUDGET"]
 
 _USE_WHT_METHODS = ("quarot", "versaq")
 
@@ -386,3 +389,121 @@ def quantize_vggt(cfg: ModelConfig, params: dict, policy) -> dict:
                                 bias=params[head]["fc1"].get("b"), rotate_in=True)
             q[head] = h
     return q
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+
+def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
+    """Quantize an ``models/lm.py`` parameter tree with a uniform
+    ``QuantPolicy``, a per-site ``PrecisionPlan`` or a compiled
+    ``KernelSchedule``.  Returns a new tree; the forward code is unchanged
+    (dispatch happens on leaf types).  Attention-only dense stacks only:
+    the Mamba, RWKV, MLA and MoE branches of the reference raise."""
+    if cfg.mla:
+        raise NotImplementedError("quantize_lm: MLA is not ported yet (ROADMAP queue 1 item 7)")
+    if cfg.moe:
+        raise NotImplementedError("quantize_lm: MoE is not ported yet (ROADMAP queue 1 item 7)")
+    if any(k != "attn" for k in cfg.pattern):
+        raise NotImplementedError(
+            f"quantize_lm: recurrent mixers are not ported yet (pattern {cfg.pattern}; "
+            "ROADMAP queue 1 item 9)")
+    pol = _Resolver(policy)
+    rotated = pol.use_wht
+    q = dict(params)
+
+    # ---- stream entry: rotate the embedding / frontend output ----
+    if rotated:
+        q["embed"] = {"w": rotate_cols(params["embed"]["w"].to(torch.float32))}
+        if cfg.embed_inputs and "in_proj" in params:
+            ip = params["in_proj"]
+            q["in_proj"] = {
+                "w": rotate_cols(ip["w"].to(torch.float32)),
+                "b": rotate_cols(ip["b"][None, :].to(torch.float32))[0]
+                if ip.get("b") is not None else None,
+            }
+        if cfg.pos == "sincos":
+            q["pos_rot"] = transforms.blocked_hadamard_matrix(
+                cfg.d_model, device=params["embed"]["w"].device)
+
+    # ---- prefix layers (not stacked) + scanned groups (stacked) ----
+    q["prefix"] = [
+        _quantize_layer(cfg, lp, pol, rotated, stacked=False, pfx=f"prefix.{i}")
+        for i, lp in enumerate(params["prefix"])
+    ]
+    blocks = dict(params["blocks"])
+    for j in range(len(cfg.pattern)):
+        blocks[f"l{j}"] = _quantize_layer(cfg, params["blocks"][f"l{j}"], pol, rotated,
+                                          stacked=True, pfx=f"blocks.l{j}")
+    q["blocks"] = blocks
+
+    # ---- final norm + head ----
+    fn: Norm = params["final_norm"]
+    if rotated:
+        q["final_norm"] = make_folded_norm(fn.kind, cfg.d_model, device=fn.g.device)
+        if "lm_head" in params:
+            q["lm_head"] = _fold_fp(params["lm_head"]["w"], gamma=fn.g, beta=fn.b,
+                                    bias=params["lm_head"].get("b"), rotate_in=True)
+    return q
+
+
+def _prep_any(w, pol: _Resolver, site: str, stacked: bool, **kw):
+    """``_prep`` over a stacked [G, K, N] weight, or one unstacked prefix
+    layer's [K, N] weight."""
+    if stacked:
+        return _prep(w, pol, site, **kw)
+    return _prepare_site(w, pol, pol.at(site), tiles=pol.tiles_at(site), site=site, **kw)
+
+
+def _quantize_layer(cfg: ModelConfig, lp: dict, pol: _Resolver, rotated: bool, *,
+                    stacked: bool, pfx: str) -> dict:
+    """One attention + dense-FFN layer (stacked over scan groups or not):
+    the GQA sites with the per-head V/O Hadamard pair and the LayerScale
+    fold, ``_fuse_qkv``; the dense FFN with the one online WHT before
+    ``w_down``, ``_fuse_ffn``."""
+    out = dict(lp)
+    mn: Norm = lp["mixer_norm"]
+    fnm: Norm = lp["ffn_norm"]
+    g1, b1 = (mn.g, mn.b) if rotated else (None, None)
+    g2, b2 = (fnm.g, fnm.b) if rotated else (None, None)
+    groups = int(mn.g.shape[0]) if stacked else None
+    dev = mn.g.device
+    if rotated:
+        out["mixer_norm"] = _folded(mn.kind, cfg.d_model, groups, dev)
+        out["ffn_norm"] = _folded(fnm.kind, cfg.d_model, groups, dev)
+    ls1, ls2 = lp.get("ls1"), lp.get("ls2")
+    common = dict(rotate_in_offline=rotated, rotate_input_online=not rotated)
+
+    mx = dict(lp["mixer"])  # qk-norm stays a full-precision island
+    dh = cfg.head_dim
+    for name in ("wq", "wk"):
+        mx[name] = _prep_any(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", stacked,
+                             gamma=g1, beta=b1, bias=lp["mixer"][name].get("b"), **common)
+    mx["wv"] = _prep_any(lp["mixer"]["wv"]["w"], pol, f"{pfx}.mixer.wv", stacked,
+                         gamma=g1, beta=b1, bias=lp["mixer"]["wv"].get("b"),
+                         head_rot_out=(cfg.n_kv_heads, dh), **common)
+    mx["wo"] = _prep_any(lp["mixer"]["wo"]["w"], pol, f"{pfx}.mixer.wo", stacked,
+                         bias=lp["mixer"]["wo"].get("b"), out_scale=ls1,
+                         head_rot_in=(cfg.n_heads, dh), rotate_out_offline=rotated)
+    if pol.fuse:
+        mx = _fuse_qkv(mx, mn.kind, cfg.d_model, groups, rotated, dev,
+                       decision=pol.fuse_decision(f"{pfx}.mixer.wqkv"))
+    out["mixer"] = mx
+    out.pop("ls1", None)
+
+    f = dict(lp["ffn"])
+    for name in ("w_gate", "w_up"):
+        if name in lp["ffn"]:
+            f[name] = _prep_any(lp["ffn"][name]["w"], pol, f"{pfx}.ffn.{name}", stacked,
+                                gamma=g2, beta=b2, bias=lp["ffn"][name].get("b"), **common)
+    f["w_down"] = _prep_any(lp["ffn"]["w_down"]["w"], pol, f"{pfx}.ffn.w_down", stacked,
+                            bias=lp["ffn"]["w_down"].get("b"), out_scale=ls2,
+                            rotate_input_online=True, rotate_out_offline=rotated)
+    if pol.fuse:
+        f = _fuse_ffn(f, cfg.act, fnm.kind, cfg.d_model, groups, rotated, dev,
+                      decision=pol.fuse_decision(f"{pfx}.ffn"))
+    out["ffn"] = f
+    out.pop("ls2", None)
+    return out

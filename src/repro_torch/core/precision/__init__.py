@@ -29,8 +29,9 @@ Dispatch lives in ``core/model_quant``: ``quantize_vggt`` accepts a
 :class:`PrecisionPlan` or a :class:`KernelSchedule` wherever it accepts a
 uniform ``QuantPolicy``, and emits per-site ``QuantLinear`` leaves (the
 int8 kernel path, the packed-int4 path, or a transform-fused float
-passthrough).  The LM walkers wait for the LM slice (``ROADMAP.md``,
-queue 1 item 7).
+passthrough).  ``quantize_lm`` takes uniform plans; the planner's and
+the compiler's LM walkers are not ported yet (``ROADMAP.md``, queue 1
+item 7).
 """
 from repro_torch.core.precision.plan import (
     LEVELS,

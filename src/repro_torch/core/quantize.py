@@ -26,6 +26,8 @@ __all__ = [
     "QTensor",
     "int_range",
     "quantize",
+    "dequantize",
+    "fake_quant",
     "quantize_per_token",
     "pack_int4",
     "unpack_int4",
@@ -86,6 +88,15 @@ def quantize(x: torch.Tensor, bits: int, axis: int | tuple[int, ...] | None = -1
     container = torch.int8 if bits <= 8 else torch.int32
     q = torch.round(x / scale).clamp(-qmax, qmax).to(container)
     return QTensor(values=q, scale=scale.to(torch.float32), bits=bits)
+
+
+def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
+    return q.dequantize(dtype)
+
+
+def fake_quant(x: torch.Tensor, bits: int, axis=-1) -> torch.Tensor:
+    """Quantize-dequantize (used by accuracy benchmarks and tests)."""
+    return quantize(x, bits, axis=axis).dequantize(x.dtype)
 
 
 def quantize_per_token(x: torch.Tensor, bits: int) -> QTensor:

@@ -26,7 +26,9 @@ __all__ = [
     "dct_matrix",
     "block_size_for",
     "blocked_hadamard_matrix",
+    "blocked_dct_matrix",
     "apply_blocked",
+    "apply_wht",
     "fast_wht",
 ]
 
@@ -82,6 +84,13 @@ def blocked_hadamard_matrix(dim: int, dtype=torch.float32, device=None) -> torch
     return torch.as_tensor(out, dtype=dtype, device=device)
 
 
+def blocked_dct_matrix(dim: int, block: int = 64, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Block-diagonal DCT for an arbitrary dim (dense [dim, dim])."""
+    b = min(block_size_for(dim, cap=block), block)
+    out = np.kron(np.eye(dim // b), _dct_np(b))
+    return torch.as_tensor(out, dtype=dtype, device=device)
+
+
 def fast_wht(x: torch.Tensor, block: int | None = None) -> torch.Tensor:
     """Multiplier-free blocked WHT along the last axis (add/sub butterfly).
 
@@ -103,6 +112,11 @@ def fast_wht(x: torch.Tensor, block: int | None = None) -> torch.Tensor:
     x = x.reshape(lead + (nblk, b))
     x = x * torch.tensor(1.0 / math.sqrt(b), dtype=x.dtype, device=x.device)
     return x.reshape(lead + (dim,))
+
+
+def apply_wht(x: torch.Tensor) -> torch.Tensor:
+    """Blocked WHT along the last axis (rotates activations)."""
+    return fast_wht(x)
 
 
 def apply_blocked(x: torch.Tensor, mat: torch.Tensor, block: int) -> torch.Tensor:

@@ -38,7 +38,8 @@
 //     touched so rarely that it waits in shared memory, which leaves its 32
 //     registers to the score work.
 // K, V and the key scales arrive through a 4-slot ring in dynamic shared
-// memory (83 KB per block with the accumulator at dh 64) filled by cp.async
+// memory (83 KB per block with the accumulator at dh 64; 160,768 B at dh
+// 128, which leaves room for one block per SM) filled by cp.async
 // (zero-filled past Lk), so the next tiles load while the current one is
 // multiplied; a 128-row Q tile reads each K/V tile from L2 once for 128
 // rows, half the traffic of a 64-row tile.  Each thread's cp.async offsets
@@ -255,11 +256,15 @@ __device__ __forceinline__ void chunk_scores(float (&s)[4][4], const uint8_t* sl
     const int ni = 4 * c + j;
     int acc[4] = {0, 0, 0, 0};
     const uint8_t* fr = frag + ni * 8 * L::LDK;
-    if constexpr (DH == 64) {
-      uint32_t b[4];
-      ldsm_x4(b, fr);
-      vq::mma_s8_16832(acc, qa[0][0], qa[0][1], qa[0][2], qa[0][3], b[0], b[1]);
-      vq::mma_s8_16832(acc, qa[1][0], qa[1][1], qa[1][2], qa[1][3], b[2], b[3]);
+    if constexpr (DH >= 64) {  // k32 slices 2h and 2h + 1 from one ldmatrix.x4 each
+#pragma unroll
+      for (int h = 0; h < DH / 64; ++h) {
+        uint32_t b[4];
+        ldsm_x4(b, fr + 64 * h);
+        vq::mma_s8_16832(acc, qa[2 * h][0], qa[2 * h][1], qa[2 * h][2], qa[2 * h][3], b[0], b[1]);
+        vq::mma_s8_16832(acc, qa[2 * h + 1][0], qa[2 * h + 1][1], qa[2 * h + 1][2],
+                         qa[2 * h + 1][3], b[2], b[3]);
+      }
     } else {
       uint32_t b[2];
       ldsm_x2(b, fr);
@@ -358,8 +363,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Blocks per SM the launch bounds ask for: two at dh 32 and 64 (128
+// registers a thread); one at dh 128, whose 160,768 B of shared memory
+// allow no second block anyway, so its 64 int32 P.V accumulators and 16 Q
+// fragment registers a thread may use up to 255 registers without spilling.
+template <int DH>
+constexpr int min_blocks() { return DH >= 128 ? 1 : 2; }
+
 template <int DH, bool POW2>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, min_blocks<DH>())
     two_stage_attention_kernel(const int8_t* __restrict__ qv, const float* __restrict__ qs,
                                const int8_t* __restrict__ kv, const float* __restrict__ ks,
                                const int8_t* __restrict__ vv, const float* __restrict__ vscale,
@@ -535,10 +547,12 @@ int attrs(int* out) {
 
 }  // namespace
 
-// C entry point (ctypes).  dh must be 64 (vggt-1b) or 32 (its smoke
-// width); q_heads % kv_heads == 0 and BH % q_heads == 0 — the Python
-// wrapper checks these.  Returns a cudaError_t (cudaErrorInvalidValue for
-// an unsupported dh).
+// C entry point (ctypes).  dh must be 64 (vggt-1b), 32 (its smoke width)
+// or 128 (qwen3-14b); q_heads % kv_heads == 0 and BH % q_heads == 0 — the
+// Python wrapper checks these.  Returns a cudaError_t
+// (cudaErrorInvalidValue for an unsupported dh).  dh 128 has only the
+// instance that multiplies in the reference's order (POW2 false): its scale
+// 1/sqrt(128) is no power of two, and that instance is exact for any scale.
 extern "C" int vq_two_stage_attention(const void* qv, const void* qs, const void* kv,
                                       const void* ks, const void* vv, const void* vscale,
                                       void* out, int BH, int Lq, int Lk, int dh, int q_heads,
@@ -552,6 +566,8 @@ extern "C" int vq_two_stage_attention(const void* qv, const void* qs, const void
       return p2 ? VQ_LAUNCH(32, true) : VQ_LAUNCH(32, false);
     case 64:
       return p2 ? VQ_LAUNCH(64, true) : VQ_LAUNCH(64, false);
+    case 128:
+      return VQ_LAUNCH(128, false);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -569,6 +585,8 @@ extern "C" int vq_two_stage_attention_attrs(int dh, float scale, int* out) {
       return p2 ? attrs<32, true>(out) : attrs<32, false>(out);
     case 64:
       return p2 ? attrs<64, true>(out) : attrs<64, false>(out);
+    case 128:
+      return attrs<128, false>(out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

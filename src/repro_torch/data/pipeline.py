@@ -1,15 +1,17 @@
-"""Deterministic synthetic scenes (the port's own copy of
-``repro/data/pipeline.py::scene_batch``; numpy only).
+"""Deterministic synthetic data (the port's own copy of
+``repro/data/pipeline.py::scene_batch`` and ``mixed_len_prompts``; numpy
+only).
 
 Every batch is a pure function of (seed, step): random camera poses plus a
 point cloud projected into per-frame patch embeddings by a fixed random
-projection — structured enough that the heads must regress geometry.
+projection — structured enough that the heads must regress geometry; and
+serving traffic of mixed-length prompts.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["scene_batch"]
+__all__ = ["scene_batch", "mixed_len_prompts"]
 
 
 def scene_batch(
@@ -39,3 +41,21 @@ def scene_batch(
         "depth": depth.astype(np.float32),
         "points": cam.astype(np.float32),
     }
+
+
+def mixed_len_prompts(
+    vocab_size: int, requests: int, prompt_len: int, seed: int = 0
+) -> list[np.ndarray]:
+    """Serving demo traffic: alternating full and 3/4-length prompts.
+
+    The short length is deliberately NOT a power of two, so it pads into
+    the full prompt's length bucket and exercises the serving engine's
+    masked (length-padded) variants alongside warm bucket reuse.
+    Deterministic per (seed, request index)."""
+    lens = [prompt_len if r % 2 == 0 else max(prompt_len * 3 // 4, 1)
+            for r in range(requests)]
+    return [
+        np.random.default_rng(np.random.SeedSequence([seed, r]))
+        .integers(0, vocab_size, (n,)).astype(np.int32)
+        for r, n in enumerate(lens)
+    ]

@@ -36,7 +36,7 @@ import torch
 from repro_torch.kernels import _build, probe
 
 __all__ = ["two_stage_attention", "two_stage_attention_plain", "function_bytes", "NEG_INF",
-           "T_V", "LAUNCH_TILES"]
+           "T_V", "LAUNCH_TILES", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 T_V = 2048  # keys per int32 P·V partial before the float32 carry (as in the kernel)
@@ -44,6 +44,9 @@ T_V = 2048  # keys per int32 P·V partial before the float32 carry (as in the ke
 # query rows a block (``BQ``, 16 per warp x 8 warps), 64-key tiles
 # (``BKT``) and the 2048-key int32 carry period (``TV_TILES`` tiles).
 LAUNCH_TILES = {"bq": 128, "bk": 64, "bkv": T_V}
+# The head dims the kernel has instances for: vggt-1b's 64, its smoke
+# width's 32, and qwen3-14b's 128.
+HEAD_DIMS = (32, 64, 128)
 
 _fn = None
 
@@ -156,7 +159,7 @@ def two_stage_attention(
     _kv_rows(bh, q_heads, kv_heads, bhkv)  # validates the GQA shapes
     hq = q_heads if q_heads is not None and kv_heads is not None else 1
     hkv = kv_heads if q_heads is not None and kv_heads is not None else 1
-    _check(dh in (32, 64), f"head dim {dh} not in (32, 64)")
+    _check(dh in HEAD_DIMS, f"head dim {dh} not in {HEAD_DIMS}")
     _check(qv.dtype == kv.dtype == vv.dtype == torch.int8, "q/k/v values must be int8")
     _check(tuple(vv.shape) == tuple(kv.shape), "kv and vv shapes differ")
     _check(qs.numel() == bh * lq and ks.numel() == bhkv * lk and v_scale.numel() == bh,

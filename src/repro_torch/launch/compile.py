@@ -26,8 +26,9 @@ The compiler runs on the CUDA device (the planner's weights, the tuner's
 timings, the schedule's ``backend``) unless ``--device cpu`` is given;
 without a CUDA device and without that flag it exits non-zero.  A
 schedule the JAX package compiled (backend ``interpret`` or ``tpu``)
-carries TPU tilings: recompile it here before serving it.  Only VGGT
-configs are ported; the LM path (``ROADMAP.md``, queue 1 item 7) is not.
+carries TPU tilings: recompile it here before serving it.  It lowers
+VGGT configs only; the LM lowering (``ROADMAP.md``, queue 1 item 7) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -100,8 +101,8 @@ def main(argv=None) -> int:
     except KeyError:
         cfg = None
     if cfg is None or not cfg.vggt:
-        ap.error(f"--arch {args.arch}: only VGGT configs are ported; the LM path "
-                 "(ROADMAP.md, queue 1 item 7) is not")
+        ap.error(f"--arch {args.arch}: the compiler lowers VGGT configs only; its LM "
+                 "lowering (ROADMAP.md, queue 1 item 7) is not ported yet")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("compile: RuntimeError: the compiler runs on the CUDA device unless told "

@@ -1,6 +1,10 @@
-"""Serving launcher: quantize + serve batched VGGT requests through the
-bucketed engine behind the async server loop (port of the VGGT branch of
-``repro/launch/serve.py``).
+"""Serving launcher: quantize + serve batched requests through a bucketed
+engine behind the async server loop (port of ``repro/launch/serve.py``):
+VGGT scenes through ``VGGTEngine``, LM prompts through the LM ``Engine``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --tiers quality=fp,balanced=w4a8 --requests 4 --prompt-len 512 \\
+      --gen 32 --batch 2
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
       --tiers quality=fp,balanced=w4a8,planned=plan:fused,fast=w4a8:fused \\
@@ -22,10 +26,15 @@ through the unified-datapath kernels (``fused_matmul`` for Q/K/V and
 fuse.  ``--schedule`` serves one compiled schedule (its launch tiles, its
 hash in the bucket keys) and conflicts with ``--tiers``.
 
+The LM branch serves ``mixed_len_prompts`` traffic (full and 3/4-length
+prompts, so the masked length-padded buckets serve too) with
+``max_len = --prompt-len + --gen``.  Its engine runs bucket mode only
+(``--mode auto`` resolves to it; the continuous scheduler is not ported),
+and it takes no ``--schedule`` yet.
+
 The launcher runs on the CUDA device; ``--device cpu`` runs it on the
 CPU (each kernel wrapper then takes its plain PyTorch version).  Without
-a CUDA device and without ``--device cpu`` it exits non-zero.  Only VGGT
-configs are ported; the LM path (``ROADMAP.md``, queue 1 item 7) is not.
+a CUDA device and without ``--device cpu`` it exits non-zero.
 """
 import argparse
 import sys
@@ -33,7 +42,8 @@ import sys
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.data.pipeline import scene_batch
+from repro_torch.data.pipeline import mixed_len_prompts, scene_batch
+from repro_torch.serving.batching import resolve_device
 from repro_torch.serving.server import AsyncServer
 
 
@@ -144,9 +154,9 @@ def _server(eng, args) -> AsyncServer:
 
 def serve_vggt(cfg, args) -> None:
     from repro_torch.models import vggt
-    from repro_torch.serving.vggt_engine import VGGTEngine, _resolve_device
+    from repro_torch.serving.vggt_engine import VGGTEngine
 
-    dev = _resolve_device(args.device)  # the engine's own check, before any weights
+    dev = resolve_device(args.device, "VGGTEngine")  # the engine's check, before any weights
     params = vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     tiers = _tiers(args, cfg, params)
     eng = VGGTEngine(
@@ -181,10 +191,51 @@ def serve_vggt(cfg, args) -> None:
     print(eng.stats.format())
 
 
+def serve_lm(cfg, args) -> None:
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    dev = resolve_device(args.device, "Engine")  # the engine's check, before any weights
+    if args.schedule is not None:
+        raise ValueError("--schedule: the compiler's LM lowering is not ported yet "
+                         "(ROADMAP.md, queue 1 item 7)")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tiers = _tiers(args, cfg, params)
+    eng = Engine(
+        cfg,
+        params,
+        policy=None if tiers else _policy(args),
+        tiers=tiers,
+        attn_impl=args.attn_impl,
+        max_len=args.prompt_len + args.gen,
+        max_batch=args.batch,
+        max_wait_s=args.max_wait_s,
+        mode=args.mode,
+        device=dev,
+        **_robustness_kwargs(args),
+    )
+    # mixed-length traffic (full + non-pow2 short prompts) exercises the
+    # masked length-padded bucket variants alongside warm bucket reuse
+    prompts = mixed_len_prompts(cfg.vocab_size, args.requests, args.prompt_len)
+    assign = _tier_cycle(tiers, len(prompts))
+    with _server(eng, args) as srv:
+        reqs = [
+            _submit(srv, i, p, args.gen, tier=t, deadline_s=args.deadline_s)
+            for i, (p, t) in enumerate(zip(prompts, assign))
+        ]
+        outs = _collect(srv, reqs)
+    print(f"served {len(outs)}/{len(reqs)} requests -> "
+          f"{sum(o.shape[-1] for o in outs)} tokens")
+    print(f"prefill {eng.stats.prefill_s * 1e3:.1f}ms  "
+          f"decode {eng.stats.decode_s * 1e3:.1f}ms  "
+          f"({eng.stats.decode_tokens_per_s:.0f} decode tok/s)")
+    print(eng.stats.format())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vggt-1b-smoke",
-                    help="a VGGT config (vggt-1b, vggt-1b-smoke)")
+                    help="a ported config: vggt-1b, vggt-1b-smoke, qwen3-14b, qwen3-14b-smoke")
     ap.add_argument("--device", default="cuda",
                     help="where to serve (default: the CUDA device; no fallback)")
     ap.add_argument("--policy", default="w4a8",
@@ -201,6 +252,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-wait-s", type=float, default=0.005,
                     help="micro-batch deadline driven by the async loop")
+    # lm serving
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--mode", default="auto",
+                    help="LM scheduler: auto | bucket (drain-then-refill); auto resolves to "
+                         "bucket until the continuous scheduler is ported")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request SLA: evict (fail) requests not served within this "
+                         "many seconds")
     # vggt serving
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--scenes", type=int, default=2, help="scenes per request")
@@ -214,7 +274,7 @@ def main(argv=None) -> int:
                          "this many requests (QueueFull past it)")
     ap.add_argument("--max-queued-tokens", type=int, default=None,
                     help="admission control: bound the queued work in "
-                         "patch tokens")
+                         "tokens (prompt+gen for LM, patch tokens for VGGT)")
     ap.add_argument("--admission", default="reject", choices=("reject", "shed"),
                     help="over-full queue policy: reject the new request "
                          "or shed the least-valuable queued one")
@@ -223,7 +283,8 @@ def main(argv=None) -> int:
                          "auto-downshift unpinned admissions to cheaper "
                          "tiers, recover with hysteresis")
     ap.add_argument("--faults", default=None,
-                    help="chaos fault plan, e.g. 'nan@scene:req=1;seed=7' "
+                    help="chaos fault plan, e.g. 'nan@scene:req=1;seed=7' or "
+                         "'nan@decode.logits:req=1,step=3' "
                          "(see serving/faults.py for the grammar)")
     # observability (docs/observability.md)
     ap.add_argument("--metrics-port", type=int, default=None,
@@ -237,14 +298,11 @@ def main(argv=None) -> int:
 
     try:
         cfg = get_config(args.arch)
-    except KeyError:
-        cfg = None
-    if cfg is None or not cfg.vggt:
-        ap.error(f"--arch {args.arch}: only VGGT configs are ported; the LM path "
-                 "(ROADMAP.md, queue 1 item 7) is not")
+    except KeyError as e:
+        ap.error(f"--arch {args.arch}: {e}")
     try:
-        serve_vggt(cfg, args)
-    except (RuntimeError, ValueError, OSError) as e:
+        (serve_vggt if cfg.vggt else serve_lm)(cfg, args)
+    except (RuntimeError, ValueError, OSError, NotImplementedError) as e:
         print(f"serve: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     return 0

@@ -1,10 +1,16 @@
-"""GQA attention in ``mode="full"`` (port of ``repro/models/attention.py``
-in the part VGGT needs; the prefill/decode cache paths and MLA wait for
-the LM slice).
+"""Attention mixers: GQA (with qk-norm and RoPE) and its int8 KV cache
+(port of ``repro/models/attention.py``; MLA is not ported).
 
-Per the paper's Stage-2 flow: Q/K get an online per-head WHT when the
-layer is quantized (scores invariant, distributions smoothed); V carries
-an offline per-head Hadamard folded into W_v/W_o.
+Three entry modes:
+
+* ``full``    — attention over the whole sequence (causal flag per call;
+  VGGT's frame/global attention is bidirectional, LM scoring causal);
+* ``prefill`` — like full, and also writes the int8-quantized KV cache;
+* ``decode``  — new tokens against the cache.
+
+Per the paper's Stage-2 flow: Q/K get an online per-head WHT after
+RoPE/qk-norm when the layer is quantized (scores invariant, distributions
+smoothed); V carries an offline per-head Hadamard folded into W_v/W_o.
 
 A fused tree (``PrecisionPlan(fuse=True)``) carries one ``wqkv`` site
 whose kernel launch absorbs the pre-norm and quantizes the input once for
@@ -12,60 +18,155 @@ all three projections.
 
 Routing follows the reference exactly:
 
-* quantized layers with ``attn_impl="two_stage"`` (and
-  ``attn_use_kernel``) run the INT8 two-stage CUDA kernel — but only when
-  ``kv_mask is None`` (padded serving buckets take the emulation, which
+* ``mode="full"`` on quantized layers with ``attn_impl="two_stage"`` (and
+  ``attn_use_kernel``) runs the INT8 two-stage CUDA kernel — but only when
+  no key mask applies (padded serving buckets take the emulation, which
   supports masks) and only when ``min(Lq, Lk) >= 8``;
-* everything else runs :func:`sdpa_dispatch`: the vanilla
-  :func:`_sdpa`, or :func:`_sdpa_streamed` (flash or two-stage float
-  emulations over 1024-key chunks).
+* everything else runs :func:`sdpa_dispatch`: the vanilla :func:`_sdpa`
+  (also every cache-masked call), or :func:`_sdpa_streamed` (flash or
+  two-stage float emulations over 1024-key chunks).  The served prefill
+  and decode paths are of this kind, as in the reference.
+
+The KV cache differs from the reference in two ways, neither numeric.
+Its ``length`` (the write position) is a host ``int``: every row of a
+served batch shares one decode clock, so positions, masks and cache writes
+need no device-to-host read per step.  And the cache is written in place
+(the reference's jitted steps donate the cache buffers, to the same
+effect): the returned ``KVCache`` holds the same tensors with the new
+length.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quantize import quantize_per_token
 from repro_torch.core.versaq import QuantLinear, head_wht
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
 
-__all__ = ["init_gqa", "gqa_attention", "sdpa_dispatch", "CHUNK"]
+__all__ = [
+    "KVCache",
+    "init_kv_cache",
+    "roll_kv",
+    "init_gqa",
+    "gqa_attention",
+    "sdpa_dispatch",
+    "CHUNK",
+]
 
 NEG_INF = -1e30
 CHUNK = 1024
 
 
+class KVCache(NamedTuple):
+    """int8 KV cache with per-(token, head) scales.
+
+    k/v: [B, S, Hkv, dh] int8 (stacked scan groups: [G, B, S, Hkv, dh]);
+    k_scale/v_scale: the same with a trailing 1, float32.  ``length``: the
+    current fill, a host ``int`` shared by every row and, for a stacked
+    cache, every group (see the module docstring)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    length: int
+
+
+def _pad_mask(pad_lens: torch.Tensor, width: int) -> torch.Tensor:
+    """Key-slot validity for LEFT-padded rows: slot s of a row with
+    ``pad_lens[b]`` leading pad positions is valid iff ``s >= pad_lens[b]``
+    (serving pads prompts on the left so the last real token always sits
+    in the last prompt slot).  Shape [B, width] bool."""
+    return torch.arange(width, device=pad_lens.device)[None, :] >= pad_lens[:, None]
+
+
+def roll_kv(cache: KVCache, shift: int) -> KVCache:
+    """Shift every cached token right by ``shift`` slots along the time
+    axis (the slot scheduler's re-alignment: a prompt prefilled at bucket
+    width L joins a decode batch at clock T by rolling its rows so the last
+    real token lands at slot T-1).  Wrapped-around garbage lands in the
+    region ``pad_lens`` masks off.  Works on both layouts — [B, S, Hkv, d]
+    and stacked [G, B, S, Hkv, d] — because the time axis is always third
+    from the end.  ``length`` is left untouched."""
+    axis = cache.k.ndim - 3
+    return cache._replace(
+        k=torch.roll(cache.k, shift, dims=axis),
+        v=torch.roll(cache.v, shift, dims=axis),
+        k_scale=torch.roll(cache.k_scale, shift, dims=axis),
+        v_scale=torch.roll(cache.v_scale, shift, dims=axis),
+    )
+
+
+def _quant_tokens_like(x: torch.Tensor, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize per (token, head) for an int8 cache (the reference's
+    ``_quant_tokens`` is ``quantize_per_token`` at 8 bits); pass through
+    for a bf16 cache (the unquantized baseline)."""
+    if dtype == torch.int8:
+        q = quantize_per_token(x, 8)
+        return q.values, q.scale
+    return x.to(dtype), torch.ones(tuple(x.shape[:-1]) + (1,), dtype=torch.float32,
+                                   device=x.device)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_groups: int,
+                  kv_dtype=torch.int8, device=None) -> KVCache:
+    """Stacked cache for ``n_groups`` scan groups (GQA layout)."""
+    if cfg.mla:
+        raise NotImplementedError("the MLA cache is not ported yet (ROADMAP queue 1 item 7)")
+    shape = (n_groups, batch, max_len, cfg.n_kv_heads)
+    return KVCache(
+        k=torch.zeros(shape + (cfg.head_dim,), dtype=kv_dtype, device=device),
+        v=torch.zeros(shape + (cfg.head_dim,), dtype=kv_dtype, device=device),
+        k_scale=torch.zeros(shape + (1,), dtype=torch.float32, device=device),
+        v_scale=torch.zeros(shape + (1,), dtype=torch.float32, device=device),
+        length=0,
+    )
+
+
 def init_gqa(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32, device=None) -> dict:
     dh = cfg.head_dim
     kw = dict(bias=cfg.attn_bias, dtype=dtype, device=device)
-    return {
+    p = {
         "wq": L.init_linear(generator, cfg.d_model, cfg.n_heads * dh, **kw),
         "wk": L.init_linear(generator, cfg.d_model, cfg.n_kv_heads * dh, **kw),
         "wv": L.init_linear(generator, cfg.d_model, cfg.n_kv_heads * dh, **kw),
         "wo": L.init_linear(generator, cfg.n_heads * dh, cfg.d_model, **kw),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = L.init_norm(dh, kind="rms", dtype=dtype, device=device)
+        p["k_norm"] = L.init_norm(dh, kind="rms", dtype=dtype, device=device)
+    return p
 
 
 def _sqrt_f32(n: int, device) -> torch.Tensor:
     return torch.sqrt(torch.tensor(float(n), dtype=torch.float32, device=device))
 
 
-def _sdpa(q, k, v, *, causal: bool, kv_mask: Optional[torch.Tensor] = None):
-    """Vanilla SDPA (materializes [Lq, Lk] scores) — ablation baseline.
+def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_len: Optional[int] = None,
+          kv_mask: Optional[torch.Tensor] = None):
+    """Vanilla SDPA (materializes [Lq, Lk] scores) — ablation baseline and
+    the cache-masked path.
 
     q: [B,Lq,H,dh]; k/v: [B,Lk,Hkv,dh].  f32 softmax, GQA broadcast.
-    ``kv_mask``: [B, Lk] bool — False keys are excluded."""
+    ``q_offset``: position of the first query (decode); ``kv_len``: keys at
+    or past it are unwritten cache slots; ``kv_mask``: [B, Lk] bool — False
+    keys are excluded."""
     b, lq, h, dh = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     qf = q.reshape(b, lq, hkv, g, dh).to(torch.float32)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(torch.float32)) / _sqrt_f32(dh, q.device)
     neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
+    cols = torch.arange(lk, device=q.device)[None, :]
     if causal:
-        keep = torch.arange(lq, device=q.device)[:, None] >= torch.arange(lk, device=q.device)[None, :]
-        s = torch.where(keep, s, neg)
+        rows = q_offset + torch.arange(lq, device=q.device)[:, None]
+        s = torch.where(rows >= cols, s, neg)
+    if kv_len is not None:  # mask unwritten cache slots
+        s = torch.where(cols < kv_len, s, neg)
     if kv_mask is not None:
         s = torch.where(kv_mask[:, None, None, None, :], s, neg)
     p = torch.softmax(s, dim=-1)
@@ -144,10 +245,12 @@ def _sdpa_streamed(q, k, v, *, causal: bool, two_stage: bool = False,
     return o.reshape(b, hkv * g, lq, dv).movedim(1, 2)
 
 
-def sdpa_dispatch(cfg, q, k, v, *, causal: bool, kv_mask=None):
+def sdpa_dispatch(cfg, q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None, kv_mask=None):
     impl = getattr(cfg, "attn_impl", "flash")
-    if impl == "vanilla":
-        return _sdpa(q, k, v, causal=causal, kv_mask=kv_mask)
+    if impl == "vanilla" or kv_len is not None:
+        # cache-masked paths take the masked vanilla form (decode scores
+        # are [*, 1, S]: linear, not quadratic)
+        return _sdpa(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, kv_mask=kv_mask)
     return _sdpa_streamed(q, k, v, causal=causal, two_stage=(impl == "two_stage"),
                           compute_dtype=getattr(cfg, "attn_dtype", "f32"), kv_mask=kv_mask)
 
@@ -174,15 +277,20 @@ def gqa_attention(
     x: torch.Tensor,
     *,
     causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[KVCache] = None,
     mode: str = "full",
     kv_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Attention over the whole sequence of x [B, L, d]; ``kv_mask`` [B, L]
-    bool excludes padded keys.  Returns [B, L, d]."""
-    if mode != "full":
-        raise NotImplementedError(f"attention mode {mode!r} not ported yet (only 'full')")
-    if cfg.qk_norm or cfg.pos == "rope":
-        raise NotImplementedError("qk-norm and RoPE are not ported yet (VGGT uses neither)")
+    pad_lens: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """GQA attention of x [B, L, d] -> ([B, L, d], new cache or None).
+
+    ``positions`` [B|1, L]: RoPE positions (default ``arange(L)``);
+    ``kv_mask`` [B, L] bool excludes padded keys in full mode (VGGT);
+    ``pad_lens`` [B]: left-pad counts of a serving bucket, whose key mask
+    applies in every mode.  ``cache`` with ``mode`` ``prefill``/``decode``
+    writes this call's K/V at ``cache.length`` (in place, see the module
+    docstring) and attends over the cache."""
     b, lq, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if "wqkv" in p:
@@ -199,21 +307,66 @@ def gqa_attention(
         q = L.dense(p["wq"], x).reshape(b, lq, h, dh)
         k = L.dense(p["wk"], x).reshape(b, lq, hkv, dh)
         v = L.dense(p["wv"], x).reshape(b, lq, hkv, dh)
+    if cfg.qk_norm:
+        q = L.norm(p["q_norm"], q)
+        k = L.norm(p["k_norm"], k)
+    if cfg.pos == "rope":
+        if positions is None:
+            positions = torch.arange(lq, device=x.device)[None, :]
+        cos, sin = L.rope_freqs(dh, cfg.rope_theta, positions)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
     if quantized:
-        # paper Stage 2: online per-head WHT on Q/K (scores invariant);
-        # V arrives per-head-rotated from the offline W_v fusion
+        # paper Stage 2: post-RoPE online per-head WHT on Q/K (scores
+        # invariant); V arrives per-head-rotated from the offline W_v fusion
         q = head_wht(q)
         k = head_wht(k)
-    o = None
-    if (
-        quantized
-        and getattr(cfg, "attn_impl", "flash") == "two_stage"
-        and getattr(cfg, "attn_use_kernel", True)
-        and kv_mask is None
-    ):
-        o = _two_stage_kernel_sdpa(q, k, v, causal=causal,
-                                   tiles=getattr(cfg, "attn_tiles", None))
-    if o is None:
-        o = sdpa_dispatch(cfg, q, k, v, causal=causal, kv_mask=kv_mask)
+    if pad_lens is not None and kv_mask is not None:
+        raise ValueError("pass either kv_mask or pad_lens, not both")
+
+    if mode == "full" or cache is None:
+        if pad_lens is not None:
+            kv_mask = _pad_mask(pad_lens, lq)
+        o = None
+        if (
+            quantized
+            and getattr(cfg, "attn_impl", "flash") == "two_stage"
+            and getattr(cfg, "attn_use_kernel", True)
+            and kv_mask is None
+        ):
+            o = _two_stage_kernel_sdpa(q, k, v, causal=causal,
+                                       tiles=getattr(cfg, "attn_tiles", None))
+        if o is None:
+            o = sdpa_dispatch(cfg, q, k, v, causal=causal, kv_mask=kv_mask)
+        new_cache = None
+    else:
+        if kv_mask is not None:
+            raise ValueError("kv_mask is not supported on the prefill/decode cache paths")
+        pos0 = int(cache.length)
+        new_len = pos0 + lq
+        if new_len > cache.k.shape[1]:
+            raise ValueError(f"KV cache overflow: writing slots {pos0}..{new_len - 1} of "
+                             f"{cache.k.shape[1]}")
+        kq, ks_ = _quant_tokens_like(k, cache.k.dtype)
+        vq, vs_ = _quant_tokens_like(v, cache.v.dtype)
+        cache.k[:, pos0:new_len] = kq
+        cache.v[:, pos0:new_len] = vq
+        cache.k_scale[:, pos0:new_len] = ks_
+        cache.v_scale[:, pos0:new_len] = vs_
+        new_cache = cache._replace(length=new_len)
+        if mode == "prefill" and lq > 1:
+            # attention over the freshly quantized K/V (prefill starts the
+            # cache: earlier slots are empty)
+            kf = kq.to(torch.float32) * ks_
+            vf = vq.to(torch.float32) * vs_
+            mask = _pad_mask(pad_lens, lq) if pad_lens is not None else None
+            o = sdpa_dispatch(cfg, q, kf, vf, causal=causal, kv_mask=mask)
+        else:
+            # decode: [*, 1, S] scores over the whole cache, masked vanilla
+            # path; left-pad slots written by a bucketed prefill are masked
+            kf = cache.k.to(torch.float32) * cache.k_scale
+            vf = cache.v.to(torch.float32) * cache.v_scale
+            mask = _pad_mask(pad_lens, cache.k.shape[1]) if pad_lens is not None else None
+            o = _sdpa(q, kf, vf, causal=causal, q_offset=pos0, kv_len=new_len, kv_mask=mask)
     o = o.reshape(b, lq, h * dh).to(x.dtype)
-    return L.dense(p["wo"], o)
+    return L.dense(p["wo"], o), new_cache

@@ -1,5 +1,4 @@
-"""Shared layer primitives (port of ``repro/models/layers.py``, in the part
-VGGT needs).
+"""Shared layer primitives (port of ``repro/models/layers.py``).
 
 Every linear/norm goes through ``core.versaq.apply_linear``/``apply_norm``
 so the same model code runs full precision (plain dict params) and
@@ -14,7 +13,18 @@ import torch.nn.functional as F
 
 from repro_torch.core.versaq import Norm, apply_linear, apply_norm
 
-__all__ = ["dense", "norm", "init_linear", "init_norm", "gelu", "silu"]
+__all__ = [
+    "dense",
+    "norm",
+    "init_linear",
+    "init_norm",
+    "embed",
+    "rope_freqs",
+    "apply_rope",
+    "sincos_positions",
+    "gelu",
+    "silu",
+]
 
 dense = apply_linear
 norm = apply_norm
@@ -28,8 +38,10 @@ def init_linear(
     bias: bool = False,
     dtype=torch.float32,
     device=None,
+    scale: float | None = None,
 ) -> dict:
-    w = torch.randn((d_in, d_out), generator=generator, device=device) / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator, device=device)
+    w = w / math.sqrt(d_in) if scale is None else w * scale
     return {
         "w": w.to(dtype),
         "b": torch.zeros((d_out,), dtype=dtype, device=device) if bias else None,
@@ -42,6 +54,45 @@ def init_norm(dim: int, *, kind: str = "rms", bias: bool = False, dtype=torch.fl
         b=torch.zeros((dim,), dtype=dtype, device=device) if bias else None,
         kind=kind,
     )
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [*, L, head_dim//2] for positions [*, L], in float32
+    and in the reference's order: ``1 / theta**(i/dh)``, then the angle
+    ``position * inv``.  The cosines and sines of large angles feed the int8
+    roundings of the KV cache, so the order is kept, and the power is
+    rounded correctly to float32 (taken in float64, then rounded), as the
+    reference's float32 power is: torch's float32 ``pow`` is an ulp off at
+    some exponents, which moves the angle of position 40,000 by ~2e-6."""
+    i = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+    powed = torch.pow(torch.tensor(theta, dtype=torch.float64, device=positions.device),
+                      (i / head_dim).to(torch.float64)).to(torch.float32)
+    inv = 1.0 / powed
+    ang = positions[..., None].to(torch.float32) * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs (first half, second half). x: [..., L, H, dh];
+    cos/sin: [..., L, dh//2], broadcast over the head axis."""
+    dh = x.shape[-1]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def sincos_positions(length: int, dim: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Classic transformer sinusoidal position table [length, dim]."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * i / dim))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

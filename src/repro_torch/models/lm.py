@@ -1,0 +1,365 @@
+"""Config-driven LM composition: init / forward / prefill / decode (port of
+``repro/models/lm.py``, attention-only dense stacks).
+
+The reference groups the layer stack by the config's ``pattern`` period
+and scans the groups with ``jax.lax.scan``; here the scan is a Python loop
+over the stacked group axis, and the parameter tree keeps the reference's
+layout: ``params["blocks"]["l{j}"]`` with a leading group axis, and the
+non-uniform first layers as the list ``params["prefix"]``.
+
+The same forward runs full precision (plain dict leaves) and
+VersaQ-quantized (``QuantLinear``/``FoldedNorm`` leaves, see
+``core/model_quant.py::quantize_lm``).  Mamba, RWKV, MLA and MoE layers
+raise ``NotImplementedError``.
+
+The decode cache's ``pos`` and every ``KVCache.length`` are host ints: all
+rows of a served batch share one decode clock (see ``models/attention.py``).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import ffn as F
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_index, tree_stack
+
+__all__ = [
+    "n_scan_groups",
+    "ffn_kind",
+    "mixer_kind",
+    "init_params",
+    "init_cache",
+    "cache_resize",
+    "cache_install_rows",
+    "cache_set_clock",
+    "forward",
+    "decode_step",
+]
+
+# what each unported layer kind waits for (ROADMAP.md, queue 1)
+_UNPORTED = {
+    "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9)",
+    "rwkv": "the RWKV mixer is not ported yet (ROADMAP queue 1 item 9)",
+    "mla": "MLA attention is not ported yet (ROADMAP queue 1 item 7)",
+    "moe": "the MoE FFN is not ported yet (ROADMAP queue 1 item 7)",
+}
+
+
+def _unported(what: str):
+    raise NotImplementedError(_UNPORTED[what])
+
+
+# ---------------------------------------------------------------------------
+# structure helpers
+# ---------------------------------------------------------------------------
+
+
+def n_scan_groups(cfg: ModelConfig) -> int:
+    return (cfg.n_layers - cfg.first_dense) // len(cfg.pattern)
+
+
+def ffn_kind(cfg: ModelConfig, global_idx: int) -> str:
+    if cfg.pattern[global_idx % len(cfg.pattern)] == "rwkv":
+        return "rwkv_channel"
+    if not cfg.moe:
+        return "dense"
+    if global_idx < cfg.first_dense:
+        return "dense"
+    return "moe" if (global_idx % cfg.moe_period) == 0 else "dense_inner"
+
+
+def mixer_kind(cfg: ModelConfig, global_idx: int) -> str:
+    return cfg.pattern[global_idx % len(cfg.pattern)]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for kind in set(cfg.pattern):
+        if kind != "attn":
+            _unported(kind)
+    if cfg.mla:
+        _unported("mla")
+    if cfg.moe:
+        _unported("moe")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(generator: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    p: dict[str, Any] = {
+        "mixer_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
+        "mixer": A.init_gqa(generator, cfg, **kw),
+        "ffn_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
+        "ffn": F.init_dense_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act, **kw),
+    }
+    if cfg.layerscale:
+        p["ls1"] = torch.full((cfg.d_model,), cfg.layerscale_init, **kw)
+        p["ls2"] = torch.full((cfg.d_model,), cfg.layerscale_init, **kw)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float32,
+                device=None) -> dict:
+    """Random weights drawn from ``generator``, on ``device`` (default: the
+    generator's).  On the ``meta`` device nothing is drawn: the tree
+    carries shapes and dtypes only."""
+    _check_ported(cfg)
+    dev = generator.device if device is None else torch.device(device)
+    params: dict[str, Any] = {
+        "embed": {"w": (torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
+                                    device=dev) * 0.02).to(dtype)},
+    }
+    if cfg.embed_inputs:
+        params["in_proj"] = L.init_linear(generator, cfg.d_model, cfg.d_model, dtype=dtype,
+                                          device=dev)
+    params["prefix"] = [_init_layer(generator, cfg, dtype, dev) for _ in range(cfg.first_dense)]
+    groups = [{f"l{j}": _init_layer(generator, cfg, dtype, dev) for j in range(len(cfg.pattern))}
+              for _ in range(n_scan_groups(cfg))]
+    params["blocks"] = tree_stack(groups)
+    params["final_norm"] = L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias,
+                                       dtype=dtype, device=dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_linear(generator, cfg.d_model, cfg.vocab_size, dtype=dtype,
+                                          device=dev, scale=0.02)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype=torch.int8,
+               device=None) -> dict:
+    """Decode cache matching the prefix/blocks structure: a stacked
+    ``KVCache`` [G, B, max_len, Hkv, dh] per pattern position, one
+    [B, max_len, Hkv, dh] cache per prefix layer, and ``pos`` 0."""
+    _check_ported(cfg)
+    groups = n_scan_groups(cfg)
+    blocks = {f"l{j}": A.init_kv_cache(cfg, batch, max_len, groups, kv_dtype, device)
+              for j in range(len(cfg.pattern))}
+    prefix = []
+    for _ in range(cfg.first_dense):
+        c = A.init_kv_cache(cfg, batch, max_len, 1, kv_dtype, device)
+        prefix.append(A.KVCache(c.k[0], c.v[0], c.k_scale[0], c.v_scale[0], c.length))
+    return {"prefix": prefix, "blocks": blocks, "pos": 0}
+
+
+# ---------------------------------------------------------------------------
+# slot-cache surgery (the continuous-batching scheduler's primitives)
+#
+# The decode cache doubles as a *slot* cache: each batch row is a slot a
+# request occupies from admission to completion.  A scheduler grows and
+# shrinks the slot axis (cache_resize), installs freshly prefilled rows into
+# free slots (cache_install_rows), and keeps every layer's write position on
+# the shared decode clock (cache_set_clock).  All three are pure index
+# surgery; they return new tensors and leave their inputs untouched.
+# ---------------------------------------------------------------------------
+
+
+def _kv_batch_axis(c: A.KVCache) -> int:
+    # prefix caches are [B, S, H, d] (axis 0); stacked block caches carry a
+    # leading scan-group axis [G, B, S, H, d] (axis 1)
+    return c.k.ndim - 4
+
+
+def _on_kv(c: A.KVCache, fn) -> A.KVCache:
+    ax = _kv_batch_axis(c)
+    return c._replace(k=fn(c.k, ax), v=fn(c.v, ax), k_scale=fn(c.k_scale, ax),
+                      v_scale=fn(c.v_scale, ax))
+
+
+def cache_resize(cfg: ModelConfig, cache: dict, new_batch: int) -> dict:
+    """Pad (with zero rows) or slice the cache's batch/slot axis to
+    ``new_batch`` rows.  Surviving rows keep their contents; lengths and
+    the decode clock are untouched."""
+
+    def resize(x, axis):
+        cur = x.shape[axis]
+        if cur == new_batch:
+            return x.clone()
+        if cur < new_batch:
+            shape = list(x.shape)
+            shape[axis] = new_batch - cur
+            return torch.cat([x, x.new_zeros(shape)], dim=axis)
+        return x.narrow(axis, 0, new_batch).clone()
+
+    return {
+        "prefix": [_on_kv(c, resize) for c in cache["prefix"]],
+        "blocks": {n: _on_kv(c, resize) for n, c in cache["blocks"].items()},
+        "pos": cache["pos"],
+    }
+
+
+def cache_install_rows(
+    cfg: ModelConfig,
+    dst: dict,
+    src: dict,
+    dst_rows: list[int],
+    src_rows: list[int],
+    *,
+    shift: int = 0,
+) -> dict:
+    """Copy prefilled cache rows ``src_rows`` of ``src`` into slots
+    ``dst_rows`` of ``dst``.
+
+    ``shift`` right-rolls the KV time axis first (``attention.roll_kv``)
+    so a prompt prefilled at bucket width L aligns with a running decode
+    clock T = L + shift: its last real token lands at slot T-1 and the
+    rolled-in garbage sits below the row's (grown) left pad, which the
+    pad_lens mask already excludes."""
+
+    def install(d: A.KVCache, s: A.KVCache) -> A.KVCache:
+        if shift:
+            s = A.roll_kv(s, shift)
+        ax = _kv_batch_axis(d)
+
+        def put(dx, sx):
+            out = dx.clone()
+            d_idx = torch.as_tensor(dst_rows, dtype=torch.long, device=dx.device)
+            s_idx = torch.as_tensor(src_rows, dtype=torch.long, device=sx.device)
+            out.index_copy_(ax, d_idx, sx.index_select(ax, s_idx))
+            return out
+
+        return d._replace(k=put(d.k, s.k), v=put(d.v, s.v), k_scale=put(d.k_scale, s.k_scale),
+                          v_scale=put(d.v_scale, s.v_scale))
+
+    return {
+        "prefix": [install(d, s) for d, s in zip(dst["prefix"], src["prefix"])],
+        "blocks": {n: install(d, src["blocks"][n]) for n, d in dst["blocks"].items()},
+        "pos": dst["pos"],
+    }
+
+
+def cache_set_clock(cfg: ModelConfig, cache: dict, clock: int) -> dict:
+    """Set the shared decode write position: ``pos`` and every KV length.
+    Continuous batching keeps all slots on one physical clock; per-slot
+    logical lengths live in the scheduler's ``pad_lens``."""
+    clock = int(clock)
+    return {
+        "prefix": [c._replace(length=clock) for c in cache["prefix"]],
+        "blocks": {n: c._replace(length=clock) for n, c in cache["blocks"].items()},
+        "pos": clock,
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *, positions, cache=None,
+                 mode: str = "full", pad_lens=None):
+    """One attention + dense-FFN layer (the only kinds ported)."""
+    # fused sites absorb their pre-norm (unified-datapath prologue): pass
+    # the raw residual stream and let the kernel run the norm statistics
+    h = x if F.carries_norm(lp["mixer"]) else L.norm(lp["mixer_norm"], x)
+    out, kv_new = A.gqa_attention(lp["mixer"], cfg, h, causal=True, positions=positions,
+                                  cache=cache, mode=mode, pad_lens=pad_lens)
+    new_cache = kv_new if cache is not None else None
+    if "ls1" in lp:
+        out = out * lp["ls1"].to(out.dtype)
+    x = x + out
+    h = x if F.carries_norm(lp["ffn"]) else L.norm(lp["ffn_norm"], x)
+    out = F.dense_ffn(lp["ffn"], cfg.act, h)
+    if "ls2" in lp:
+        out = out * lp["ls2"].to(out.dtype)
+    return x + out, new_cache
+
+
+def _embed_inputs(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    if cfg.embed_inputs:
+        x = L.dense(params["in_proj"], inputs)
+    else:
+        x = L.embed(params["embed"]["w"], inputs)
+    if cfg.pos == "sincos":
+        d = cfg.d_model
+        i = torch.arange(d // 2, dtype=torch.float32, device=x.device)
+        ang = positions[..., None].to(torch.float32) / (10_000.0 ** (2 * i / d))
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        if "pos_rot" in params:  # rotated-stream models fold H into the table
+            pe = pe @ params["pos_rot"].to(torch.float32)
+        x = x + pe.to(x.dtype)
+    return x
+
+
+def forward(
+    cfg: ModelConfig,
+    params: dict,
+    inputs: torch.Tensor,
+    *,
+    cache: Optional[dict] = None,
+    mode: str = "full",
+    pad_lens: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """Full/prefill/decode forward.
+
+    inputs: [B, L] int tokens (or [B, L, d] embeddings for stub frontends).
+    ``pad_lens``: [B] int LEFT-pad count per row — the serving engine's
+    prompt-length buckets pad prompts on the left so the last real token
+    always sits in the last slot.  Per-row RoPE positions shift back by the
+    pad and pad key slots are masked out of every attention softmax, so
+    real-token outputs match the unpadded forward.  With ``cache`` the
+    cache is written in place (``models/attention.py``) and returned with
+    its clock advanced.  Returns (logits [B, L, V], new_cache).
+    """
+    _check_ported(cfg)
+    pos0 = int(cache["pos"]) if cache is not None else 0
+    lq = inputs.shape[1]
+    slots = (pos0 + torch.arange(lq, device=inputs.device))[None, :]
+    positions = slots
+    if pad_lens is not None:
+        # logical positions: slot s of a row with p leading pads holds
+        # token s - p (clamped for the masked pad slots themselves)
+        positions = torch.clamp_min(slots - pad_lens[:, None], 0)
+    x = _embed_inputs(cfg, params, inputs, positions)
+
+    new_prefix = []
+    for i, lp in enumerate(params["prefix"]):
+        c = cache["prefix"][i] if cache is not None else None
+        x, c2 = _apply_layer(cfg, lp, x, positions=positions, cache=c, mode=mode,
+                             pad_lens=pad_lens)
+        new_prefix.append(c2)
+
+    period = len(cfg.pattern)
+    new_blocks = {}
+    for g in range(n_scan_groups(cfg)):  # the reference's lax.scan over groups
+        gp = tree_index(params["blocks"], g)
+        for j in range(period):
+            name = f"l{j}"
+            c = None
+            if cache is not None:
+                full = cache["blocks"][name]
+                c = A.KVCache(full.k[g], full.v[g], full.k_scale[g], full.v_scale[g],
+                              full.length)
+            x, c2 = _apply_layer(cfg, gp[name], x, positions=positions, cache=c, mode=mode,
+                                 pad_lens=pad_lens)
+            if c2 is not None:  # the group's view was written in place
+                new_blocks[name] = cache["blocks"][name]._replace(length=c2.length)
+
+    x = L.norm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bld,vd->blv", x, params["embed"]["w"].to(x.dtype))
+    else:
+        logits = L.dense(params["lm_head"], x)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"prefix": new_prefix, "blocks": new_blocks, "pos": pos0 + lq}
+    return logits, new_cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: dict,
+                pad_lens: Optional[torch.Tensor] = None):
+    """One-token decode: token [B] int (or [B, 1, d] embeddings).
+    ``pad_lens``: [B] left-pad counts carried over from a bucketed prefill."""
+    if not cfg.embed_inputs and token.ndim == 1:
+        token = token[:, None]
+    return forward(cfg, params, token, cache=cache, mode="decode", pad_lens=pad_lens)

@@ -50,6 +50,7 @@ __all__ = [
     "MicroBatchQueue",
     "TierSet",
     "load_schedule",
+    "resolve_device",
     "next_pow2",
     "pick_bucket",
     "LATENCY_WINDOW",
@@ -199,6 +200,21 @@ def load_schedule(schedule):
         )
     schedule.check_servable()
     return schedule, schedule.hash
+
+
+def resolve_device(device, engine: str):
+    """An engine's device: the CUDA device unless ``device`` says
+    otherwise.  Raises when asked for CUDA on a machine without it — there
+    is no fallback to the CPU."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{engine} runs on the CUDA device unless told otherwise, and no "
+            "CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 def next_pow2(n: int, floor: int = 16) -> int:

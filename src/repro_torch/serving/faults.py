@@ -12,9 +12,10 @@ with no plan (the default) every hook is a single ``is None`` check and
 the hot path runs exactly as in a fault-free engine.
 
 The port's VGGT engine fires the ``scene`` (nan/inf), ``prefill`` and
-``poll`` (latency, crash) sites; the LM sites (``decode.logits``,
-``prefill.logits``, ``decode``, ``slot_alloc``) parse and format, and fire
-once the LM engine is ported.
+``poll`` (latency, crash) sites; its LM engine (bucket mode) the
+``prefill.logits`` and ``decode.logits`` (nan/inf), ``prefill``,
+``decode`` and ``poll`` sites.  ``slot_alloc`` parses and formats, and
+fires once the continuous scheduler is ported.
 
 Fault kinds:
 

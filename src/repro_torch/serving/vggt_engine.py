@@ -93,16 +93,6 @@ class PendingRequest(batching.PendingRequest):
     tier: str = "default"  # precision tier (engine ``tiers`` key)
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "VGGTEngine runs on the CUDA device unless told otherwise, and no "
-            "CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
-
-
 class VGGTEngine:
     """Bucketed, micro-batched VGGT serving (see module docstring).
 
@@ -150,7 +140,7 @@ class VGGTEngine:
     ):
         if attn_impl is not None and attn_impl not in ("flash", "two_stage", "vanilla"):
             raise ValueError(f"attn_impl={attn_impl!r}: expected flash | two_stage | vanilla")
-        self.device = _resolve_device(device)
+        self.device = batching.resolve_device(device, "VGGTEngine")
         if self.device.type == "cuda":
             # the float parts of the forward (patch projection, IDCT blocks,
             # heads, the masked attention emulation) are float32 work, which

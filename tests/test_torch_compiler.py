@@ -23,7 +23,7 @@ from repro.core.precision import planner as jpl
 from repro.launch import roofline_util as jroof
 from repro.models import vggt as jvggt
 from repro_torch.configs import get_config
-from repro_torch.convert import vggt_params_from_numpy
+from repro_torch.convert import params_from_numpy
 from repro_torch.core.model_quant import quantize_vggt
 from repro_torch.core.precision import (
     Autotuner, KernelSchedule, PrecisionPlan, TuningDB, compile_schedule,
@@ -75,7 +75,7 @@ def _strip(canonical: dict) -> dict:
 def _weights():
     cfg = get_config("vggt-1b-smoke")
     jp = jvggt.init_params(j_get_config("vggt-1b-smoke"), jax.random.PRNGKey(0))
-    return cfg, jp, vggt_params_from_numpy(flatten_jax(jp))
+    return cfg, jp, params_from_numpy(flatten_jax(jp))
 
 
 # ---------------------------------------------------------------------------

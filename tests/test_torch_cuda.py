@@ -135,6 +135,14 @@ def test_quant_matmul_rejects_bad_k(dev):
         (1, 2, 2, 129, 129, 32, True, None),
         (1, 2, 2, 130, 2100, 64, False, 5),
         (1, 2, 2, 33, 4097, 32, False, 0),
+        # head dim 128 (qwen3-14b): GQA 40/8 and MHA, causal at Lq == Lk,
+        # ragged L 129 and 1029
+        (1, 40, 8, 129, 129, 128, True, None),
+        (2, 40, 8, 129, 1029, 128, False, None),
+        (1, 4, 4, 1029, 1029, 128, True, None),
+        (1, 2, 2, 1029, 1029, 128, False, None),
+        (1, 40, 8, 1029, 1029, 128, True, None),
+        (1, 2, 2, 130, 2100, 128, False, 5),
     ],
 )
 def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal, zero_row):
@@ -163,6 +171,33 @@ def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal, zero_row):
     if zero_row is not None:  # p = 1 for every key: pq = 127, l = Lk
         mean = vv.float().sum(dim=1).repeat_interleave(h // hkv, dim=0) / lk * vsq.reshape(-1, 1)
         torch.testing.assert_close(got[:, zero_row], mean, rtol=1e-6, atol=1e-7)
+
+
+def test_two_stage_refuses_other_head_dims(dev):
+    """Only dh 32, 64 and 128 have kernel instances; dh 96 raises in the
+    wrapper before any launch."""
+    qv = torch.zeros((2, 16, 96), dtype=torch.int8, device=dev)
+    s = torch.ones((2, 16, 1), device=dev)
+    with probe.tracking() as log, pytest.raises(ValueError, match="head dim 96"):
+        tsa.two_stage_attention(qv, s, qv, s, qv, torch.ones((2, 1, 1), device=dev))
+    assert log.count == 0
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("k,n", [(17408, 5120), (5120, 17408)])
+def test_quant_matmul_decode_rows_w4(dev, m, k, n):
+    """Decode's few rows at qwen3-14b's W4 widths: w_down (K 17,408) and
+    w_up (N 17,408)."""
+    rng = np.random.default_rng(m * 31 + k)
+    xq = quantize_per_token(_normal(rng, (m, k), dev), 8)
+    wq = quantize_weight(_normal(rng, (k, n), dev), 4)
+    ws = wq.scale.reshape(1, -1)
+    with probe.tracking() as log:
+        got = qm.quant_matmul(xq.values, xq.scale, wq.values, ws, packed=True)
+    torch.cuda.synchronize()
+    want = qm.quant_matmul_plain(xq.values, xq.scale, wq.values, ws, packed=True)
+    assert log.by_name() == {"quant_matmul": 1}
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -532,8 +567,9 @@ def test_fused_engine_serves_masked_bucket(dev):
 
         def keep(fn):
             def run(*a, **kw):
-                outs.append(fn(*a, **kw))
-                return outs[-1]
+                r = fn(*a, **kw)
+                outs.append(r[0] if isinstance(r, tuple) else r)  # attention: (out, cache)
+                return r
             return run
 
         A.gqa_attention, Fm.dense_ffn = keep(attn), keep(ffn)
@@ -695,3 +731,90 @@ def test_planned_tier_launches_what_its_schedule_says(dev, tmp_path):
     for k in ("pose", "points", "depth"):
         rel = ((out[k] - want[k]).norm() / want[k].norm()).item()
         assert torch.isfinite(out[k]).all() and rel < 1e-3, (k, rel)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_lm_smoke_forward_matches_plain(dev, monkeypatch, fuse):
+    """qwen3-14b-smoke's W4A8 tree on the card, unfused (``quant_matmul``)
+    and fused (``fused_matmul`` with the RMS prologue for ``wqkv``,
+    ``fused_ffn`` with the SiLU gate), over a full-mode forward through the
+    two-stage kernel and a left-padded prefill + 2 decode steps.  Every
+    layer's attention and FFN branch, fed the same input, against the plain
+    versions (rel L2 1e-3 over all calls of a branch kind, the bound of
+    the card's fused checks: a decode call has 2 rows, and one hidden
+    rounding flipped by the kernel's summation order moves such a call by
+    ~1.5e-3 at this width); the logits within 2e-2: one int8 activation
+    rounding that the kernels' other summation order flips moves its
+    token's logits by up to ~1e-2 at this width, as the cross-framework
+    tests measure (tests/test_torch_lm.py, REL_L2_FLIP)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_lm
+    from repro_torch.core.precision.plan import PrecisionPlan
+    from repro_torch.kernels import fused as fz
+    from repro_torch.models import attention as A
+    from repro_torch.models import ffn as Fm
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-14b-smoke").with_(attn_impl="two_stage")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    with torch.inference_mode():
+        qp = quantize_lm(cfg, params, PrecisionPlan(default="w4a8", use_kernel=True, fuse=fuse))
+    toks = torch.as_tensor(np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 24)),
+                           device=dev)
+    pad = torch.tensor([0, 5], device=dev)
+    kernels = [(qm, "quant_matmul"), (tsa, "two_stage_attention"), (fz, "fused_matmul"),
+               (fz, "fused_ffn")]
+    saved = [getattr(m, n) for m, n in kernels]
+
+    def plain(on):
+        for (m, n), fn in zip(kernels, saved):
+            setattr(m, n, getattr(m, f"{n}_plain") if on else fn)
+
+    sums = [[0.0, 0.0], [0.0, 0.0]]  # per kind: squared difference, squared reference
+
+    def checked(j, fn):  # the branch with the kernels, then with the plain versions
+        def run(*a, **kw):
+            r = fn(*a, **kw)
+            plain(True)
+            try:
+                w = fn(*a, **kw)
+            finally:
+                plain(False)
+            got, want = (r[0], w[0]) if j == 0 else (r, w)
+            sums[j][0] += ((got.double() - want.double()) ** 2).sum().item()
+            sums[j][1] += (want.double() ** 2).sum().item()
+            return r
+        return run
+
+    def run():
+        with torch.inference_mode():
+            full, _ = lm.forward(cfg, qp, toks)
+            cache = lm.init_cache(cfg, 2, 32, device=dev)
+            pre, cache = lm.forward(cfg, qp, toks[:, :20], cache=cache, mode="prefill",
+                                    pad_lens=pad)
+            outs = [full, pre[:, -1]]
+            for t in (20, 21):
+                step, cache = lm.decode_step(cfg, qp, toks[:, t], cache, pad_lens=pad)
+                outs.append(step[:, 0])
+        return outs
+
+    with probe.tracking() as log:
+        got = run()
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    want_launches = ({"fused_matmul": 2 * n * 4, "fused_ffn": n * 4, "two_stage_attention": n}
+                     if fuse else {"quant_matmul": 7 * n * 4, "two_stage_attention": n})
+    assert log.by_name() == want_launches
+    monkeypatch.setattr(A, "gqa_attention", checked(0, A.gqa_attention))
+    monkeypatch.setattr(Fm, "dense_ffn", checked(1, Fm.dense_ffn))
+    run()
+    pooled = [(d / r) ** 0.5 for d, r in sums]
+    assert max(pooled) < 1e-3, pooled
+    monkeypatch.undo()
+    plain(True)
+    try:
+        want = run()
+    finally:
+        plain(False)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and _rel(g, w) < 2e-2, _rel(g, w)

@@ -159,11 +159,14 @@ def test_launcher_without_a_card_fails_rather_than_using_the_cpu():
 
 
 def test_launcher_refuses_other_archs_and_unported_specs():
-    """The LM archs wait for their slice; ``--policy plan`` needs named
-    tiers; a schedule the JAX package compiled must be recompiled; a
-    missing schedule file is reported, not a traceback."""
-    out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke")
-    assert out.returncode != 0 and "queue 1 item 7" in out.stderr
+    """The LM engine's continuous scheduler and the unported archs wait
+    for their slices; ``--policy plan`` needs named tiers; a schedule the
+    JAX package compiled must be recompiled; a missing schedule file is
+    reported, not a traceback."""
+    out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke", "--mode", "continuous")
+    assert out.returncode != 0 and "queue 1 item 8" in out.stderr
+    out = _launch("--device", "cpu", "--arch", "deepseek-v2-lite-16b-smoke")
+    assert out.returncode != 0 and "unknown arch" in out.stderr
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=tests/goldens/schedule_vggt_smoke.json")
     assert out.returncode != 0 and "recompile it with" in out.stderr
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=x.json")
@@ -179,3 +182,26 @@ def test_launcher_serves_a_planned_tier_without_jax():
     assert out.returncode == 0, out.stderr
     assert "tier 'planned': planned mixed precision {'w4a4': " in out.stdout
     assert "served 4/4 requests" in out.stdout and "planned:b2xs2xp16" in out.stdout
+
+
+def test_lm_launcher_serves_on_the_cpu_without_jax():
+    """qwen3-14b-smoke through the LM engine behind ``AsyncServer``: two
+    tiers, mixed-length prompts (8 and 6 tokens, both in the l8 bucket),
+    every request served, the per-bucket table with both tiers' prefill and
+    decode rows, and the scheduler the ``auto`` mode resolved to."""
+    out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke", "--tiers",
+                  "quality=fp,balanced=w4a8", "--requests", "4", "--prompt-len", "8", "--gen",
+                  "8", "--batch", "2")
+    assert out.returncode == 0, out.stderr
+    assert "served 4/4 requests -> 32 tokens" in out.stdout
+    assert "scheduler: bucket (mode='auto'" in out.stdout and "decode tok/s" in out.stdout
+    for tier in ("quality", "balanced"):
+        assert f"{tier}:prefill:b" in out.stdout and f"{tier}:decode:b" in out.stdout
+
+
+@pytest.mark.skipif(__import__("torch").cuda.is_available(), reason="this machine has a card")
+def test_lm_launcher_without_a_card_fails_rather_than_using_the_cpu():
+    out = _launch("--arch", "qwen3-14b-smoke", "--tiers", "quality=fp,balanced=w4a8",
+                  "--requests", "4", "--prompt-len", "8", "--gen", "8", "--batch", "2")
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "served" not in out.stdout

@@ -17,7 +17,7 @@ from repro.core.precision import planner as jpl
 from repro.launch import roofline_util as jroof
 from repro.models import vggt as jvggt
 from repro_torch.configs import get_config
-from repro_torch.convert import vggt_params_from_numpy
+from repro_torch.convert import params_from_numpy
 from repro_torch.core.precision import PrecisionPlan, plan as plan_mod
 from repro_torch.core.precision import planner as tpl
 from repro_torch.launch import roofline_util
@@ -36,7 +36,7 @@ def _setup():
     cfg = get_config("vggt-1b-smoke")
     jp = jvggt.init_params(jcfg, jax.random.PRNGKey(0))
     jplan, jrep = jpl.plan_model(jcfg, jp)
-    return jcfg, cfg, jp, vggt_params_from_numpy(flatten_jax(jp)), jplan, jrep
+    return jcfg, cfg, jp, params_from_numpy(flatten_jax(jp)), jplan, jrep
 
 
 @pytest.fixture

@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-# ``repro.core`` re-exports a ``quantize`` function that shadows the module
+# ``repro.core`` and ``repro_torch.core`` re-export a ``quantize`` function
+# that shadows the module
 jqz = importlib.import_module("repro.core.quantize")
 jtr = importlib.import_module("repro.core.transforms")
 jvq = importlib.import_module("repro.core.versaq")
-from repro_torch.core import quantize as tqz
+tqz = importlib.import_module("repro_torch.core.quantize")
 from repro_torch.core import transforms as ttr
 from repro_torch.core import versaq as tvq
 

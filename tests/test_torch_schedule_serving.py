@@ -27,7 +27,7 @@ from repro.launch.specs import ServeSpec as JServeSpec
 from repro.models import vggt as jvggt
 from repro.serving.vggt_engine import VGGTEngine as JEngine
 from repro_torch.configs import get_config
-from repro_torch.convert import vggt_params_from_numpy
+from repro_torch.convert import params_from_numpy
 from repro_torch.core.precision import KernelSchedule, PrecisionPlan, compile_schedule
 from repro_torch.core.precision import planner as tpl
 from repro_torch.kernels import fused as fz
@@ -58,7 +58,7 @@ def _setup():
     jcfg = j_get_config("vggt-1b-smoke").with_(layerscale_init=LS)
     cfg = get_config("vggt-1b-smoke").with_(layerscale_init=LS)
     jp = jvggt.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, cfg, jp, vggt_params_from_numpy(flatten_jax(jp))
+    return jcfg, cfg, jp, params_from_numpy(flatten_jax(jp))
 
 
 def _scenes(b=2, seed=0):

@@ -42,6 +42,8 @@ def _quant_both(q, k, v):
         (2, 2, 128, 32, True, 32, 32, 64),  # causal at Lq == Lk
         (4, 2, 96, 32, False, 32, 32, 96),  # GQA (4 query heads over 2 K/V heads)
         (4, 1, 64, 64, True, 64, 64, 64),  # GQA (4, 1), causal
+        (2, 2, 64, 128, False, 32, 32, 64),  # head dim 128 (qwen3-14b)
+        (5, 1, 64, 128, True, 32, 32, 64),  # dh 128, GQA (5, 1) as 40/8, causal
     ],
 )
 def test_plain_matches_pallas_kernel(bh, bhkv, l, dh, causal, bq, bk, bkv):

@@ -25,7 +25,7 @@ from repro.core.model_quant import quantize_vggt as j_quantize_vggt
 from repro.core.precision.plan import PrecisionPlan as JPlan
 from repro.models import vggt as jvggt
 from repro_torch.configs import get_config
-from repro_torch.convert import params_to_numpy, vggt_params_from_numpy
+from repro_torch.convert import params_to_numpy, params_from_numpy
 from repro_torch.core import versaq as tvq
 from repro_torch.core.model_quant import quantize_vggt
 from repro_torch.core.precision.plan import PrecisionPlan
@@ -82,7 +82,7 @@ def _setup():
     jcfg = j_get_config("vggt-1b-smoke").with_(layerscale_init=LS)
     cfg = get_config("vggt-1b-smoke").with_(layerscale_init=LS)
     jp = jvggt.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, cfg, jp, vggt_params_from_numpy(flatten_jax(jp))
+    return jcfg, cfg, jp, params_from_numpy(flatten_jax(jp))
 
 
 def _policies(name):
@@ -260,7 +260,7 @@ def test_fused_block_branches_match_reference(impl, blk):
     shape = (4, 21, 128) if blk == "frame" else (2, 42, 128)
     x = np.random.default_rng(5).normal(size=shape).astype(np.float32)
     ja, _ = jattn.gqa_attention(jb["attn"], jcfg, jnp.asarray(x), causal=False, mode="full")
-    ta = tattn.gqa_attention(tb["attn"], cfg, torch.as_tensor(x), causal=False, mode="full")
+    ta, _ = tattn.gqa_attention(tb["attn"], cfg, torch.as_tensor(x), causal=False, mode="full")
     jf = jffn.dense_ffn(jb["ffn"], jcfg.act, jnp.asarray(x))
     tf = tffn.dense_ffn(tb["ffn"], cfg.act, torch.as_tensor(x))
     assert _rel(ta.numpy(), ja) < REL_L2_BRANCH, _rel(ta.numpy(), ja)
@@ -308,7 +308,7 @@ def test_fused_matches_unfused_forward(impl):
     the WHT and the quantization round."""
     jcfg = j_get_config("vggt-1b-smoke")
     cfg = get_config("vggt-1b-smoke").with_(attn_impl=impl)
-    tp = vggt_params_from_numpy(flatten_jax(jvggt.init_params(jcfg, jax.random.PRNGKey(0))))
+    tp = params_from_numpy(flatten_jax(jvggt.init_params(jcfg, jax.random.PRNGKey(0))))
     x = torch.as_tensor(_scenes(b=1, p=24))
     got = tvggt.forward(cfg, quantize_vggt(cfg, tp, _policies("fused")[1]), x)
     want = tvggt.forward(cfg, quantize_vggt(cfg, tp, _policies("plan")[1]), x)

@@ -16,7 +16,7 @@ from repro.core.precision.plan import PrecisionPlan as JPlan
 from repro.models import vggt as jvggt
 from repro.serving.vggt_engine import VGGTEngine as JVGGTEngine
 from repro_torch.configs import get_config
-from repro_torch.convert import vggt_params_from_numpy
+from repro_torch.convert import params_from_numpy
 from repro_torch.core.precision.plan import PrecisionPlan
 from repro_torch.data.pipeline import scene_batch
 from repro_torch.models import vggt
@@ -43,7 +43,7 @@ def _fixture():
               layerscale_init=0.2)
     jcfg = j_get_config("vggt-1b-smoke").with_(**kw)
     jp = jvggt.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, get_config("vggt-1b-smoke").with_(**kw), jp, vggt_params_from_numpy(_flatten_jax(jp))
+    return jcfg, get_config("vggt-1b-smoke").with_(**kw), jp, params_from_numpy(_flatten_jax(jp))
 
 
 def _scenes(n, frames=2, patches=24, seed=0):
