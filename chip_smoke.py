@@ -16,7 +16,8 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    branches a planned tier reaches at those shapes (an A4 ``wqkv`` prologue,
    FFNs with A4 input and an A8 or A4 hidden), plus small cases (W8, A4, a requant
    epilogue, a pre-quantized input, a gated SiLU FFN, ragged M, causal and
-   GQA attention); times kernel, plain version,
+   GQA attention), and ``quant_matmul`` at the LM paths' shapes (qwen3-14b
+   decode and prefill, rwkv6-1.6b decode at 4 slots); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
    ``torch.matmul`` with the blocked Hadamard); for ``quant_matmul``, the
@@ -97,9 +98,37 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    tok/s and peak memory; (c) one scoring forward, ``lm.forward(mode=
    "full")``, of the W4A8 tree on [2, ``LM_SCORE_LEN``] tokens: one dh-128
    two-stage launch per layer, logits against the plain versions (rel L2
-   < 1e-3).
+   < 1e-3);
+10. serves qwen3-14b (the same 8 layers and seed-0 weights) through the
+   continuous scheduler (``phase_lm_continuous``): one ``Engine`` whose
+   ``mode="auto"`` must resolve to continuous, tiers ``quality=fp,
+   balanced=w4a8``, slot widths (1, 2, 4), 8 decode steps a burst, behind
+   ``AsyncServer``; 8 ``mixed_len_prompts`` requests (512 and 384 tokens),
+   32 new tokens each, two first and six while those two decode; request 3
+   sampled from a seeded generator, request 4 failing its slot allocation
+   (``slot_alloc``) and request 5 poisoned (``nan@decode.logits``).  It
+   holds the two faults to their requests, every other request delivered,
+   at least one admission mid-decode, ``quant_matmul`` launches equal to 7
+   x layers x (balanced prefill waves + balanced decode steps) and none
+   for ``quality``, greedy ids equal to a bucket-mode engine's and the
+   sampled request's ids equal to the same request served alone (at a
+   divergence, the logits each engine itself produced there, kept by
+   ``_LogitTap``, must pick the emitted tokens, agree within ``_hold_lm``'s
+   bound, and show a near tie: see ``_hold_same_ids``); prints TTFT p50,
+   ms per decode step
+   and tok/s per tier, slot occupancy and peak memory, and profiles one
+   8-step burst at 4 slots per tier;
+11. serves rwkv6-1.6b at full width and depth (24 layers, seed-0 weights)
+   the same way through ``StateDecodeRunner`` (``phase_rwkv``), tiers fp
+   and w4a8, 6 requests at exact prompt lengths of 96-256 tokens, 32 new
+   tokens, four joining mid-decode; holds every W4A8 layer's time-mix and
+   channel-mix against the plain versions (< 1e-3, full forward and
+   prefill + decode), exact-length prefill buckets, ids against bucket
+   mode, and 7 x 24 ``quant_matmul`` launches per w4a8 prefill wave and
+   decode step; prints the same numbers and the WKV loop's share of a
+   256-token prefill (one layer's recurrence, host clock).
 
-Each of the paths 4-9 runs with the launch counts set to 0 just before it
+Each of the paths 4-11 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -120,6 +149,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -139,6 +170,12 @@ S_FRAMES, N_PATCHES, BATCH = 8, 1024, 2
 # prompts of LM_PROMPT tokens (and 3/4 of that), LM_GEN new tokens each;
 # the scoring forward over [2, LM_SCORE_LEN] tokens
 LM_LAYERS, LM_PROMPT, LM_GEN, LM_SCORE_LEN = 8, 512, 32, 2048
+# phase 10: the continuous engine's cache (the shared clock runs on while
+# requests join, so it needs room past one prompt and its generation)
+CONT_MAX_LEN = 1024
+# phase 11: rwkv6-1.6b requests at these exact prompt lengths, RWKV_GEN new
+# tokens each
+RWKV_PROMPTS, RWKV_GEN = (256, 96, 200, 128, 160, 224), 32
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
@@ -195,6 +232,10 @@ def main() -> int:
     paths["server"] = phase_server(torch, dev)
     paths["schedule"] = phase_schedule(torch, dev)
     paths["lm"] = phase_lm(torch, dev)
+    raw = paths["lm"].pop("raw")
+    paths["lm_continuous"] = phase_lm_continuous(torch, dev, raw)
+    del raw
+    paths["rwkv"] = phase_rwkv(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -355,19 +396,25 @@ def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
 
 
 def _quant_matmul_lm_rows(torch, randn) -> dict:
-    """``quant_matmul`` at qwen3-14b's W4 shapes on the LM path: decode's
+    """``quant_matmul`` at the LM paths' W4 shapes: qwen3-14b decode's
     M = 2 rows (``max_batch=2``) through ``w_up``/``w_gate`` (K 5120, N
     17,408) and ``w_down`` (K 17,408), and a 1024-row prefill ``w_down``;
-    each against its plain version, timed beside its bound and, where
-    ``torch._int_mm`` takes the shape (M > 16), the library call.  These
-    rows are not weighted into the record's vggt-1b totals."""
+    rwkv6-1.6b decode's M = 4 slots through the time-mix projections
+    (2048 x 2048), the channel-mix ``w_up`` (2048 x 7168) and ``w_down``
+    (7168 x 2048); each against its plain version, timed beside its bound
+    and, where ``torch._int_mm`` takes the shape (M > 16), the library
+    call.  These rows are not weighted into the record's vggt-1b totals."""
     from repro_torch.core.quantize import quantize_per_token, quantize_weight, unpack_int4
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels.measure import time_ms
 
     rows = {}
-    for label, m, k, n in (("decode w_up", 2, 5120, 17408), ("decode w_down", 2, 17408, 5120),
-                           ("prefill w_down", 1024, 17408, 5120)):
+    for label, m, k, n in (("qwen3 decode w_up", 2, 5120, 17408),
+                           ("qwen3 decode w_down", 2, 17408, 5120),
+                           ("qwen3 prefill w_down", 1024, 17408, 5120),
+                           ("rwkv6 decode wr..wo", 4, 2048, 2048),
+                           ("rwkv6 decode w_up", 4, 2048, 7168),
+                           ("rwkv6 decode w_down", 4, 7168, 2048)):
         xq = quantize_per_token(randn(m, k), 8)
         wq = quantize_weight(randn(k, n), 4)
         ws = wq.scale.reshape(1, -1).contiguous()
@@ -388,7 +435,7 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
             note = None
         rows[label] = dict(m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=bound, bound_by=by, library_ms=lib, library_note=note)
-        print(f"quant_matmul qwen3 {label:14s} M={m} K={k} N={n} W4: err={err:.3g} "
+        print(f"quant_matmul {label:20s} M={m} K={k} N={n} W4: err={err:.3g} "
               f"kernel={ms:.4f}ms plain={plain:.4f}ms "
               f"int_mm={'n/a (' + note + ')' if lib is None else f'{lib:.4f}ms'} "
               f"bound={bound:.4f}ms ({by}), {ms / bound:.2f}x bound")
@@ -1406,34 +1453,40 @@ def _hold_lm(torch, tag, rels, moved_fn) -> None:
 
 
 def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
-    """Every layer's attention and FFN branch with the kernels against the
-    same layer with the plain versions, fed the same input: over one
-    full-mode forward, or (``steps``) over a left-padded prefill and decode
-    steps, where the plain call writes the same cache slots again.  The rel
-    L2 of each branch kind over all its calls must stay under 1e-3: a
-    decode call has 2 rows, and one hidden rounding flipped by the kernel's
-    summation order moves such a call by ~1.5e-3 at smoke width."""
+    """Every layer's two branches (attention and FFN; for rwkv, time-mix
+    and channel-mix) with the kernels against the same layer with the plain
+    versions, fed the same input: over one full-mode forward, or
+    (``steps``) over a (left-padded) prefill and decode steps, where the
+    plain call writes the same cache slots again (an rwkv mixer returns its
+    state and writes nothing).  The rel L2 of each branch kind over all its
+    calls must stay under 1e-3: a decode call has 2 rows, and one hidden
+    rounding flipped by the kernel's summation order moves such a call by
+    ~1.5e-3 at smoke width."""
     from repro_torch.models import attention as A
     from repro_torch.models import ffn as F
     from repro_torch.models import lm
+    from repro_torch.models import rwkv as R
 
     sums = [[0.0, 0.0], [0.0, 0.0]]  # per kind: squared difference, squared reference
     worst = [0.0, 0.0]
-    attn, ffn = A.gqa_attention, F.dense_ffn
+    sites = ([(R, "rwkv_time_mix"), (R, "rwkv_channel_mix")] if "rwkv" in cfg.pattern
+             else [(A, "gqa_attention"), (F, "dense_ffn")])
+    saved = [getattr(mod, name) for mod, name in sites]
 
     def checked(j, fn):
         def run(*a, **kw):
             r = fn(*a, **kw)
             with _PlainKernels():
                 w = fn(*a, **kw)
-            got, want = (r[0], w[0]) if j == 0 else (r, w)
+            got, want = (r[0], w[0]) if isinstance(r, tuple) else (r, w)
             sums[j][0] += ((got.double() - want.double()) ** 2).sum().item()
             sums[j][1] += (want.double() ** 2).sum().item()
             worst[j] = max(worst[j], _rel(torch, got, want))
             return r
         return run
 
-    A.gqa_attention, F.dense_ffn = checked(0, attn), checked(1, ffn)
+    for j, ((mod, name), fn) in enumerate(zip(sites, saved)):
+        setattr(mod, name, checked(j, fn))
     try:
         if steps is None:
             with torch.inference_mode():
@@ -1441,10 +1494,12 @@ def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
         else:
             _teacher_forced(torch, cfg, params, toks, pad, steps, toks.shape[1] + steps.shape[1])
     finally:
-        A.gqa_attention, F.dense_ffn = attn, ffn
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, fn)
     pooled = [math.sqrt(d / max(r, 1e-300)) for d, r in sums]
     print(f"  {tag}: per-layer branches vs plain ({'full' if steps is None else 'prefill+decode'}"
-          f"), rel L2 over all calls (attention, FFN) {[f'{p:.3g}' for p in pooled]}, worst "
+          f"), rel L2 over all calls ({' and '.join(n for _, n in sites)}) "
+          f"{[f'{p:.3g}' for p in pooled]}, worst "
           f"call {[f'{w:.3g}' for w in worst]}")
     _check(max(pooled) < 1e-3, f"{tag}: the layers' branches vs plain: {pooled}")
 
@@ -1534,7 +1589,8 @@ def phase_lm(torch, dev) -> dict:
     add(score)
     print(f"lm: phase {time.perf_counter() - t_phase:.1f}s; launches smoke tiers {smoke}, served "
           f"{paths['counts']}, scoring forward {score}")
-    return {"counts": counts, "runs": 1, "inplace": {}}
+    # the raw qwen3-14b weights go on to phase_lm_continuous
+    return {"counts": counts, "runs": 1, "inplace": {}, "raw": paths["raw"]}
 
 
 def _lm_serve(torch, dev) -> dict:
@@ -1648,7 +1704,7 @@ def _lm_serve(torch, dev) -> dict:
     for log in logs.values():
         for k, v in log.items():
             counts[k] = counts.get(k, 0) + v
-    return {"counts": counts, "params": params_b, "cfg": cfg}
+    return {"counts": counts, "params": params_b, "cfg": cfg, "raw": params}
 
 
 def _lm_score(torch, dev, params, cfg) -> dict:
@@ -1689,6 +1745,474 @@ def _lm_score(torch, dev, params, cfg) -> dict:
     del want
     _lm_branches(torch, cfg, params, toks, "lm scoring forward")
     return log.by_name()
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: continuous LM serving (qwen3-14b) and rwkv6-1.6b
+# ---------------------------------------------------------------------------
+
+
+def _wall_ms(torch, fn, reps: int = 3) -> float:
+    """Median host-clock time of ``fn`` from a synchronized start to a
+    synchronized end (after one warm-up call): what a caller waits,
+    launch overhead included."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _ttft_ms(tracer, reqs) -> list[float]:
+    """Per delivered request: enqueue to the end of its prefill (which
+    yields its first token), from the span events."""
+    out = []
+    for r in reqs:
+        t = {ev.phase: ev.t for ev in reversed(tracer.recent(request=r.req_id))}
+        if "enqueue" in t and "prefill" in t and r._error is None:
+            out.append((t["prefill"] - t["enqueue"]) * 1e3)
+    return out
+
+
+def _serve_report(torch, eng, tag, ttft, wall_s, peak_gib) -> None:
+    """TTFT p50, decode ms per step and tok/s per tier, slot occupancy."""
+    print(eng.stats.format())
+    for tier in eng.tiers:
+        ds = [s for b, s in eng.stats.buckets.items()
+              if b.tier == tier and type(b).__name__ == "DecodeBucket"]
+        calls, total, toks = (sum(s.calls for s in ds), sum(s.total_s for s in ds),
+                              sum(s.tokens for s in ds))
+        print(f"{tag} {tier}: decode {1e3 * total / max(calls, 1):.3f}ms per step over {calls} "
+              f"steps, {toks / max(total, 1e-9):.1f} decode tok/s")
+    sched = eng.stats.scheduler
+    print(f"{tag}: TTFT p50 {statistics.median(ttft):.1f}ms (of {len(ttft)} requests; max "
+          f"{max(ttft):.1f}ms), slot occupancy {sched.slot_occupancy:.3f}, admitted "
+          f"{sched.admitted} ({sched.admitted_mid_decode} mid-decode), served in {wall_s:.2f}s, "
+          f"peak memory {peak_gib:.2f} GiB")
+
+
+class _LogitTap:
+    """Keeps a served engine's own logits per (request id, prompt row,
+    generated index): each prefill wave's last-slot rows
+    (``PrefillRunner.run``) and each decode step's rows (``lm.decode_step``),
+    mapped to requests by the wave's rows (bucket mode decodes the wave it
+    prefilled) or by a burst's slots at its start (``DecodeRunner.run_steps``).
+    The tensors are the engine's own, kept by reference: the tap adds no
+    device work, only the memory of the logits it keeps."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.rows = {}
+        self._ctx = None  # [(request id, rows, generated index of the next step)]
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        from repro_torch.serving import engine as E
+
+        eng, tap = self.eng, self
+        run, step, burst = eng._prefill.run, lm.decode_step, E.DecodeRunner.run_steps
+
+        def prefill(reqs, L, tier):
+            pre = run(reqs, L, tier)
+            i0, ctx = 0, []
+            for r in reqs:
+                b = r.prompts.shape[0]
+                for j in range(b):  # a copy: the row is a view of the whole prefill's logits
+                    tap.rows[(r.req_id, j, 0)] = pre.logits_last[i0 + j].clone()
+                ctx.append((r.req_id, list(range(i0, i0 + b)), 1))
+                i0 += b
+            tap._ctx = ctx
+            return pre
+
+        def decode_step(*a, **kw):
+            logits, cache = step(*a, **kw)
+            for rid, rows, k in tap._ctx or ():
+                for j, s_ in enumerate(rows):
+                    tap.rows[(rid, j, k)] = logits[s_, 0]
+            tap._ctx = [(rid, rows, k + 1) for rid, rows, k in tap._ctx or ()]
+            return logits, cache
+
+        def run_steps(runner, max_steps):
+            if runner.eng is eng:
+                tap._ctx = [(a.req.req_id, list(a.rows), a.req.n_steps - a.remaining)
+                            for a in runner.active]
+            try:
+                return burst(runner, max_steps)
+            finally:
+                tap._ctx = None
+
+        eng._prefill.run = prefill
+        lm.decode_step = decode_step
+        E.DecodeRunner.run_steps = run_steps
+        self._saved = (step, burst)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import lm
+        from repro_torch.serving import engine as E
+
+        del self.eng._prefill.run  # the bound method again
+        lm.decode_step, E.DecodeRunner.run_steps = self._saved
+        return False
+
+    def gib(self) -> float:
+        """Device memory the kept logits hold."""
+        seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in self.rows.values()}
+        return sum(seen.values()) / 2**30
+
+    def at(self, req, s: int):
+        """The engine's own logits [V] for ``req``'s (first) row at
+        generated index ``s``."""
+        return self.rows[(req.req_id, 0, s)]
+
+
+def _forced_at(torch, cfg, prompt, L, pad_prompts, ids, max_len):
+    """``f(params, s)``: the plain versions' teacher-forced logits [V] at
+    generated index ``s`` of ``prompt`` + ``ids[:s]``, one row, left-padded
+    to the request's bucket ``L`` as the engine serves it."""
+    def at(params, s):
+        dev = params["embed"]["w"].device
+        pad = L - len(prompt)
+        toks = torch.nn.functional.pad(torch.as_tensor(prompt, device=dev).long(), (pad, 0))[None]
+        forced = torch.as_tensor(np.asarray(ids[:s]), device=dev).long()[None]
+        with _PlainKernels():
+            return _teacher_forced(torch, cfg, params, toks,
+                                   torch.tensor([pad], device=dev) if pad_prompts else None,
+                                   forced, max_len)[s][0]
+    return at
+
+
+def _hold_same_ids(torch, tag, want, got, ref_at, own_at, forced_at, params,
+                   noise_at=None) -> None:
+    """Ids of one request served under two layouts (bucket mode and a
+    continuous slot, or alone and coalesced) must agree, or part only at a
+    near tie that the other layout's float sums flip (``aten::mm`` picks
+    other kernels at another batch width, the masked attention sums another
+    cache span).  At the first step ``s`` where they differ, with
+    ``ref_at(s)``/``own_at(s)`` the logits that each engine itself produced
+    there (:class:`_LogitTap`) and ``noise_at(s)`` a sampled request's
+    Gumbel noise:
+
+    - each side's token is the argmax of its own logits (plus the noise):
+      the logits held are the ones that emitted the tokens;
+    - the reference side's margin between its token and the one the engine
+      emitted is at most ``NOISE_MARGIN`` times the largest logit movement
+      of the plain versions under a last-bit change of the embedding, there
+      (``forced_at``, teacher-forced on the same prefix);
+    - the two sides' logits agree to ``_hold_lm``'s bound."""
+    want, got = np.asarray(want), np.asarray(got)
+    if np.array_equal(want, got):
+        return
+    s = int(np.argmax(want != got))
+    w, g = int(want[s]), int(got[s])
+    ref, own = ref_at(s).float(), own_at(s).float()
+    z = noise_at(s) if noise_at is not None else torch.zeros_like(ref)
+    _check(int(torch.argmax(ref + z)) == w and int(torch.argmax(own + z)) == g,
+           f"{tag}: the tapped logits at step {s} do not pick the emitted tokens {w} and {g}")
+    base = forced_at(params, s)
+    moved = forced_at(_noised(torch, params), s) - base
+    spread = moved.abs().max().item()
+    margin = ((ref + z)[w] - (ref + z)[g]).item()
+    rel = _rel(torch, own, ref)
+    print(f"  {tag}: ids diverge at step {s} of {len(want)} ({w} vs {g}); the engines' own "
+          f"logits there rel L2 {rel:.3g}; the reference side's margin {margin:.3g} against the "
+          f"plain versions' largest logit movement under a last-bit embedding change "
+          f"{spread:.3g} (bound x{NOISE_MARGIN:g})")
+    _check(margin <= NOISE_MARGIN * spread,
+           f"{tag}: margin {margin} at step {s} is no near tie (movement {spread})")
+    _hold_lm(torch, tag, [rel], lambda: [_rel(torch, base + moved, base)])
+
+
+def _profile_burst(torch, eng, prompts, tag) -> None:
+    """Replay one decode burst (``decode_steps_per_poll`` steps, 4 slots)
+    of each tier under the profiler: admit 4 requests with no steps, then
+    profile one ``poll``."""
+    n_steps = eng.decode_steps_per_poll
+    for tier in eng.tiers:
+        eng.decode_steps_per_poll = 0
+        for p in prompts[:4]:
+            eng.enqueue(p, n_steps + 2, tier=tier)
+        time.sleep(2 * eng.max_wait_s)
+        eng.poll()  # admits the wave, runs no step
+        _check(eng.active == 4, f"{tag} {tier}: profile wave not admitted ({eng.active})")
+        eng.decode_steps_per_poll = n_steps
+        print(f"{tag} {tier}: profile of one {n_steps}-step burst at 4 slots (a 'forward' below "
+              f"is the burst)")
+        profile_forwards(torch, [eng.poll])
+        eng.flush()
+
+
+def phase_lm_continuous(torch, dev, raw) -> dict:
+    """See the module docstring (10)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import mixed_len_prompts
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving.batching import ServeError
+    from repro_torch.serving.engine import DecodeRunner, Engine, gumbel_rows
+    from repro_torch.serving.server import AsyncServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-14b").with_(n_layers=LM_LAYERS)
+    tiers = {n: s.materialize() for n, s in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8").items()}
+    names = list(tiers)
+    n_req, sampled, alloc, nan = 8, 3, 4, 5  # enqueue ordinals
+    prompts = mixed_len_prompts(cfg.vocab_size, n_req, LM_PROMPT)
+    assign = [names[i % 2] for i in range(n_req)]
+    kw = dict(tiers=tiers, attn_impl="two_stage", max_len=CONT_MAX_LEN, batch_buckets=(1, 2, 4),
+              device="cuda")
+    eng = Engine(cfg, raw, mode="auto", max_batch=8, decode_steps_per_poll=8,
+                 faults=f"slot_alloc:req={alloc};nan@decode.logits:req={nan},step=3", **kw)
+    _check(eng.mode == "continuous" and eng.stats.mode == "continuous",
+           f"lm continuous: mode='auto' resolved to {eng.stats.mode}")
+    for t in tiers:
+        eng.tier_params(t)
+    print(f"lm continuous: qwen3-14b depth {LM_LAYERS}, tiers {names}, max_len {CONT_MAX_LEN}, "
+          f"slot widths {eng.batch_buckets}, {eng.decode_steps_per_poll} steps a burst; "
+          f"{n_req} requests of {sorted({len(p) for p in prompts})} tokens, request {sampled} "
+          f"sampled, faults slot_alloc@{alloc}, nan@decode.logits@{nan}")
+    tracer = obs_trace.Tracer(capacity=8192)
+    prev = obs_trace.install(tracer)
+    reqs = [None] * n_req
+    outcome = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with probe.tracking() as log, _LogitTap(eng) as tap, \
+                AsyncServer(eng) as srv:  # counts start at 0 here
+            def submit(i):
+                g = torch.Generator(device=dev).manual_seed(11) if i == sampled else None
+                reqs[i] = srv.submit(prompts[i], LM_GEN, tier=assign[i], generator=g)
+
+            submit(0)
+            submit(1)
+            t_wait = time.perf_counter() + 300
+            while eng.active < 2 and time.perf_counter() < t_wait:
+                time.sleep(0.002)
+            _check(eng.active >= 2, "lm continuous: the first two requests never ran")
+            for i in range(2, n_req):  # arrive while the first two decode
+                submit(i)
+            for i, r in enumerate(reqs):
+                try:
+                    outcome[i] = srv.result(r, timeout=600)
+                except ServeError as e:
+                    outcome[i] = e
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        obs_trace.install(prev)
+    ttft = _ttft_ms(tracer, reqs)
+    _serve_report(torch, eng, "lm continuous", ttft, wall, peak)
+    print(f"lm continuous: the logit tap keeps {tap.gib():.3f} GiB of that peak")
+    _check(type(outcome[alloc]).__name__ == "InjectedFault", f"slot_alloc: {outcome[alloc]!r}")
+    _check(type(outcome[nan]).__name__ == "NumericFault", f"nan fault: {outcome[nan]!r}")
+    served = [i for i in range(n_req) if i not in (alloc, nan)]
+    for i in served:
+        _check(isinstance(outcome[i], np.ndarray) and outcome[i].shape == (LM_GEN,),
+               f"lm continuous: request {i} not delivered: {outcome[i]!r}")
+    sched = eng.stats.scheduler
+    _check(sched.admitted_mid_decode >= 1, "lm continuous: nothing joined mid-decode")
+    _check(sched.numeric_faults == 1, f"numeric faults {sched.numeric_faults}")
+    _check(all(type(r) is DecodeRunner for r in eng._sched._runners.values()),
+           "lm continuous: served through DecodeRunner")
+
+    n = cfg.n_layers
+    calls = {t: [sum(s.calls for b, s in eng.stats.buckets.items()
+                     if b.tier == t and type(b).__name__ == k)
+                 for k in ("PrefillBucket", "DecodeBucket")] for t in names}
+    want = {"quant_matmul": 7 * n * sum(calls["balanced"])}
+    print(f"lm continuous: launches {log.by_name()}; (prefill waves, decode steps) per tier "
+          f"{calls}")
+    _check(log.by_name() == want, f"lm continuous: launches {log.by_name()}, expected {want} (7 x "
+                                  f"{n} per balanced prefill wave and decode step, none on "
+                                  "quality)")
+
+    # greedy ids against bucket mode; the sampled request against itself alone
+    beng = Engine(cfg, raw, mode="bucket", max_batch=4, max_wait_s=60.0, **kw)
+    greedy = [i for i in served if i != sampled]
+    with _LogitTap(beng) as btap:
+        breqs = {i: beng.enqueue(prompts[i], LM_GEN, tier=assign[i]) for i in greedy}
+        beng.flush()
+    same = 0
+    for i in greedy:
+        want_ids = breqs[i].result()
+        same += int(np.array_equal(want_ids, outcome[i]))
+        _hold_same_ids(torch, f"lm continuous request {i} ({assign[i]}) vs bucket mode", want_ids,
+                       outcome[i], lambda s_, i=i: btap.at(breqs[i], s_),
+                       lambda s_, i=i: tap.at(reqs[i], s_),
+                       _forced_at(torch, eng.cfg, prompts[i], eng.prompt_bucket(len(prompts[i])),
+                                  True, want_ids, CONT_MAX_LEN),
+                       eng.tier_params(assign[i]))
+    del beng, btap
+    with _LogitTap(eng) as atap:
+        alone = eng.enqueue(prompts[sampled], LM_GEN, tier=assign[sampled],
+                            generator=torch.Generator(device=dev).manual_seed(11))
+        eng.flush()
+    _check(np.array_equal(alone.seeds, reqs[sampled].seeds), "sampled request: seeds differ")
+    same_sampled = bool(np.array_equal(alone.result(), outcome[sampled]))
+    seed = torch.as_tensor(alone.seeds[:1], device=dev)
+    _hold_same_ids(torch, f"lm continuous sampled request {sampled} alone vs coalesced",
+                   alone.result(), outcome[sampled], lambda s_: atap.at(alone, s_),
+                   lambda s_: tap.at(reqs[sampled], s_),
+                   _forced_at(torch, eng.cfg, prompts[sampled],
+                              eng.prompt_bucket(len(prompts[sampled])), True, alone.result(),
+                              CONT_MAX_LEN),
+                   eng.tier_params(assign[sampled]),
+                   noise_at=lambda s_: gumbel_rows(seed, torch.full_like(seed, s_),
+                                                   eng.cfg.vocab_size)[0])
+    del tap, atap
+    print(f"lm continuous: greedy ids equal bucket mode's for {same} of {len(greedy)} requests; "
+          f"the sampled request served alone gives the same ids: {same_sampled}")
+    _profile_burst(torch, eng, prompts, "lm continuous")
+    del eng
+    print(f"lm continuous: phase {time.perf_counter() - t_phase:.1f}s")
+    return {"counts": log.by_name(), "runs": 1, "inplace": {}}
+
+
+def phase_rwkv(torch, dev) -> dict:
+    """See the module docstring (11)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import lm
+    from repro_torch.models import rwkv as R
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving.engine import Engine, StateDecodeRunner
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("rwkv6-1.6b")
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tiers = {n_: s.materialize() for n_, s in ServeSpec.parse_tiers("fp=fp,w4a8=w4a8").items()}
+    names = list(tiers)
+    kw = dict(tiers=tiers, max_len=max(RWKV_PROMPTS) + RWKV_GEN, batch_buckets=(1, 2, 4),
+              device="cuda")
+    eng = Engine(cfg, raw, mode="auto", max_batch=8, decode_steps_per_poll=8, **kw)
+    _check(eng.mode == "continuous" and not eng.pad_prompts, f"rwkv: mode {eng.stats.mode}")
+    for t in tiers:
+        eng.tier_params(t)
+    torch.cuda.synchronize()
+    print(f"rwkv: rwkv6-1.6b, {n} layers (d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim}"
+          f" heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), seed-0 weights "
+          f"and both tiers in {time.perf_counter() - t_phase:.1f}s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (m,)).astype(np.int32) for m in RWKV_PROMPTS]
+    assign = [names[i % 2] for i in range(len(prompts))]
+
+    # each W4A8 layer's two branches against the plain versions
+    qparams = eng.tier_params("w4a8")
+    toks = torch.as_tensor(prompts[0][None], device=dev).long()
+    steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 4)), device=dev).long()
+    _lm_branches(torch, cfg, qparams, toks, "rwkv w4a8")
+    _lm_branches(torch, cfg, qparams, toks, "rwkv w4a8", steps=steps)
+
+    # the WKV loop's share of a prefill of the longest prompt: the whole
+    # forward's wall time, and the recurrence's own calls timed inside one
+    # more forward (synchronized around each call)
+    L = max(RWKV_PROMPTS)
+    longest = torch.as_tensor(prompts[int(np.argmax(RWKV_PROMPTS))][None], device=dev).long()
+    loop, pre = R.wkv_recurrence, {}
+    for t in names:
+        p_t = eng.tier_params(t)
+
+        def prefill(p_t=p_t):
+            lm.forward(cfg, p_t, longest, cache=lm.init_cache(cfg, 1, L, device=dev),
+                       mode="prefill")
+
+        with torch.inference_mode():
+            wall = _wall_ms(torch, prefill)
+            spent = []
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = loop(*a)
+                torch.cuda.synchronize()
+                spent.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            R.wkv_recurrence = timed
+            try:
+                prefill()
+            finally:
+                R.wkv_recurrence = loop
+        pre[t] = (wall, sum(spent))
+    print(f"rwkv: [1, {L}] prefill forward (wall, median of 3) and its {n} WKV loops (one more "
+          "forward, each loop synchronized): "
+          + "; ".join(f"{t} {w:.1f}ms, loops {s_:.1f}ms ({s_ / n:.2f}ms a layer)"
+                      for t, (w, s_) in pre.items()))
+
+    # serve: two requests first, the rest join mid-decode
+    tracer = obs_trace.Tracer(capacity=8192)
+    prev = obs_trace.install(tracer)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with probe.tracking() as log, _LogitTap(eng) as tap:  # counts start at 0 here
+            reqs = [eng.enqueue(prompts[i], RWKV_GEN, tier=assign[i]) for i in (0, 1)]
+            time.sleep(2 * eng.max_wait_s)
+            eng.poll()
+            _check(eng.active == 2, f"rwkv: the first two requests are not decoding ({eng.active})")
+            reqs += [eng.enqueue(prompts[i], RWKV_GEN, tier=assign[i])
+                     for i in range(2, len(prompts))]
+            while not all(q.ready for q in reqs):
+                eng.poll()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        obs_trace.install(prev)
+    outs = [q.result() for q in reqs]
+    _serve_report(torch, eng, "rwkv", _ttft_ms(tracer, reqs), wall, peak)
+    print(f"rwkv: the logit tap keeps {tap.gib():.3f} GiB of that peak")
+    _check(all(o.shape == (RWKV_GEN,) for o in outs), "rwkv: every request delivered")
+    _check(eng.stats.scheduler.admitted_mid_decode >= 1, "rwkv: nothing joined mid-decode")
+    _check(all(isinstance(r_, StateDecodeRunner) for r_ in eng._sched._runners.values()),
+           "rwkv: served through StateDecodeRunner")
+    _check(all(any(type(b).__name__ == "PrefillBucket" and b.prompt_len == len(p)
+                   for b in eng.stats.buckets) for p in prompts), "rwkv: exact-length buckets")
+    calls = {t: [sum(s.calls for b, s in eng.stats.buckets.items()
+                     if b.tier == t and type(b).__name__ == k)
+                 for k in ("PrefillBucket", "DecodeBucket")] for t in names}
+    want = {"quant_matmul": 7 * n * sum(calls["w4a8"])}
+    print(f"rwkv: launches {log.by_name()}; (prefill waves, decode steps) per tier {calls}")
+    _check(log.by_name() == want, f"rwkv: launches {log.by_name()}, expected {want} (7 x {n} per "
+                                  "w4a8 prefill wave and decode step, none on fp)")
+
+    beng = Engine(cfg, raw, mode="bucket", max_batch=4, max_wait_s=60.0, **kw)
+    with _LogitTap(beng) as btap:
+        breqs = [beng.enqueue(p, RWKV_GEN, tier=t) for p, t in zip(prompts, assign)]
+        beng.flush()
+    same = 0
+    for i, (b, o) in enumerate(zip(breqs, outs)):
+        same += int(np.array_equal(b.result(), o))
+        _hold_same_ids(torch, f"rwkv request {i} ({assign[i]}) vs bucket mode", b.result(), o,
+                       lambda s_, b=b: btap.at(b, s_), lambda s_, i=i: tap.at(reqs[i], s_),
+                       _forced_at(torch, cfg, prompts[i], len(prompts[i]), False, b.result(),
+                                  kw["max_len"]),
+                       eng.tier_params(assign[i]))
+    del beng, btap, tap
+    print(f"rwkv: ids equal bucket mode's for {same} of {len(outs)} requests")
+    _profile_burst(torch, eng, prompts, "rwkv")
+    del eng, raw, qparams
+    print(f"rwkv: phase {time.perf_counter() - t_phase:.1f}s")
+    return {"counts": log.by_name(), "runs": 1, "inplace": {}}
 
 
 if __name__ == "__main__":

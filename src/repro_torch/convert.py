@@ -12,7 +12,10 @@ the ``prefix`` list.
 
 :func:`kv_cache_from_numpy` and :func:`kv_cache_to_numpy` carry a decode
 cache (``models/lm.py::init_cache`` layout) across, each ``KVCache`` as a
-``{"k", "v", "k_scale", "v_scale", "length"}`` dict.
+``{"k", "v", "k_scale", "v_scale", "length"}`` dict and each ``RWKVState``
+as a ``{"tshift", "cshift", "wkv"}`` dict.  Quantized trees are carried by
+the tests that hold them leaf by leaf, not here: they are built on each
+side from the same raw tree.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.core.versaq import Norm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.rwkv import RWKVState
 
 __all__ = ["params_from_numpy", "params_to_numpy", "kv_cache_from_numpy", "kv_cache_to_numpy"]
 
@@ -76,14 +80,21 @@ def _kv_from(d: dict, device) -> KVCache:
                    length=int(length.flat[0]) if length.size else 0)
 
 
+def _entry_from(d: dict, device):
+    if "wkv" in d:
+        return RWKVState(*[torch.tensor(np.asarray(d[f]), device=device)
+                           for f in RWKVState._fields])
+    return _kv_from(d, device)
+
+
 def kv_cache_from_numpy(cache: dict, device=None) -> dict:
     """A decode cache as numpy (``prefix`` list and ``blocks`` dict of
-    ``KVCache`` dicts, ``pos``) -> the port's cache.  The reference keeps
-    one length per scan group; the port's single host clock must equal all
-    of them."""
+    ``KVCache`` or ``RWKVState`` dicts, ``pos``) -> the port's cache.  The
+    reference keeps one length per scan group; the port's single host clock
+    must equal all of them."""
     return {
-        "prefix": [None if c is None else _kv_from(c, device) for c in cache["prefix"]],
-        "blocks": {n: _kv_from(c, device) for n, c in cache["blocks"].items()},
+        "prefix": [None if c is None else _entry_from(c, device) for c in cache["prefix"]],
+        "blocks": {n: _entry_from(c, device) for n, c in cache["blocks"].items()},
         "pos": int(np.asarray(cache["pos"])),
     }
 
@@ -91,7 +102,9 @@ def kv_cache_from_numpy(cache: dict, device=None) -> dict:
 def kv_cache_to_numpy(cache: dict) -> dict:
     """Inverse of :func:`kv_cache_from_numpy`."""
 
-    def one(c: KVCache) -> dict:
+    def one(c) -> dict:
+        if isinstance(c, RWKVState):
+            return {f: getattr(c, f).detach().cpu().numpy() for f in RWKVState._fields}
         d = {f: getattr(c, f).detach().cpu().numpy() for f in _KV_FIELDS}
         d["length"] = int(c.length)
         return d

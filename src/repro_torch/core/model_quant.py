@@ -1,6 +1,6 @@
 """Whole-model VersaQ quantization (the paper's offline pipeline, Fig. 6)
 — port of ``repro/core/model_quant.py``: ``quantize_vggt`` and, for
-attention-only dense LMs, ``quantize_lm``.
+dense GQA and RWKV-6 LMs, ``quantize_lm``.
 
 * The **residual stream is rotated once** (VGGT: H fused on the patch
   projection's output side, special tokens rotated; LM: E ← E·H on the
@@ -400,18 +400,20 @@ def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
     """Quantize an ``models/lm.py`` parameter tree with a uniform
     ``QuantPolicy``, a per-site ``PrecisionPlan`` or a compiled
     ``KernelSchedule``.  Returns a new tree; the forward code is unchanged
-    (dispatch happens on leaf types).  Attention-only dense stacks only:
-    the Mamba, RWKV, MLA and MoE branches of the reference raise."""
+    (dispatch happens on leaf types).  GQA/dense-FFN and rwkv layers; the
+    Mamba, MLA and MoE branches of the reference raise.  An rwkv stack
+    keeps an unrotated stream (its token shift and decay LoRA read the
+    stream in the clear), so every rwkv projection takes the online WHT."""
     if cfg.mla:
         raise NotImplementedError("quantize_lm: MLA is not ported yet (ROADMAP queue 1 item 7)")
     if cfg.moe:
         raise NotImplementedError("quantize_lm: MoE is not ported yet (ROADMAP queue 1 item 7)")
-    if any(k != "attn" for k in cfg.pattern):
+    if "mamba" in cfg.pattern:
         raise NotImplementedError(
-            f"quantize_lm: recurrent mixers are not ported yet (pattern {cfg.pattern}; "
+            f"quantize_lm: the Mamba mixer is not ported yet (pattern {cfg.pattern}; "
             "ROADMAP queue 1 item 9)")
     pol = _Resolver(policy)
-    rotated = pol.use_wht
+    rotated = pol.use_wht and "rwkv" not in cfg.pattern
     q = dict(params)
 
     # ---- stream entry: rotate the embedding / frontend output ----
@@ -430,12 +432,14 @@ def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
 
     # ---- prefix layers (not stacked) + scanned groups (stacked) ----
     q["prefix"] = [
-        _quantize_layer(cfg, lp, pol, rotated, stacked=False, pfx=f"prefix.{i}")
+        _quantize_layer(cfg, lp, cfg.pattern[i % len(cfg.pattern)], pol, rotated, stacked=False,
+                        pfx=f"prefix.{i}")
         for i, lp in enumerate(params["prefix"])
     ]
     blocks = dict(params["blocks"])
     for j in range(len(cfg.pattern)):
-        blocks[f"l{j}"] = _quantize_layer(cfg, params["blocks"][f"l{j}"], pol, rotated,
+        kind = cfg.pattern[(cfg.first_dense + j) % len(cfg.pattern)]
+        blocks[f"l{j}"] = _quantize_layer(cfg, params["blocks"][f"l{j}"], kind, pol, rotated,
                                           stacked=True, pfx=f"blocks.l{j}")
     q["blocks"] = blocks
 
@@ -457,12 +461,14 @@ def _prep_any(w, pol: _Resolver, site: str, stacked: bool, **kw):
     return _prepare_site(w, pol, pol.at(site), tiles=pol.tiles_at(site), site=site, **kw)
 
 
-def _quantize_layer(cfg: ModelConfig, lp: dict, pol: _Resolver, rotated: bool, *,
+def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, pol: _Resolver, rotated: bool, *,
                     stacked: bool, pfx: str) -> dict:
-    """One attention + dense-FFN layer (stacked over scan groups or not):
+    """One layer (stacked over scan groups or not).  Attention + dense FFN:
     the GQA sites with the per-head V/O Hadamard pair and the LayerScale
     fold, ``_fuse_qkv``; the dense FFN with the one online WHT before
-    ``w_down``, ``_fuse_ffn``."""
+    ``w_down``, ``_fuse_ffn``.  rwkv: ``_quantize_rwkv``."""
+    if kind == "rwkv":
+        return _quantize_rwkv(lp, pol, stacked=stacked, pfx=pfx)
     out = dict(lp)
     mn: Norm = lp["mixer_norm"]
     fnm: Norm = lp["ffn_norm"]
@@ -506,4 +512,23 @@ def _quantize_layer(cfg: ModelConfig, lp: dict, pol: _Resolver, rotated: bool, *
                       decision=pol.fuse_decision(f"{pfx}.ffn"))
     out["ffn"] = f
     out.pop("ls2", None)
+    return out
+
+
+def _quantize_rwkv(lp: dict, pol: _Resolver, *, stacked: bool, pfx: str) -> dict:
+    """One rwkv layer: the time-mix ``wr/wk/wv/wg/wo`` and the channel-mix
+    ``w_up/w_down``, each with the online WHT on its input; the lerp
+    factors, the decay LoRA, the bonus, ``ln_x`` and both pre-norms stay
+    full precision."""
+    out = dict(lp)
+    mx = dict(lp["mixer"])
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        mx[name] = _prep_any(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", stacked,
+                             rotate_input_online=True)
+    out["mixer"] = mx
+    f = dict(lp["ffn"])
+    for name in ("w_up", "w_down"):
+        f[name] = _prep_any(lp["ffn"][name]["w"], pol, f"{pfx}.ffn.{name}", stacked,
+                            rotate_input_online=True)
+    out["ffn"] = f
     return out

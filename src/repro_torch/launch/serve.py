@@ -6,6 +6,9 @@ VGGT scenes through ``VGGTEngine``, LM prompts through the LM ``Engine``.
       --tiers quality=fp,balanced=w4a8 --requests 4 --prompt-len 512 \\
       --gen 32 --batch 2
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --tiers fp=fp,w4a8=w4a8 --requests 6 --prompt-len 256 --gen 32 --batch 4
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
       --tiers quality=fp,balanced=w4a8,planned=plan:fused,fast=w4a8:fused \\
       --attn-impl two_stage --requests 8 --scenes 1 --frames 8 --patches 1024 \\
@@ -27,10 +30,12 @@ fuse.  ``--schedule`` serves one compiled schedule (its launch tiles, its
 hash in the bucket keys) and conflicts with ``--tiers``.
 
 The LM branch serves ``mixed_len_prompts`` traffic (full and 3/4-length
-prompts, so the masked length-padded buckets serve too) with
-``max_len = --prompt-len + --gen``.  Its engine runs bucket mode only
-(``--mode auto`` resolves to it; the continuous scheduler is not ported),
-and it takes no ``--schedule`` yet.
+prompts, so the masked length-padded buckets serve too; rwkv serves each
+at its exact length) with ``max_len = --prompt-len + --gen``.  ``--mode``
+picks the scheduler: ``continuous`` (slot-batched: requests join the
+running decode batch), ``bucket`` (drain-then-refill) or ``auto`` (the
+default: continuous wherever the config supports it, which every ported
+LM does).  It takes no ``--schedule`` yet.
 
 The launcher runs on the CUDA device; ``--device cpu`` runs it on the
 CPU (each kernel wrapper then takes its plain PyTorch version).  Without
@@ -235,7 +240,8 @@ def serve_lm(cfg, args) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vggt-1b-smoke",
-                    help="a ported config: vggt-1b, vggt-1b-smoke, qwen3-14b, qwen3-14b-smoke")
+                    help="a ported config: vggt-1b, vggt-1b-smoke, qwen3-14b, qwen3-14b-smoke, "
+                         "rwkv6-1.6b, rwkv6-1.6b-smoke")
     ap.add_argument("--device", default="cuda",
                     help="where to serve (default: the CUDA device; no fallback)")
     ap.add_argument("--policy", default="w4a8",
@@ -256,8 +262,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--mode", default="auto",
-                    help="LM scheduler: auto | bucket (drain-then-refill); auto resolves to "
-                         "bucket until the continuous scheduler is ported")
+                    help="LM scheduler: auto | continuous (slot-based continuous batching) | "
+                         "bucket (drain-then-refill)")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="per-request SLA: evict (fail) requests not served within this "
                          "many seconds")

@@ -1,5 +1,5 @@
 """Config-driven LM composition: init / forward / prefill / decode (port of
-``repro/models/lm.py``, attention-only dense stacks).
+``repro/models/lm.py``: dense GQA stacks and RWKV-6 stacks).
 
 The reference groups the layer stack by the config's ``pattern`` period
 and scans the groups with ``jax.lax.scan``; here the scan is a Python loop
@@ -9,11 +9,13 @@ non-uniform first layers as the list ``params["prefix"]``.
 
 The same forward runs full precision (plain dict leaves) and
 VersaQ-quantized (``QuantLinear``/``FoldedNorm`` leaves, see
-``core/model_quant.py::quantize_lm``).  Mamba, RWKV, MLA and MoE layers
-raise ``NotImplementedError``.
+``core/model_quant.py::quantize_lm``).  Mamba, MLA and MoE layers raise
+``NotImplementedError``.
 
 The decode cache's ``pos`` and every ``KVCache.length`` are host ints: all
 rows of a served batch share one decode clock (see ``models/attention.py``).
+An rwkv pattern position holds an ``RWKVState`` instead; like the KV cache
+it is written in place, and it has no time axis.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
 from repro_torch.tree import tree_index, tree_stack
 
 __all__ = [
@@ -42,8 +45,8 @@ __all__ = [
 
 # what each unported layer kind waits for (ROADMAP.md, queue 1)
 _UNPORTED = {
-    "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9)",
-    "rwkv": "the RWKV mixer is not ported yet (ROADMAP queue 1 item 9)",
+    "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9; it comes with "
+             "jamba, after MoE)",
     "mla": "MLA attention is not ported yet (ROADMAP queue 1 item 7)",
     "moe": "the MoE FFN is not ported yet (ROADMAP queue 1 item 7)",
 }
@@ -78,7 +81,7 @@ def mixer_kind(cfg: ModelConfig, global_idx: int) -> str:
 
 def _check_ported(cfg: ModelConfig) -> None:
     for kind in set(cfg.pattern):
-        if kind != "attn":
+        if kind not in ("attn", "rwkv"):
             _unported(kind)
     if cfg.mla:
         _unported("mla")
@@ -91,14 +94,23 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(generator: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+def _init_layer(generator: torch.Generator, cfg: ModelConfig, global_idx: int, dtype,
+                device) -> dict:
     kw = dict(dtype=dtype, device=device)
-    p: dict[str, Any] = {
-        "mixer_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
-        "mixer": A.init_gqa(generator, cfg, **kw),
-        "ffn_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
-        "ffn": F.init_dense_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act, **kw),
-    }
+    if mixer_kind(cfg, global_idx) == "rwkv":
+        p: dict[str, Any] = {
+            "mixer_norm": L.init_norm(cfg.d_model, kind="ln", bias=True, **kw),
+            "mixer": R.init_rwkv_time(generator, cfg, **kw),
+            "ffn_norm": L.init_norm(cfg.d_model, kind="ln", bias=True, **kw),
+            "ffn": R.init_rwkv_channel(generator, cfg, **kw),
+        }
+    else:
+        p = {
+            "mixer_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
+            "mixer": A.init_gqa(generator, cfg, **kw),
+            "ffn_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
+            "ffn": F.init_dense_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act, **kw),
+        }
     if cfg.layerscale:
         p["ls1"] = torch.full((cfg.d_model,), cfg.layerscale_init, **kw)
         p["ls2"] = torch.full((cfg.d_model,), cfg.layerscale_init, **kw)
@@ -119,9 +131,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float3
     if cfg.embed_inputs:
         params["in_proj"] = L.init_linear(generator, cfg.d_model, cfg.d_model, dtype=dtype,
                                           device=dev)
-    params["prefix"] = [_init_layer(generator, cfg, dtype, dev) for _ in range(cfg.first_dense)]
-    groups = [{f"l{j}": _init_layer(generator, cfg, dtype, dev) for j in range(len(cfg.pattern))}
-              for _ in range(n_scan_groups(cfg))]
+    params["prefix"] = [_init_layer(generator, cfg, i, dtype, dev) for i in range(cfg.first_dense)]
+    period = len(cfg.pattern)
+    groups = [{f"l{j}": _init_layer(generator, cfg, cfg.first_dense + g * period + j, dtype, dev)
+               for j in range(period)}
+              for g in range(n_scan_groups(cfg))]
     params["blocks"] = tree_stack(groups)
     params["final_norm"] = L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias,
                                        dtype=dtype, device=dev)
@@ -138,17 +152,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float3
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype=torch.int8,
                device=None) -> dict:
-    """Decode cache matching the prefix/blocks structure: a stacked
-    ``KVCache`` [G, B, max_len, Hkv, dh] per pattern position, one
-    [B, max_len, Hkv, dh] cache per prefix layer, and ``pos`` 0."""
+    """Decode cache matching the prefix/blocks structure: per pattern
+    position a stacked ``KVCache`` [G, B, max_len, Hkv, dh] (attention) or
+    ``RWKVState`` [G, B, ...] (rwkv); per prefix layer an unstacked
+    [B, max_len, Hkv, dh] cache (None for a recurrent one, as in the
+    reference); and ``pos`` 0."""
     _check_ported(cfg)
     groups = n_scan_groups(cfg)
-    blocks = {f"l{j}": A.init_kv_cache(cfg, batch, max_len, groups, kv_dtype, device)
-              for j in range(len(cfg.pattern))}
+    blocks: dict[str, Any] = {}
+    for j, kind in enumerate(cfg.pattern):
+        if kind == "attn":
+            blocks[f"l{j}"] = A.init_kv_cache(cfg, batch, max_len, groups, kv_dtype, device)
+        else:
+            blocks[f"l{j}"] = R.init_rwkv_state(cfg, batch, groups, device)
     prefix = []
-    for _ in range(cfg.first_dense):
-        c = A.init_kv_cache(cfg, batch, max_len, 1, kv_dtype, device)
-        prefix.append(A.KVCache(c.k[0], c.v[0], c.k_scale[0], c.v_scale[0], c.length))
+    for i in range(cfg.first_dense):
+        if mixer_kind(cfg, i) == "attn":
+            c = A.init_kv_cache(cfg, batch, max_len, 1, kv_dtype, device)
+            prefix.append(A.KVCache(c.k[0], c.v[0], c.k_scale[0], c.v_scale[0], c.length))
+        else:
+            prefix.append(None)
     return {"prefix": prefix, "blocks": blocks, "pos": 0}
 
 
@@ -160,7 +183,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype=torch.int8,
 # shrinks the slot axis (cache_resize), installs freshly prefilled rows into
 # free slots (cache_install_rows), and keeps every layer's write position on
 # the shared decode clock (cache_set_clock).  All three are pure index
-# surgery; they return new tensors and leave their inputs untouched.
+# surgery.  cache_resize returns new tensors; cache_install_rows writes into
+# its destination, as the forward writes the cache (the scheduler owns its
+# cache, so a copy of it per admission would buy nothing); cache_set_clock
+# changes host ints only.  Recurrent states have no time axis: they resize
+# and install on their batch axis 1 and never roll.
 # ---------------------------------------------------------------------------
 
 
@@ -170,10 +197,19 @@ def _kv_batch_axis(c: A.KVCache) -> int:
     return c.k.ndim - 4
 
 
-def _on_kv(c: A.KVCache, fn) -> A.KVCache:
-    ax = _kv_batch_axis(c)
-    return c._replace(k=fn(c.k, ax), v=fn(c.v, ax), k_scale=fn(c.k_scale, ax),
-                      v_scale=fn(c.v_scale, ax))
+_KV_FIELDS = ("k", "v", "k_scale", "v_scale")
+
+
+def _cache_map(cache: dict, on_kv, on_state) -> dict:
+    """Rebuild a decode cache applying ``on_kv(entry, axis)`` to ``KVCache``
+    entries and ``on_state(entry)`` to recurrent states; ``pos`` is kept."""
+    blocks = {
+        n: on_kv(e, _kv_batch_axis(e)) if isinstance(e, A.KVCache) else on_state(e)
+        for n, e in cache["blocks"].items()
+    }
+    prefix = [on_kv(e, _kv_batch_axis(e)) if isinstance(e, A.KVCache) else e
+              for e in cache["prefix"]]
+    return {"prefix": prefix, "blocks": blocks, "pos": cache["pos"]}
 
 
 def cache_resize(cfg: ModelConfig, cache: dict, new_batch: int) -> dict:
@@ -191,11 +227,11 @@ def cache_resize(cfg: ModelConfig, cache: dict, new_batch: int) -> dict:
             return torch.cat([x, x.new_zeros(shape)], dim=axis)
         return x.narrow(axis, 0, new_batch).clone()
 
-    return {
-        "prefix": [_on_kv(c, resize) for c in cache["prefix"]],
-        "blocks": {n: _on_kv(c, resize) for n, c in cache["blocks"].items()},
-        "pos": cache["pos"],
-    }
+    def on_kv(e, ax):
+        return e._replace(**{f: resize(getattr(e, f), ax) for f in _KV_FIELDS})
+
+    # recurrent states ([G, B, ...] leaves) resize on axis 1
+    return _cache_map(cache, on_kv, lambda e: type(e)(*(resize(x, 1) for x in e)))
 
 
 def cache_install_rows(
@@ -208,34 +244,42 @@ def cache_install_rows(
     shift: int = 0,
 ) -> dict:
     """Copy prefilled cache rows ``src_rows`` of ``src`` into slots
-    ``dst_rows`` of ``dst``.
+    ``dst_rows`` of ``dst``, in place; returns ``dst``'s tensors in a new
+    cache dict.
 
-    ``shift`` right-rolls the KV time axis first (``attention.roll_kv``)
-    so a prompt prefilled at bucket width L aligns with a running decode
-    clock T = L + shift: its last real token lands at slot T-1 and the
-    rolled-in garbage sits below the row's (grown) left pad, which the
-    pad_lens mask already excludes."""
+    ``shift`` right-rolls the KV time axis of the copied rows first
+    (``attention.roll_kv``) so a prompt prefilled at bucket width L aligns
+    with a running decode clock T = L + shift: its last real token lands
+    at slot T-1 and the rolled-in garbage sits below the row's (grown) left
+    pad, which the pad_lens mask already excludes.  Recurrent states have
+    no time axis and copy rows directly."""
 
-    def install(d: A.KVCache, s: A.KVCache) -> A.KVCache:
-        if shift:
-            s = A.roll_kv(s, shift)
-        ax = _kv_batch_axis(d)
+    def put(d, s, axis, roll=0):
+        d_idx = torch.as_tensor(dst_rows, dtype=torch.long, device=d.device)
+        s_idx = torch.as_tensor(src_rows, dtype=torch.long, device=s.device)
+        rows = s.index_select(axis, s_idx)
+        if roll:  # the time axis is third from the end in every KV layout
+            rows = torch.roll(rows, roll, dims=rows.ndim - 3)
+        return d.index_copy_(axis, d_idx, rows.to(d.device))
 
-        def put(dx, sx):
-            out = dx.clone()
-            d_idx = torch.as_tensor(dst_rows, dtype=torch.long, device=dx.device)
-            s_idx = torch.as_tensor(src_rows, dtype=torch.long, device=sx.device)
-            out.index_copy_(ax, d_idx, sx.index_select(ax, s_idx))
-            return out
+    def on_kv(pair, ax):
+        d, s = pair
+        return d._replace(**{f: put(getattr(d, f), getattr(s, f), ax, shift)
+                             for f in _KV_FIELDS})
 
-        return d._replace(k=put(d.k, s.k), v=put(d.v, s.v), k_scale=put(d.k_scale, s.k_scale),
-                          v_scale=put(d.v_scale, s.v_scale))
+    def on_state(pair):
+        d, s = pair
+        return type(d)(*(put(dx, sx, 1) for dx, sx in zip(d, s)))
 
-    return {
-        "prefix": [install(d, s) for d, s in zip(dst["prefix"], src["prefix"])],
-        "blocks": {n: install(d, src["blocks"][n]) for n, d in dst["blocks"].items()},
-        "pos": dst["pos"],
+    paired = {
+        "prefix": [(d, s) for d, s in zip(dst["prefix"], src["prefix"])],
+        "blocks": {n: (e, src["blocks"][n]) for n, e in dst["blocks"].items()},
     }
+    blocks = {n: on_kv(pair, _kv_batch_axis(pair[0])) if isinstance(pair[0], A.KVCache)
+              else on_state(pair) for n, pair in paired["blocks"].items()}
+    prefix = [on_kv(pair, _kv_batch_axis(pair[0])) if isinstance(pair[0], A.KVCache)
+              else pair[0] for pair in paired["prefix"]]
+    return {"prefix": prefix, "blocks": blocks, "pos": dst["pos"]}
 
 
 def cache_set_clock(cfg: ModelConfig, cache: dict, clock: int) -> dict:
@@ -243,11 +287,9 @@ def cache_set_clock(cfg: ModelConfig, cache: dict, clock: int) -> dict:
     Continuous batching keeps all slots on one physical clock; per-slot
     logical lengths live in the scheduler's ``pad_lens``."""
     clock = int(clock)
-    return {
-        "prefix": [c._replace(length=clock) for c in cache["prefix"]],
-        "blocks": {n: c._replace(length=clock) for n, c in cache["blocks"].items()},
-        "pos": clock,
-    }
+    out = _cache_map(cache, lambda e, ax: e._replace(length=clock), lambda e: e)
+    out["pos"] = clock
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -255,20 +297,33 @@ def cache_set_clock(cfg: ModelConfig, cache: dict, clock: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *, positions, cache=None,
-                 mode: str = "full", pad_lens=None):
-    """One attention + dense-FFN layer (the only kinds ported)."""
+def _apply_layer(cfg: ModelConfig, lp: dict, kind: str, x: torch.Tensor, *, positions,
+                 cache=None, mode: str = "full", pad_lens=None):
+    """One layer: an attention mixer and a dense FFN, or an rwkv time-mix
+    and channel-mix.  Returns (x, the new cache entry): the KV cache written
+    in place, or a new ``RWKVState`` (None without a cache)."""
     # fused sites absorb their pre-norm (unified-datapath prologue): pass
     # the raw residual stream and let the kernel run the norm statistics
     h = x if F.carries_norm(lp["mixer"]) else L.norm(lp["mixer_norm"], x)
-    out, kv_new = A.gqa_attention(lp["mixer"], cfg, h, causal=True, positions=positions,
-                                  cache=cache, mode=mode, pad_lens=pad_lens)
-    new_cache = kv_new if cache is not None else None
+    new_cache = None
+    if kind == "rwkv":
+        out, wkv, tshift = R.rwkv_time_mix(lp["mixer"], cfg, h, state=cache, mode=mode)
+    else:
+        out, kv_new = A.gqa_attention(lp["mixer"], cfg, h, causal=True, positions=positions,
+                                      cache=cache, mode=mode, pad_lens=pad_lens)
+        new_cache = kv_new if cache is not None else None
     if "ls1" in lp:
         out = out * lp["ls1"].to(out.dtype)
     x = x + out
     h = x if F.carries_norm(lp["ffn"]) else L.norm(lp["ffn_norm"], x)
-    out = F.dense_ffn(lp["ffn"], cfg.act, h)
+    if kind == "rwkv":
+        out, cshift = R.rwkv_channel_mix(lp["ffn"], cfg, h,
+                                         prev=cache.cshift if cache is not None else None)
+        if cache is not None:
+            new_cache = R.RWKVState(tshift=tshift.to(torch.float32),
+                                    cshift=cshift.to(torch.float32), wkv=wkv)
+    else:
+        out = F.dense_ffn(lp["ffn"], cfg.act, h)
     if "ls2" in lp:
         out = out * lp["ls2"].to(out.dtype)
     return x + out, new_cache
@@ -307,11 +362,15 @@ def forward(
     prompt-length buckets pad prompts on the left so the last real token
     always sits in the last slot.  Per-row RoPE positions shift back by the
     pad and pad key slots are masked out of every attention softmax, so
-    real-token outputs match the unpadded forward.  With ``cache`` the
-    cache is written in place (``models/attention.py``) and returned with
-    its clock advanced.  Returns (logits [B, L, V], new_cache).
+    real-token outputs match the unpadded forward (attention-only patterns:
+    a recurrent mixer would carry the pad tokens through its state).  With
+    ``cache`` the cache is written in place (``models/attention.py``; rwkv
+    states too) and returned with its clock advanced.  Returns
+    (logits [B, L, V], new_cache).
     """
     _check_ported(cfg)
+    if pad_lens is not None and any(k != "attn" for k in cfg.pattern):
+        raise ValueError(f"pad_lens needs an attention-only layer pattern, got {cfg.pattern}")
     pos0 = int(cache["pos"]) if cache is not None else 0
     lq = inputs.shape[1]
     slots = (pos0 + torch.arange(lq, device=inputs.device))[None, :]
@@ -325,8 +384,8 @@ def forward(
     new_prefix = []
     for i, lp in enumerate(params["prefix"]):
         c = cache["prefix"][i] if cache is not None else None
-        x, c2 = _apply_layer(cfg, lp, x, positions=positions, cache=c, mode=mode,
-                             pad_lens=pad_lens)
+        x, c2 = _apply_layer(cfg, lp, mixer_kind(cfg, i), x, positions=positions, cache=c,
+                             mode=mode, pad_lens=pad_lens)
         new_prefix.append(c2)
 
     period = len(cfg.pattern)
@@ -334,16 +393,25 @@ def forward(
     for g in range(n_scan_groups(cfg)):  # the reference's lax.scan over groups
         gp = tree_index(params["blocks"], g)
         for j in range(period):
-            name = f"l{j}"
-            c = None
+            name, kind = f"l{j}", cfg.pattern[j]
+            c = full = None
             if cache is not None:
                 full = cache["blocks"][name]
-                c = A.KVCache(full.k[g], full.v[g], full.k_scale[g], full.v_scale[g],
-                              full.length)
-            x, c2 = _apply_layer(cfg, gp[name], x, positions=positions, cache=c, mode=mode,
-                                 pad_lens=pad_lens)
-            if c2 is not None:  # the group's view was written in place
-                new_blocks[name] = cache["blocks"][name]._replace(length=c2.length)
+                if kind == "rwkv":
+                    c = R.RWKVState(full.tshift[g], full.cshift[g], full.wkv[g])
+                else:
+                    c = A.KVCache(full.k[g], full.v[g], full.k_scale[g], full.v_scale[g],
+                                  full.length)
+            x, c2 = _apply_layer(cfg, gp[name], kind, x, positions=positions, cache=c,
+                                 mode=mode, pad_lens=pad_lens)
+            if c2 is None:
+                continue
+            if kind == "rwkv":  # write the group's state in place
+                for view, new in zip(c, c2):
+                    view.copy_(new)
+                new_blocks[name] = full
+            else:  # the group's view was written in place
+                new_blocks[name] = full._replace(length=c2.length)
 
     x = L.norm(params["final_norm"], x)
     if cfg.tie_embeddings:

@@ -1,5 +1,5 @@
-"""LM serving engine, bucket mode (port of ``repro/serving/engine.py``
-without its continuous scheduler).
+"""LM serving engine: continuous slot-batched decode, with a bucket-at-a-time
+mode beside it (port of ``repro/serving/engine.py``).
 
 * **PrefillRunner** — one coalesced prompt wave per call: LEFT-padded to
   a prompt bucket, batch padded up to a batch bucket, per
@@ -7,37 +7,65 @@ without its continuous scheduler).
   token in the last slot so one ``logits[:, -1]`` read works for every
   row; per-row RoPE positions and the attention length mask
   (``lm.forward(pad_lens=...)``) make real-token outputs match the
-  unpadded forward.
-* **Bucket-at-a-time decode** — the prefilled group then decodes to
-  completion before anything else is served (``Engine._execute``), one
-  ``lm.decode_step`` per token on a cache of ``max_len`` slots.  The
-  decode clock is a host int (``models/attention.py``), so a decode burst
-  reads nothing back from the device until its last step.
+  unpadded forward.  Recurrent patterns (rwkv) would carry pad tokens
+  through their state, so they prefill at the exact prompt length.
+* **DecodeRunner** — slot-batched continuous decode.  The decode cache's
+  batch rows are *slots* with a free list: finished requests release their
+  slots and newly admitted prompts join the *running* batch.  All slots
+  share one decode clock T (a host int); a prompt prefilled at bucket
+  width L joins at clock T by right-rolling its cache rows ``T - L`` slots
+  (``lm.cache_install_rows(shift=T-L)``, written into the runner's own
+  cache in place) so its last real token lands at slot T-1 and the roll garbage
+  sits under the row's grown left pad, which the ``pad_lens`` mask already
+  excludes.  Inactive slots carry the pad ``max_len + 1``, which masks
+  every key.  The width grows along ``batch_buckets`` and resets when the
+  runner drains idle.  A decode burst of N steps keeps its tokens,
+  finiteness flags and sampling counters on the device and reads them back
+  once, after the burst.  **StateDecodeRunner** serves position-free
+  recurrent stacks (rwkv with ``pos="none"``): states have no time axis,
+  rows install directly and any prompt length joins at any time.
+* **Scheduler** — admission: priority first, then earliest deadline, then
+  FIFO; a ``(tier, prompt bucket)`` wave is due when it fills
+  ``max_batch`` rows, waits past ``max_wait_s``, carries a deadline, or its
+  tier's runner is mid-decode; requests past their deadline are evicted,
+  queued or mid-decode, with ``DeadlineExceeded``.
+* **Bucket mode** (``mode="bucket"``, and ``mode="auto"`` for patterns the
+  continuous scheduler cannot serve, e.g. attention mixed with rwkv): the
+  prefilled group decodes to completion before anything else is served
+  (``Engine._execute``).
 * **Precision tiers** — ``tiers={"quality": None, "balanced": plan}``:
-  one engine, several precisions; tier is part of every bucket identity
-  and each tier's tree is quantized lazily on first use.  A uniform
-  ``w4a8`` plan with ``use_kernel=True`` runs every projection of prefill
-  and decode on the ``quant_matmul`` kernel.  The served prefill and decode
-  take the masked vanilla attention over the int8 cache, as in the
-  reference; only ``lm.forward(mode="full")`` reaches the two-stage kernel.
+  one engine, several precisions; tier is part of every bucket identity,
+  each tier has its own decode runner, and each tier's tree is quantized
+  lazily on first use.  A uniform ``w4a8`` plan with ``use_kernel=True``
+  runs every projection of prefill and decode on the ``quant_matmul``
+  kernel.  The served prefill and decode take the masked vanilla attention
+  over the int8 cache, as in the reference; only
+  ``lm.forward(mode="full")`` reaches the two-stage kernel.
+* **Sampling** — per request, from an explicit ``torch.Generator``: in
+  continuous mode ``enqueue(..., generator=g)`` draws one seed per row at
+  enqueue, and the decode step samples on the device by Gumbel-max over a
+  counter-based hash of (row seed, row step, vocabulary id)
+  (:func:`sample_rows`), so a row draws the same tokens wherever its
+  neighbours sit and no step reads anything back.  (The reference carries
+  ``fold_in(key, row)`` streams; JAX keys cannot be reproduced in torch, so
+  the port keeps the property, not the bits.)  Bucket mode samples the
+  whole group from one generator with ``torch.multinomial``.
 * **Robustness** — bounded admission (reject or shed), the degradation
   ladder over the tiers, seeded fault injection (``faults=``: the
   ``prefill.logits`` and ``decode.logits`` nan/inf sites, the ``prefill``
-  and ``decode`` latency sites, the ``poll`` site), and the numeric
-  quarantine: a request whose logits go non-finite fails alone with
-  ``NumericFault``; co-batched requests are delivered.
+  and ``decode`` latency sites, the ``poll`` site and, in continuous
+  mode, ``slot_alloc``), and the numeric quarantine: a request whose
+  logits go non-finite fails alone with ``NumericFault`` (in continuous
+  mode it is first re-queued once at ``numeric_retry_tier``, when set);
+  co-batched requests are delivered.
 
-Not ported yet (ROADMAP.md, queue 1): the continuous slot scheduler
-(``DecodeRunner``, ``StateDecodeRunner``, ``Scheduler``).  ``mode="auto"``,
-which the reference resolves to the continuous scheduler for
-attention-only patterns, resolves to ``"bucket"`` here and says so in the
-stats; ``mode="continuous"`` raises.  ``schedule=`` (a compiled kernel
-schedule) waits for the compiler's LM lowering.
-
-``compiles`` in the stats counts the first use of each ``(bucket,
-masked)``, as in the port's ``VGGTEngine``: eager PyTorch compiles
-nothing.  Results are numpy int32 ids, as in the reference.  The engine
-runs on the CUDA device unless ``device`` says otherwise.
+``schedule=`` (a compiled kernel schedule) waits for the compiler's LM
+lowering.  ``compiles`` in the stats counts the first use of each
+``(bucket, variant)`` — masked or unmasked prefill, greedy or sampled and
+plain or fault-armed decode step — as in the port's ``VGGTEngine``: eager
+PyTorch compiles nothing.  Results are numpy int32 ids, as in the
+reference.  The engine runs on the CUDA device unless ``device`` says
+otherwise.
 """
 from __future__ import annotations
 
@@ -53,7 +81,13 @@ from repro_torch.core.model_quant import quantize_lm
 from repro_torch.models import lm
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import batching, faults as faults_mod
-from repro_torch.serving.batching import NumericFault, QueueFull, next_pow2, pick_bucket
+from repro_torch.serving.batching import (
+    DeadlineExceeded,
+    NumericFault,
+    QueueFull,
+    next_pow2,
+    pick_bucket,
+)
 from repro_torch.tree import to_device
 
 __all__ = [
@@ -63,15 +97,16 @@ __all__ = [
     "LMRequest",
     "PrefillRunner",
     "PrefillResult",
+    "DecodeRunner",
+    "StateDecodeRunner",
+    "Scheduler",
     "Engine",
+    "gumbel_rows",
+    "sample_rows",
 ]
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8)
 MIN_PROMPT_BUCKET = 8
-CONTINUOUS_GAP = (
-    "the continuous scheduler (DecodeRunner, Scheduler) is not ported yet "
-    "(ROADMAP.md, queue 1 item 8)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +145,7 @@ class LMServeStats(batching.ServeStats):
     prompt tokens; decode buckets count per-step calls and *decode* tokens
     — ``batch x (n_steps - 1)``, because the first generated token comes
     out of prefill.  ``mode`` records the scheduler actually serving (with
-    why, when ``mode="auto"`` resolved to it)."""
+    why, when ``mode="auto"`` resolved to bucket mode)."""
 
     unit = "seqs"
     kind = "lm"
@@ -146,7 +181,8 @@ class LMServeStats(batching.ServeStats):
         return {**super().summary(), "mode": self.mode}
 
     def format(self) -> str:
-        return f"scheduler: {self.mode}\n" + super().format()
+        counters = ", ".join(f"{k}={v}" for k, v in self.scheduler.summary().items())
+        return f"scheduler: {self.mode} ({counters})\n" + super().format()
 
 
 @dataclasses.dataclass
@@ -160,6 +196,12 @@ class LMRequest(batching.PendingRequest):
     squeeze: bool = False  # enqueued as a single [l] prompt
     tier: str = "default"  # precision tier (engine ``tiers`` key)
     L: int = 0  # bucketed prompt length (admission group key)
+    seeds: Optional[np.ndarray] = None  # [b] int64 per-row sampling seeds; None = greedy
+    retries: int = 0  # numeric-quarantine retries consumed
+
+    @property
+    def greedy(self) -> bool:
+        return self.seeds is None
 
 
 @dataclasses.dataclass
@@ -252,13 +294,611 @@ class PrefillRunner:
 
 
 # ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply rounds) of int64 tensors
+    holding values in [0, 2^32).  The multipliers are under 2^31, so no
+    product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def gumbel_rows(seeds: torch.Tensor, steps: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, vocab] f32 Gumbel noise ``-log(-log(u))``, with uniforms from a
+    counter-based hash of (``seeds[b]``, ``steps[b]``, vocabulary id):
+    ``seeds``/``steps`` are [B] int64, on the device the noise is made on."""
+    row = _mix32((seeds & _M32) ^ _mix32(steps & _M32))[:, None]
+    vid = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    h = _mix32(_mix32(row ^ vid) ^ row)
+    u = ((h >> 8).to(torch.float32) + 0.5) * 2.0**-24  # in (0, 1), 24 bits
+    return -torch.log(-torch.log(u))
+
+
+def sample_rows(logits: torch.Tensor, seeds: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """One token per row from ``softmax(logits)`` [B, V] by Gumbel-max over
+    :func:`gumbel_rows`: a row's draw at its step depends on nothing else,
+    so it is the same wherever the row sits in a batch, and nothing is read
+    back.  ``seeds``/``steps``: [B] int64 on the logits' device."""
+    g = gumbel_rows(seeds, steps, logits.shape[-1])
+    return torch.argmax(logits.to(torch.float32) + g, dim=-1)
+
+
+def _draw_seeds(generator: torch.Generator, rows: int) -> np.ndarray:
+    """One 32-bit sampling seed per prompt row, drawn from ``generator``."""
+    return torch.randint(0, 2**32, (rows,), generator=generator, device=generator.device,
+                         dtype=torch.int64).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# continuous decode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Active:
+    """One request occupying decode slots from admission to completion."""
+
+    req: LMRequest
+    rows: list[int]  # slot ids, one per prompt row
+    tok0: np.ndarray  # [b] first generated token (from prefill)
+    remaining: int  # decode steps still to run (n_steps - 1 at admission)
+    start_step: int  # runner.global_step at admission
+
+
+class DecodeRunner:
+    """Slot-batched continuous decode for attention-pattern configs.
+
+    The runner owns one decode cache whose batch rows are request slots: a
+    free list hands finished requests' slots to new admissions, the width
+    grows along the ``batch_buckets`` ladder as occupancy demands (and
+    resets when the runner drains idle), and every step runs one token for
+    *all* slots — inactive slots carry a fully masking pad (``max_len + 1``)
+    so their garbage never reaches a real row (nothing in the step reduces
+    across rows).  All slots share one clock; per-slot logical positions
+    live in ``pads`` (see the module docstring for the roll-install
+    alignment argument).
+
+    Per-slot host vectors (numpy) are sent to the device once a burst;
+    ``step_log`` holds each global step's [width] tokens on the host, read
+    back once a burst."""
+
+    def __init__(self, eng: "Engine", tier: str):
+        self.eng = eng
+        self.tier = tier
+        self.capacity = eng.batch_buckets[-1]
+        self.width = 0  # slot width (0 = idle, no cache)
+        self.cache: Optional[dict] = None
+        self.clock = 0  # shared physical decode position
+        self.active: list[_Active] = []
+        self.slot_req: list[Optional[_Active]] = []
+        self._reset_vectors()
+        self.log_base = 0  # global step of step_log[0]
+        self.global_step = 0
+
+    def _reset_vectors(self) -> None:
+        self.pads = np.zeros((0,), np.int64)
+        self.tok = np.zeros((0,), np.int64)
+        self.seeds = np.zeros((0,), np.int64)  # per-slot sampling seed
+        self.ctr = np.zeros((0,), np.int64)  # per-slot sampling step of the next draw
+        self.greedy = np.ones((0,), bool)
+        self.step_log: list[np.ndarray] = []  # per global step: [width] tokens
+
+    # -- config hooks the state-cache variant overrides -----------------
+
+    @property
+    def inactive_pad(self) -> int:
+        return self.eng.max_len + 1  # masks every key slot
+
+    def joinable(self, req: LMRequest, L: int) -> bool:
+        """A prompt can join a *running* batch iff its bucketed length fits
+        under the shared clock (the clock grows one slot per step, so longer
+        prompts become joinable later) and its generation still fits the
+        cache from the current clock."""
+        if not self.width:
+            return True
+        return L <= self.clock and self.clock + req.n_steps - 1 <= self.eng.max_len
+
+    def _install_shift(self, L: int) -> int:
+        return self.clock - L
+
+    def _on_first_wave(self, L: int) -> None:
+        self.clock = L
+        self.cache = lm.cache_set_clock(self.eng.cfg, self.cache, L)
+
+    def _slot_pad(self, prefill_pad: int, shift: int) -> int:
+        return prefill_pad + shift
+
+    # -- slot bookkeeping ------------------------------------------------
+
+    @property
+    def active_rows(self) -> int:
+        return sum(len(a.rows) for a in self.active)
+
+    def _free_rows(self) -> int:
+        free = sum(1 for a in self.slot_req if a is None)
+        return free + max(0, self.capacity - self.width)
+
+    def _grow(self, new_width: int) -> None:
+        eng = self.eng
+        if self.cache is None:
+            self.cache = lm.init_cache(eng.cfg, new_width, eng.max_len, device=eng.device)
+        else:
+            self.cache = lm.cache_resize(eng.cfg, self.cache, new_width)
+        extra = new_width - self.width
+        self.slot_req += [None] * extra
+        self.pads = np.concatenate([self.pads, np.full((extra,), self.inactive_pad, np.int64)])
+        self.tok = np.concatenate([self.tok, np.zeros((extra,), np.int64)])
+        self.seeds = np.concatenate([self.seeds, np.zeros((extra,), np.int64)])
+        self.ctr = np.concatenate([self.ctr, np.zeros((extra,), np.int64)])
+        self.greedy = np.concatenate([self.greedy, np.ones((extra,), bool)])
+        # step-log entries are [old_width]; completed columns of surviving
+        # requests must stay readable after growth
+        self.step_log = [np.pad(t, (0, extra)) for t in self.step_log]
+        self.width = new_width
+
+    def _reset_idle(self) -> None:
+        self.width = 0
+        self.cache = None
+        self.clock = 0
+        self.slot_req = []
+        self._reset_vectors()
+        self.log_base = self.global_step
+
+    # -- admission -------------------------------------------------------
+
+    def admit(self, reqs: list[LMRequest], L: int) -> list[LMRequest]:
+        """Admit as many of the wave's requests as fit (free slots plus
+        ladder growth room; an oversize wave is allowed onto an idle
+        runner, as the bucket engine runs an oversize group alone).
+        Returns the admitted requests, already prefilled and — for
+        multi-step requests — installed into decode slots."""
+        eng = self.eng
+        was_running = self.active_rows > 0
+        budget = self._free_rows()
+        take, rows = [], 0
+        for r in reqs:
+            b = r.prompts.shape[0]
+            if take and rows + b > budget:
+                break
+            if not take and b > budget and was_running:
+                break  # oversize joins only an idle runner
+            if not self.joinable(r, L):
+                continue
+            take.append(r)
+            rows += b
+            if rows >= budget:
+                break
+        if not take:
+            return []
+
+        for r in take:
+            obs_trace.emit("admit", request=r.req_id, tier=self.tier, prompt_len=L,
+                           mid_decode=was_running)
+        pre = eng._prefill.run(take, L, self.tier)
+        row_of, base = {}, 0
+        for r in take:
+            row_of[id(r)] = base
+            base += r.prompts.shape[0]
+        tok0 = self._first_tokens(pre, take, row_of)
+
+        # numeric quarantine at admission: a request whose prefill logits
+        # came back non-finite never reaches a decode slot — it fails (or
+        # re-queues at the retry tier) here; co-prefilled requests continue
+        bad_ids: set[int] = set()
+        if not pre.ok_rows.all():
+            for r in take:
+                i0 = row_of[id(r)]
+                if not pre.ok_rows[i0:i0 + r.prompts.shape[0]].all():
+                    bad_ids.add(id(r))
+                    eng._numeric_fault(r, phase="prefill")
+
+        slot_reqs = [r for r in take if r.n_steps > 1 and id(r) not in bad_ids]
+        if slot_reqs:
+            need = sum(r.prompts.shape[0] for r in slot_reqs)
+            if not self.width:
+                self._grow(pick_bucket(eng.batch_buckets, need))
+                self._on_first_wave(L)
+            free = [i for i in range(self.width) if self.slot_req[i] is None]
+            if need > len(free):
+                self._grow(pick_bucket(eng.batch_buckets, self.width + need - len(free)))
+                free = [i for i in range(self.width) if self.slot_req[i] is None]
+            shift = self._install_shift(L)
+            dst_rows, src_rows = [], []
+            fi = 0
+            for r in slot_reqs:
+                b = r.prompts.shape[0]
+                slots = free[fi:fi + b]
+                fi += b
+                i0 = row_of[id(r)]
+                a = _Active(req=r, rows=slots, tok0=tok0[i0:i0 + b],
+                            remaining=r.n_steps - 1, start_step=self.global_step)
+                self.active.append(a)
+                for j, s in enumerate(slots):
+                    self.slot_req[s] = a
+                    self.pads[s] = self._slot_pad(pre.pads[i0 + j], shift)
+                    self.tok[s] = tok0[i0 + j]
+                    self.seeds[s] = 0 if r.greedy else r.seeds[j]
+                    self.ctr[s] = 1  # step 0 drew the first token
+                    self.greedy[s] = r.greedy
+                    dst_rows.append(s)
+                    src_rows.append(i0 + j)
+            self.cache = lm.cache_install_rows(
+                eng.cfg, self.cache, pre.cache, dst_rows, src_rows,
+                shift=shift if eng.pad_prompts else 0,
+            )
+
+        # single-token requests complete at prefill, never occupy a slot
+        for r in take:
+            if r.n_steps == 1 and id(r) not in bad_ids:
+                b = r.prompts.shape[0]
+                ids = tok0[row_of[id(r)]:row_of[id(r)] + b][:, None].astype(np.int32)
+                r._deliver(ids[0] if r.squeeze else ids)
+
+        sched = eng.stats.scheduler
+        sched.admitted += len(take)
+        if was_running:
+            sched.admitted_mid_decode += len(take)
+        return take
+
+    def _first_tokens(self, pre: PrefillResult, take: list[LMRequest],
+                      row_of: dict[int, int]) -> np.ndarray:
+        """First generated token per real row: greedy argmax, or a sampled
+        row's draw at its step 0 (:func:`sample_rows`).  One readback."""
+        lg = pre.logits_last[:pre.n_real]
+        tok = torch.argmax(lg, dim=-1)
+        sampled = [r for r in take if not r.greedy]
+        if sampled:
+            seeds = np.zeros((pre.n_real,), np.int64)
+            greedy = np.ones((pre.n_real,), bool)
+            for r in sampled:
+                i0 = row_of[id(r)]
+                seeds[i0:i0 + r.prompts.shape[0]] = r.seeds
+                greedy[i0:i0 + r.prompts.shape[0]] = False
+            dev = lg.device
+            st = sample_rows(lg, torch.from_numpy(seeds).to(dev),
+                             torch.zeros(pre.n_real, dtype=torch.long, device=dev))
+            tok = torch.where(torch.from_numpy(greedy).to(dev), tok, st)
+        return tok.cpu().numpy().astype(np.int64)
+
+    # -- stepping --------------------------------------------------------
+
+    def run_steps(self, max_steps: int) -> int:
+        """One bounded decode burst for every occupied slot.  Returns the
+        number of steps run (0 when idle)."""
+        if not self.active:
+            return 0
+        eng = self.eng
+        n = min(max_steps, max(a.remaining for a in self.active))
+        if n <= 0:
+            return 0
+        inj = eng._injector
+        if inj is not None:
+            inj.sleep("decode")
+        params = eng.tier_params(self.tier)
+        sampled = bool((~self.greedy).any())
+        bucket = DecodeBucket(self.width, self.tier)
+        eng._note_first_use(bucket, ("slot", sampled, inj is not None))
+        # one host-to-device copy of the per-slot vectors for the burst
+        host = np.stack([self.tok, self.pads, self.seeds, self.ctr, self.greedy])
+        dv = torch.from_numpy(host.astype(np.int64)).to(eng.device)
+        tok, pad, seeds, ctr, grd = dv[0], dv[1], dv[2], dv[3], dv[4].bool()
+        burst_tokens = sum(min(n, a.remaining) * len(a.rows) for a in self.active)
+
+        # a fault plan's inject vectors for the whole burst: one more copy
+        inject = (torch.from_numpy(np.stack([self._inject_vector(inj, i) for i in range(n)]))
+                  .to(eng.device) if inj is not None else None)
+        # tokens and per-row finiteness stay on the device across the burst
+        # and are read back once after it: the quarantine signal costs no
+        # extra host round trip
+        toks, oks = [], []
+        t0 = time.perf_counter()
+        with obs_trace.span("decode_burst", emit_event=False, bucket=str(bucket)), \
+                torch.inference_mode():
+            for i in range(n):
+                tok, self.cache, ok = eng._slot_step(
+                    params, tok, self.cache, pad, grd,
+                    (seeds, ctr + i) if sampled else None,
+                    inject[i] if inject is not None else None)
+                toks.append(tok)
+                oks.append(ok)
+            out = torch.cat([torch.stack(toks), torch.stack(oks).long()]).cpu().numpy()
+        dt = time.perf_counter() - t0
+        obs_trace.emit("decode_burst", dur_s=dt, bucket=str(bucket), steps=n,
+                       active=len(self.active), width=self.width)
+
+        ds = eng.stats.bucket(bucket)
+        ds.calls += n
+        ds.tokens += burst_tokens
+        ds.total_s += dt
+        ds.latencies_s.append(dt / n)
+        sched = eng.stats.scheduler
+        sched.occupied_slot_steps += burst_tokens
+        sched.capacity_slot_steps += self.width * n
+
+        # copies: admission writes new requests' rows into these vectors
+        self.step_log.extend(np.array(out[i]) for i in range(n))
+        self.tok = np.array(out[n - 1])
+        self.ctr = self.ctr + n
+        self.global_step += n
+        self.clock += n
+        # quarantine before completion: a request whose rows went non-finite
+        # must fail (or re-queue at the retry tier), never deliver garbage
+        # tokens.  Each request is judged only on the burst steps it used
+        # (min(n, remaining)): a row that finished mid-burst keeps stepping
+        # as filler and its later logits do not count.
+        okm = out[n:].astype(bool)  # [n, width]
+        for a in list(self.active):
+            used = min(n, a.remaining)
+            if not okm[:used, np.asarray(a.rows)].all():
+                self._release(a)
+                eng._numeric_fault(a.req, phase="decode")
+        for a in list(self.active):
+            a.remaining -= n
+            if a.remaining <= 0:
+                self._complete(a)
+        self._trim_log()
+        if not self.active:
+            self._reset_idle()
+        return n
+
+    def _inject_vector(self, inj, burst_i: int) -> np.ndarray:
+        """[width] additive fault vector for one burst step: 0.0 for
+        untargeted rows (``x + 0.0`` keeps survivor tokens bit-exact),
+        NaN/Inf on the rows of a request whose ``decode.logits`` spec fires
+        at its request-relative decode step."""
+        vec = np.zeros((self.width,), np.float32)
+        for a in self.active:
+            rel = (a.req.n_steps - 1 - a.remaining) + burst_i
+            v = inj.activation("decode.logits", a.req.req_id, step=rel)
+            if v is not None:
+                vec[np.asarray(a.rows)] = v
+        return vec
+
+    def _complete(self, a: _Active) -> None:
+        r = a.req
+        lo = a.start_step - self.log_base
+        gen = np.stack(self.step_log[lo:lo + r.n_steps - 1], axis=1)[np.asarray(a.rows)]
+        ids = np.concatenate([a.tok0[:, None], gen], axis=1).astype(np.int32)
+        self.eng.stats.bucket(DecodeBucket(self.width, self.tier)).items += len(a.rows)
+        self._release(a)
+        obs_trace.emit("decode", request=r.req_id, tier=self.tier, steps=r.n_steps - 1,
+                       rows=len(a.rows))
+        r._deliver(ids[0] if r.squeeze else ids)
+
+    def evict(self, a: _Active, err: BaseException) -> None:
+        """Mid-decode eviction (deadline miss, abort): fail the request and
+        hand its slots back to the free list."""
+        self._release(a)
+        a.req._fail(err)
+        if not self.active:
+            self._reset_idle()
+
+    def _release(self, a: _Active) -> None:
+        for s in a.rows:
+            self.slot_req[s] = None
+            self.pads[s] = self.inactive_pad
+            self.greedy[s] = True
+        self.active.remove(a)
+
+    def _trim_log(self) -> None:
+        keep_from = min((a.start_step for a in self.active), default=self.global_step)
+        drop = min(keep_from - self.log_base, len(self.step_log))
+        if drop > 0:
+            del self.step_log[:drop]
+            self.log_base += drop
+
+
+class StateDecodeRunner(DecodeRunner):
+    """Continuous decode for position-free recurrent stacks (rwkv with
+    ``pos="none"``).  Recurrent states have no time axis: prefilled rows
+    install directly, any prompt length joins a running batch at any time,
+    and the shared clock and pads degenerate to plain row bookkeeping (the
+    step runs without ``pad_lens``; rows are independent)."""
+
+    @property
+    def inactive_pad(self) -> int:
+        return 0  # pads are unused: the step passes pad_lens=None
+
+    def joinable(self, req: LMRequest, L: int) -> bool:
+        return True
+
+    def _install_shift(self, L: int) -> int:
+        return 0
+
+    def _on_first_wave(self, L: int) -> None:
+        self.clock = 0
+
+    def _slot_pad(self, prefill_pad: int, shift: int) -> int:
+        return 0
+
+
+# ---------------------------------------------------------------------------
+# scheduler
+# ---------------------------------------------------------------------------
+
+
+def _attention_only(cfg: ModelConfig) -> bool:
+    return all(k == "attn" for k in cfg.pattern)
+
+
+class Scheduler:
+    """Admission control for continuous serving: one pending queue, one
+    decode runner per precision tier.
+
+    Candidates are ordered (priority desc, deadline asc, FIFO); a wave — all
+    pending requests sharing one ``(tier, prompt-bucket)`` group — is
+    admitted when the group fills ``max_batch`` rows, its oldest request
+    passes ``max_wait_s``, any member carries a deadline, or the tier's
+    runner is already mid-decode (joining a running batch needs no
+    coalescing wait).  Expired requests are evicted before every admission
+    pass, queued or mid-decode."""
+
+    def __init__(self, eng: "Engine"):
+        self.eng = eng
+        self._pending: list[LMRequest] = []
+        self._runners: dict[str, DecodeRunner] = {}
+
+    def runner(self, tier: str) -> DecodeRunner:
+        r = self._runners.get(tier)
+        if r is None:
+            cls = DecodeRunner if _attention_only(self.eng.cfg) else StateDecodeRunner
+            r = self._runners[tier] = cls(self.eng, tier)
+        return r
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    @property
+    def active_rows(self) -> int:
+        return sum(r.active_rows for r in self._runners.values())
+
+    def add(self, req: LMRequest) -> None:
+        self._pending.append(req)
+        group = (req.tier, req.L)
+        rows = sum(r.prompts.shape[0] for r in self._pending if (r.tier, r.L) == group)
+        if rows >= self.eng.max_batch:
+            # group full: serve it to completion synchronously (the bucket
+            # engine's auto-flush contract)
+            targets = [r for r in self._pending if (r.tier, r.L) == group]
+            self.drain(targets=targets, only_group=group)
+
+    def poll(self) -> int:
+        """One bounded scheduling turn: evict expired requests, admit due
+        waves, then run at most ``decode_steps_per_poll`` decode steps per
+        runner.  Returns the number of requests admitted."""
+        now = time.perf_counter()
+        self.evict_expired(now)
+        admitted = self.admit(now)
+        for r in self._runners.values():
+            r.run_steps(self.eng.decode_steps_per_poll)
+        return admitted
+
+    def drain(self, targets: Optional[list[LMRequest]] = None,
+              only_group: Optional[tuple] = None) -> None:
+        """Force-admit and step until ``targets`` (or everything) is done.
+        Deadlines still apply — an expired request resolves with
+        ``DeadlineExceeded``, which counts as done."""
+        while True:
+            if targets is not None and all(r.ready for r in targets):
+                return
+            if targets is None and not self._pending and self.active_rows == 0:
+                return
+            now = time.perf_counter()
+            self.evict_expired(now)
+            n_adm = self.admit(now, force=True, only_group=only_group)
+            n_steps = sum(r.run_steps(self.eng.decode_steps_per_poll)
+                          for r in self._runners.values())
+            if not n_adm and not n_steps:
+                if targets is not None and all(r.ready for r in targets):
+                    return
+                if not self._pending and self.active_rows == 0:
+                    return
+                raise RuntimeError(
+                    "scheduler stalled: pending work but no admission or decode progress")
+
+    # -- admission pass --------------------------------------------------
+
+    @staticmethod
+    def _order(reqs: list[LMRequest]) -> list[LMRequest]:
+        inf = float("inf")
+        return sorted(reqs, key=lambda r: (
+            -r.priority,
+            r.t_enqueue + r.deadline_s if r.deadline_s is not None else inf,
+            r.t_enqueue,
+        ))
+
+    def _due(self, wave: list[LMRequest], runner: DecodeRunner, now: float) -> bool:
+        if sum(r.prompts.shape[0] for r in wave) >= self.eng.max_batch:
+            return True
+        if now - min(r.t_enqueue for r in wave) >= self.eng.max_wait_s:
+            return True
+        if any(r.deadline_s is not None for r in wave):
+            return True  # SLA traffic admits immediately
+        return runner.active_rows > 0  # join the running batch
+
+    def admit(self, now: float, force: bool = False,
+              only_group: Optional[tuple] = None) -> int:
+        if not self._pending:
+            return 0
+        admitted = 0
+        seen: set[tuple] = set()
+        for r in self._order(self._pending):
+            group = (r.tier, r.L)
+            if group in seen or r.ready:
+                continue
+            seen.add(group)
+            if only_group is not None and group != only_group:
+                continue
+            wave = [q for q in self._order(self._pending)
+                    if (q.tier, q.L) == group and not q.ready]
+            runner = self.runner(r.tier)
+            if not force and not self._due(wave, runner, now):
+                continue
+            inj = self.eng._injector
+            if inj is not None:
+                # injected slot-allocation failures: the doomed request fails
+                # at admission, the rest of the wave is served normally
+                for q in [q for q in wave if inj.alloc_fails(q.req_id)]:
+                    q._fail(faults_mod.InjectedFault(
+                        "injected decode-slot allocation failure at admission"))
+                    self._pending.remove(q)
+                    wave.remove(q)
+                if not wave:
+                    continue
+            taken = runner.admit(wave, r.L)
+            admitted += len(taken)
+            for q in taken:
+                self._pending.remove(q)
+        return admitted
+
+    # -- eviction / abort ------------------------------------------------
+
+    def evict_expired(self, now: Optional[float] = None) -> int:
+        now = time.perf_counter() if now is None else now
+        n = 0
+        for r in [q for q in self._pending if q.expired(now)]:
+            r._fail(DeadlineExceeded(f"request missed its {r.deadline_s:.3f}s deadline while "
+                                     "queued"))
+            self._pending.remove(r)
+            n += 1
+        for runner in self._runners.values():
+            for a in [a for a in list(runner.active) if a.req.expired(now)]:
+                runner.evict(a, DeadlineExceeded(
+                    f"request missed its {a.req.deadline_s:.3f}s deadline mid-decode and was "
+                    "evicted from the batch"))
+                n += 1
+        self.eng.stats.scheduler.deadline_evictions += n
+        return n
+
+    def abort_all(self, err: BaseException) -> int:
+        n = len(self._pending)
+        for r in self._pending:
+            r._fail(err)
+        self._pending.clear()
+        for runner in self._runners.values():
+            for a in list(runner.active):
+                runner.evict(a, err)
+                n += 1
+        return n
+
+
+# ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
 
 
 class Engine:
-    """Bucketed LM prefill/decode serving — see the module docstring.
-    Implements the ``batching.ServingEngine`` protocol.
+    """Continuous (or bucketed) LM prefill/decode serving — see the module
+    docstring.  Implements the ``batching.ServingEngine`` protocol.
 
         eng = Engine(cfg, params, tiers={"quality": None, "balanced": plan},
                      max_len=2048)
@@ -269,9 +909,18 @@ class Engine:
 
     ``params`` is the raw ``lm.init_params`` tree; each tier's policy
     (``QuantPolicy``, ``PrecisionPlan``; None = full precision) is applied
-    on the tier's first use, on the engine's device.  Sampling
-    (``generate(greedy=False, generator=g)``) draws from an explicit
-    ``torch.Generator``; the bucket engine coalesces greedy requests only.
+    on the tier's first use, on the engine's device.
+
+    ``mode``: "continuous" | "bucket" | "auto" (default).  Auto serves the
+    continuous scheduler whenever the config supports it (attention-only
+    patterns, or position-free recurrent ones) and bucket mode otherwise.
+    Scheduling controls (continuous mode): ``enqueue(..., priority=2)``
+    admits before lower-priority traffic; ``deadline_s=0.5`` evicts with
+    ``DeadlineExceeded`` if unserved in time; ``tier="auto"`` with
+    ``deadline_s`` picks the best declared tier whose measured latency fits.
+    Sampling draws from an explicit ``torch.Generator``: per request in
+    continuous mode (``enqueue(..., generator=g)``), per ``generate`` call
+    in bucket mode, whose queue coalesces greedy requests only.
     """
 
     def __init__(
@@ -290,10 +939,12 @@ class Engine:
         max_batch: Optional[int] = None,
         max_wait_s: float = 0.005,
         mode: str = "auto",
+        decode_steps_per_poll: int = 8,
         max_pending: Optional[int] = None,
         max_queued_tokens: Optional[int] = None,
         admission: str = "reject",
         degrade: Optional[batching.DegradeConfig | bool] = None,
+        numeric_retry_tier: Optional[str] = None,
         faults: Optional[faults_mod.FaultPlan | str] = None,
         device=None,
     ):
@@ -301,15 +952,13 @@ class Engine:
             raise ValueError(f"attn_impl={attn_impl!r}: expected flash | two_stage | vanilla")
         if mode not in ("auto", "continuous", "bucket"):
             raise ValueError(f"mode={mode!r}: expected auto | continuous | bucket")
-        if mode == "continuous":
-            raise NotImplementedError(f"mode='continuous': {CONTINUOUS_GAP}")
         if schedule is not None:
             raise NotImplementedError(
                 "Engine(schedule=...): the kernel-schedule compiler's LM lowering is not "
                 "ported yet (ROADMAP.md, queue 1 item 7); serve tiers or a policy")
-        if any(k != "attn" for k in cfg.pattern) or cfg.mla or cfg.moe or cfg.embed_inputs:
+        if "mamba" in cfg.pattern or cfg.mla or cfg.moe or cfg.embed_inputs:
             raise NotImplementedError(
-                f"{cfg.name}: only attention-only dense token LMs are ported (ROADMAP.md, "
+                f"{cfg.name}: only dense GQA and rwkv token LMs are ported (ROADMAP.md, "
                 "queue 1 items 7 and 9)")
         self.device = batching.resolve_device(device, "Engine")
         if self.device.type == "cuda":
@@ -332,11 +981,26 @@ class Engine:
         self.prompt_buckets = tuple(sorted(prompt_buckets)) if prompt_buckets else None
         self.max_batch = max_batch if max_batch is not None else self.batch_buckets[-1]
         self.max_wait_s = max_wait_s
-        self.mode = "bucket"
-        self.stats = LMServeStats(
-            "bucket" if mode == "bucket" else f"bucket (mode='auto'; {CONTINUOUS_GAP})")
+        # prompt-length padding rides on the attention length mask; a
+        # recurrent mixer would carry pad tokens through its state, so rwkv
+        # patterns get exact-length buckets (batch bucketing only)
+        self.pad_prompts = _attention_only(cfg)
+        self.decode_steps_per_poll = decode_steps_per_poll
+        if mode == "continuous" and not self._continuous_ok():
+            raise ValueError(
+                "mode='continuous' needs an attention-only pattern or a position-free "
+                f"recurrent pattern, got {cfg.pattern} (pos={cfg.pos!r})")
+        reason = ""
+        if mode == "auto":
+            mode = "continuous" if self._continuous_ok() else "bucket"
+            if mode == "bucket":
+                reason = (f" (mode='auto': pattern {cfg.pattern} with pos={cfg.pos!r} is "
+                          "neither attention-only nor position-free recurrent)")
+        self.mode = mode  # the mode that serves
+        self.stats = LMServeStats(mode + reason)
         self._seen: set = set()
         self._prefill = PrefillRunner(self)
+        self._sched = Scheduler(self)
         self._queue = batching.MicroBatchQueue(self._run, self.max_batch, max_wait_s)
         self._admission = batching.AdmissionController(
             max_pending=max_pending, max_queued_tokens=max_queued_tokens, policy=admission,
@@ -345,7 +1009,23 @@ class Engine:
             batching.DegradationController(None if degrade is True else degrade, len(self.tiers))
             if degrade else None
         )
+        if numeric_retry_tier is not None and numeric_retry_tier not in self.tiers:
+            raise ValueError(f"numeric_retry_tier {numeric_retry_tier!r} not in tiers "
+                             f"{sorted(self.tiers)}")
+        self.numeric_retry_tier = numeric_retry_tier
         self._injector = faults_mod.FaultInjector(faults) if faults is not None else None
+
+    @property
+    def continuous(self) -> bool:
+        return self.mode == "continuous"
+
+    def _continuous_ok(self) -> bool:
+        if _attention_only(self.cfg):
+            return True
+        # recurrent rows are independent, but the decode position is a
+        # shared scalar: only position-free stacks can mix generation depths
+        # in one batch
+        return set(self.cfg.pattern) <= {"rwkv"} and self.cfg.pos == "none"
 
     def _quantize(self, policy) -> Any:
         with torch.no_grad():
@@ -423,9 +1103,10 @@ class Engine:
         return pick_bucket(self.batch_buckets, b)
 
     def prompt_bucket(self, n: int) -> int:
-        """Bucketed prompt length (an oversize prompt runs exact).  Every
-        ported pattern is attention-only, so prompts pad into length
-        buckets (a recurrent mixer would carry pad tokens in its state)."""
+        """Bucketed prompt length (an oversize prompt runs exact); the
+        exact length for recurrent patterns (``pad_prompts`` False)."""
+        if not self.pad_prompts:
+            return n
         if self.prompt_buckets is not None:
             return pick_bucket(self.prompt_buckets, n)
         # never bucket BELOW the real length: an over-long prompt must
@@ -453,14 +1134,34 @@ class Engine:
                 f"exceeds the KV cache (max_len={self.max_len})"
             )
 
-    def _note_first_use(self, bucket: batching.Bucket, masked: bool) -> None:
-        """Count the first use of ``(bucket, masked)`` in the bucket's
-        ``compiles`` field (the reference's stats schema; here "bucket
-        first use").  Masked and unmasked calls count apart."""
-        key = (bucket, masked)
+    def _note_first_use(self, bucket: batching.Bucket, variant) -> None:
+        """Count the first use of ``(bucket, variant)`` in the bucket's
+        ``compiles`` field (the reference's stats schema, where each is a
+        compile; here "bucket first use"): a prefill's ``masked`` flag, a
+        slot step's ``("slot", sampled, faulty)``, a bucket-mode decode
+        step's ``masked``.  Each variant counts apart."""
+        key = (bucket, variant)
         if key not in self._seen:
             self._seen.add(key)
             self.stats.bucket(bucket).compiles += 1
+
+    def _slot_step(self, params, tok, cache, pad, greedy, sampling, inject):
+        """One continuous decode step: ``decode_step``, the optional fault
+        vector (``inject``, [width]; 0.0 leaves a row bit-exact), per-row
+        finiteness of the logits (the quarantine signal), the next token
+        (argmax, or :func:`sample_rows` for the rows with ``greedy``
+        False when ``sampling`` = (seeds, steps) is given).  Nothing here is
+        read back, and nothing reduces across rows."""
+        logits, cache = lm.decode_step(self.cfg, params, tok, cache,
+                                       pad_lens=pad if self.pad_prompts else None)
+        lg = logits[:, 0]
+        if inject is not None:
+            lg = lg + inject[:, None]
+        ok = torch.isfinite(lg).all(dim=-1)
+        nxt = torch.argmax(lg, dim=-1)
+        if sampling is not None:
+            nxt = torch.where(greedy, nxt, sample_rows(lg, *sampling))
+        return nxt, cache, ok
 
     # ---- request path ----------------------------------------------------
 
@@ -482,15 +1183,21 @@ class Engine:
 
         ``tier`` selects the precision tier ("auto" + ``deadline_s``
         autoselects by measured latency); requests only coalesce within
-        their tier and bucketed length.  Higher ``priority`` requests pack
-        first into a flushing group; a request older than ``deadline_s`` is
-        evicted with ``DeadlineExceeded``.  ``generator`` (per-request
-        sampling) needs the continuous scheduler and raises here.
+        their tier and bucketed length.  ``priority`` (higher admits first)
+        and ``deadline_s`` (evict with ``DeadlineExceeded`` if unserved in
+        time; in continuous mode it also admits the request without a
+        coalescing wait) order the queue.  ``generator`` samples the
+        request (one seed per row is drawn from it here; continuous mode
+        only), greedy when None.
 
         With admission bounds (``max_pending`` / ``max_queued_tokens``) an
         over-full queue raises :class:`~repro_torch.serving.batching.QueueFull`
         (policy "reject") or sheds the least-valuable queued requests
         (policy "shed")."""
+        if generator is not None and not self.continuous:
+            raise ValueError(
+                "per-request sampling generators need the continuous scheduler "
+                "(mode='continuous'); the bucket engine only coalesces greedy requests")
         if self._degrade is not None:
             self._degrade.observe(self.pending, self._measured_latency())
         tier = self._resolve_tier(tier, deadline_s)
@@ -502,12 +1209,9 @@ class Engine:
             raise ValueError(f"prompts must be [l] or [b, l] token ids, got {tuple(prompts.shape)}")
         L = self._bucket_len(prompts.shape[1], n_steps)
         self._check_fits(prompts.shape[1], L, n_steps)
-        if generator is not None:
-            raise ValueError(
-                "per-request sampling generators need the continuous scheduler "
-                f"(mode='continuous'; {CONTINUOUS_GAP}); the bucket engine only coalesces "
-                "greedy requests")
         req = LMRequest(prompts=prompts, n_steps=n_steps, squeeze=squeeze, tier=tier, L=L,
+                        seeds=None if generator is None else _draw_seeds(generator,
+                                                                         prompts.shape[0]),
                         priority=priority, deadline_s=deadline_s)
         if self._admission.bounded:
             try:
@@ -518,7 +1222,7 @@ class Engine:
                 obs_trace.emit("rejected", request=req.req_id, kind="lm", tier=tier)
                 raise
             for v in victims:
-                self._queue.remove(v)
+                self._drop_pending(v)
                 v._fail(QueueFull(
                     "request shed from the pending queue to admit "
                     "higher-priority traffic under overload"
@@ -527,16 +1231,32 @@ class Engine:
             self._injector.on_enqueue(req)
         obs_trace.emit("enqueue", request=req.req_id, kind="lm", tier=tier, prompt_len=L,
                        rows=prompts.shape[0], n_steps=n_steps, priority=priority)
-        self._queue.add((tier, L), req, prompts.shape[0])
+        if self.continuous:
+            self._sched.add(req)
+        else:
+            self._queue.add((tier, L), req, prompts.shape[0])
         return req
 
     @property
     def pending(self) -> int:
         """Requests waiting for admission."""
-        return self._queue.pending
+        return self._sched.pending if self.continuous else self._queue.pending
+
+    @property
+    def active(self) -> int:
+        """Decode-slot rows currently mid-generation (continuous mode)."""
+        return self._sched.active_rows if self.continuous else 0
 
     def _pending_list(self) -> list[LMRequest]:
+        if self.continuous:
+            return list(self._sched._pending)
         return [r for q in self._queue._queues.values() for r, _ in q]
+
+    def _drop_pending(self, r: LMRequest) -> None:
+        if self.continuous:
+            self._sched._pending.remove(r)
+        else:
+            self._queue.remove(r)
 
     @staticmethod
     def _req_tokens(r: LMRequest) -> int:
@@ -545,34 +1265,58 @@ class Engine:
         return r.prompts.shape[0] * (r.L + r.n_steps)
 
     def _numeric_fault(self, req: LMRequest, phase: str) -> None:
-        """Quarantine one request whose logits went non-finite: it fails
-        with :class:`NumericFault` (bucket mode has no retry path)."""
-        self.stats.scheduler.numeric_faults += 1
+        """Quarantine one request whose logits went non-finite: one bounded
+        retry at ``numeric_retry_tier`` (continuous mode: a higher precision
+        should clear a saturation blow-up), else fail with
+        :class:`NumericFault`.  The caller has already released any decode
+        slots the request held."""
+        sched = self.stats.scheduler
+        sched.numeric_faults += 1
         obs_trace.emit("numeric_fault", request=req.req_id, tier=req.tier, stage=phase)
+        retry = self.numeric_retry_tier
+        if self.continuous and retry is not None and retry != req.tier and req.retries < 1:
+            req.retries += 1
+            req.tier = retry
+            sched.numeric_retries += 1
+            obs_trace.emit("numeric_retry", request=req.req_id, tier=retry)
+            # the scheduler's next admission pass (or drain) picks it up
+            self._sched._pending.append(req)
+            return
         req._fail(NumericFault(
             f"request produced non-finite activations during {phase} at tier {req.tier!r} "
             "and was quarantined (co-batched requests are unaffected)"
         ))
 
     def poll(self) -> int:
-        """One scheduling turn: evict expired requests, then flush groups
-        past the coalescing deadline; returns groups flushed."""
+        """One scheduling turn.  Continuous: evict expired requests, admit
+        due waves into the running batch, run a bounded decode burst;
+        returns requests admitted.  Bucket: evict expired requests, flush
+        groups past the coalescing deadline; returns groups flushed."""
         if self._injector is not None:
             self._injector.crash("poll")
             self._injector.sleep("poll")
         if self._degrade is not None:
             self._degrade.observe(self.pending, self._measured_latency())
+        if self.continuous:
+            return self._sched.poll()
         self._queue.evict_expired(stats=self.stats.scheduler)
         return self._queue.poll()
 
     def flush(self) -> None:
         """Serve every pending request to completion."""
-        self._queue.evict_expired(stats=self.stats.scheduler)
-        self._queue.flush()
+        if self.continuous:
+            self._sched.drain()
+        else:
+            self._queue.evict_expired(stats=self.stats.scheduler)
+            self._queue.flush()
 
     def abort(self, err: Optional[BaseException] = None) -> int:
-        """Fail every queued request without serving it (shutdown path)."""
-        return self._queue.fail_pending(err or RuntimeError("engine aborted"))
+        """Fail every queued (and, in continuous mode, mid-decode) request
+        without serving it (shutdown path)."""
+        err = err or RuntimeError("engine aborted")
+        if self.continuous:
+            return self._sched.abort_all(err)
+        return self._queue.fail_pending(err)
 
     def generate(
         self,
@@ -585,7 +1329,8 @@ class Engine:
     ) -> np.ndarray:
         """prompts: [B, L] ints.  Returns generated ids [B, n_steps] (numpy
         int32).  ``greedy=False`` samples every token (the first one, from
-        prefill, too) from ``generator``, which it requires."""
+        prefill, too) from ``generator``, which it requires.  In continuous
+        mode a blocking wrapper over ``enqueue`` and a targeted drain."""
         if not greedy and generator is None:
             raise ValueError("generate(greedy=False) requires an explicit torch.Generator")
         tier = self._tier(tier)
@@ -594,9 +1339,16 @@ class Engine:
             raise ValueError(f"prompts must be [B, L] ints, got {tuple(prompts.shape)}")
         L = self._bucket_len(prompts.shape[1], n_steps)
         self._check_fits(prompts.shape[1], L, n_steps)
-        req = LMRequest(prompts=prompts, n_steps=n_steps, tier=tier)
-        self._execute(L, [req], greedy=greedy, generator=generator, tier=tier)
-        # through result(): a quarantined request raises NumericFault here
+        if not self.continuous:
+            req = LMRequest(prompts=prompts, n_steps=n_steps, tier=tier)
+            self._execute(L, [req], greedy=greedy, generator=generator, tier=tier)
+            # through result(): a quarantined request raises NumericFault here
+            return np.asarray(req.result())
+        req = LMRequest(prompts=prompts, n_steps=n_steps, tier=tier, L=L,
+                        seeds=None if greedy else _draw_seeds(generator, prompts.shape[0]))
+        self._sched.add(req)
+        if not req.ready:
+            self._sched.drain(targets=[req], only_group=(tier, L))
         return np.asarray(req.result())
 
     # ---- bucket-mode micro-batch execution -------------------------------

@@ -12,10 +12,9 @@ with no plan (the default) every hook is a single ``is None`` check and
 the hot path runs exactly as in a fault-free engine.
 
 The port's VGGT engine fires the ``scene`` (nan/inf), ``prefill`` and
-``poll`` (latency, crash) sites; its LM engine (bucket mode) the
-``prefill.logits`` and ``decode.logits`` (nan/inf), ``prefill``,
-``decode`` and ``poll`` sites.  ``slot_alloc`` parses and formats, and
-fires once the continuous scheduler is ported.
+``poll`` (latency, crash) sites; its LM engine the ``prefill.logits`` and
+``decode.logits`` (nan/inf), ``prefill``, ``decode`` and ``poll`` sites in
+both modes, and ``slot_alloc`` at the continuous scheduler's admission.
 
 Fault kinds:
 

@@ -17,6 +17,11 @@ production serving loop:
 
 All engine work runs under one lock — the engines are the unit of
 serialization (one device stream), the server is the unit of liveness.
+A lock is not fair, and a continuous engine with busy decode slots has
+the loop re-take it burst after burst; so callers other than the loop
+register while they wait (``_engine_lock``), and the loop lets them in
+before its next burst — a request submitted mid-decode joins the running
+batch instead of waiting for it to drain.
 
     eng = VGGTEngine(cfg, params, tiers=tiers, max_wait_s=0.002)
     with AsyncServer(eng) as srv:
@@ -43,9 +48,11 @@ the traffic being scraped.
 """
 from __future__ import annotations
 
+import contextlib
 import http.server
 import json
 import threading
+import time
 import urllib.parse
 from typing import Any, Optional
 
@@ -141,8 +148,26 @@ class AsyncServer:
         self.last_error: Optional[BaseException] = None
         self._failed = False
         self._lock = threading.Lock()
+        self._waiting = 0  # callers blocked on _lock other than the loop
+        self._waiting_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+
+    @contextlib.contextmanager
+    def _engine_lock(self):
+        """The engine lock for every caller but the poll loop, counted in
+        ``_waiting`` until it is held, so that the loop yields it."""
+        with self._waiting_lock:
+            self._waiting += 1
+        try:
+            self._lock.acquire()
+        finally:
+            with self._waiting_lock:
+                self._waiting -= 1
+        try:
+            yield
+        finally:
+            self._lock.release()
 
     # ---- lifecycle -------------------------------------------------------
 
@@ -190,7 +215,7 @@ class AsyncServer:
         group first; without it, queued requests are *failed* so their
         waiters wake with an error instead of blocking forever."""
         try:
-            with self._lock:
+            with self._engine_lock():
                 if drain:
                     try:
                         self.engine.flush()
@@ -240,7 +265,7 @@ class AsyncServer:
                 f"{self.max_loop_failures} consecutive poll failures "
                 f"(last error: {self.last_error!r})"
             )
-        with self._lock:
+        with self._engine_lock():
             req = self.engine.enqueue(*args, **kwargs)
             if not req.ready:
                 # attached under the lock so the loop's delivery can never
@@ -266,7 +291,7 @@ class AsyncServer:
         """Refresh the registry from the engine under the engine lock —
         scrape-time publishing keeps the serving hot path free of registry
         traffic and a scrape coherent with the stats tables."""
-        with self._lock:
+        with self._engine_lock():
             self.engine.stats.publish(self.registry)
             pending = getattr(self.engine, "pending", 0)
             active = getattr(self.engine, "active", 0)
@@ -283,7 +308,7 @@ class AsyncServer:
         return self.registry.render_prometheus()
 
     def _render_stats(self) -> dict:
-        with self._lock:
+        with self._engine_lock():
             summary = self.engine.stats.summary()
             summary["pending"] = getattr(self.engine, "pending", 0)
             summary["active"] = getattr(self.engine, "active", 0)
@@ -359,4 +384,7 @@ class AsyncServer:
                     except Exception:
                         pass  # abort is best-effort on the way down
                     break
+            # waiting callers take the lock before the next burst
+            while self._waiting and not stop.is_set():
+                time.sleep(0)
             stop.wait(0.0 if busy else self.poll_interval_s)

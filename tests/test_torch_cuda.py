@@ -818,3 +818,65 @@ def test_lm_smoke_forward_matches_plain(dev, monkeypatch, fuse):
         plain(False)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all() and _rel(g, w) < 2e-2, _rel(g, w)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 7168), (7168, 2048)])
+def test_quant_matmul_rwkv6_shapes(dev, m, k, n):
+    """rwkv6-1.6b's W4 projections at decode's slot widths: the time-mix
+    (2048 x 2048), the channel-mix up (2048 x 7168) and down (7168 x 2048)."""
+    rng = np.random.default_rng(m * 7 + k + n)
+    xq = quantize_per_token(_normal(rng, (m, k), dev), 8)
+    wq = quantize_weight(_normal(rng, (k, n), dev), 4)
+    ws = wq.scale.reshape(1, -1)
+    with probe.tracking() as log:
+        got = qm.quant_matmul(xq.values, xq.scale, wq.values, ws, packed=True)
+    torch.cuda.synchronize()
+    want = qm.quant_matmul_plain(xq.values, xq.scale, wq.values, ws, packed=True)
+    assert log.by_name() == {"quant_matmul": 1}
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def _lm_serving_script(eng, prompts, n_steps):
+    """Two requests, then the rest while they decode; returns their ids."""
+    import time
+
+    reqs = [eng.enqueue(p, n_steps) for p in prompts[:2]]
+    time.sleep(2 * eng.max_wait_s)
+    eng.poll()
+    assert eng.active == 2
+    reqs += [eng.enqueue(p, n_steps) for p in prompts[2:]]
+    eng.flush()
+    return [r.result() for r in reqs]
+
+
+@pytest.mark.parametrize("arch,policy", [("qwen3-14b-smoke", "fp"), ("qwen3-14b-smoke", "w4a8"),
+                                         ("rwkv6-1.6b-smoke", "fp"), ("rwkv6-1.6b-smoke", "w4a8")])
+def test_continuous_matches_bucket_on_the_card(dev, arch, policy):
+    """The continuous scheduler on the card at smoke width (``DecodeRunner``
+    for qwen3, ``StateDecodeRunner`` for rwkv6): requests join mid-decode,
+    the W4A8 tier launches 7 ``quant_matmul`` a layer per prefill wave and
+    decode step (the fp tier none), and the ids equal bucket mode's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision.plan import PrecisionPlan
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeRunner, Engine, StateDecodeRunner
+
+    cfg = get_config(arch)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    pol = None if policy == "fp" else PrecisionPlan(default="w4a8", use_kernel=True)
+    rng = np.random.default_rng(3)
+    lens = (16, 12, 9, 16) if arch.startswith("qwen") else (16, 12, 9, 7)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32) for n in lens]
+    eng = Engine(cfg, params, policy=pol, max_len=64, max_batch=8, decode_steps_per_poll=4,
+                 device="cuda")
+    with probe.tracking() as log:
+        got = _lm_serving_script(eng, prompts, 12)
+    runner = eng._sched.runner("default")
+    assert isinstance(runner, StateDecodeRunner if arch.startswith("rwkv") else DecodeRunner)
+    assert eng.stats.scheduler.admitted_mid_decode >= 2  # rwkv's 2nd length joins too
+    calls = sum(s.calls for s in eng.stats.buckets.values())  # prefill waves + decode steps
+    assert log.by_name() == ({} if pol is None else {"quant_matmul": 7 * cfg.n_layers * calls})
+    ref = Engine(cfg, params, policy=pol, max_len=64, mode="bucket", device="cuda")
+    for p, ids in zip(prompts, got):
+        np.testing.assert_array_equal(ids, ref.generate(p[None], 12)[0])

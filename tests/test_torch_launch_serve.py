@@ -159,12 +159,11 @@ def test_launcher_without_a_card_fails_rather_than_using_the_cpu():
 
 
 def test_launcher_refuses_other_archs_and_unported_specs():
-    """The LM engine's continuous scheduler and the unported archs wait
-    for their slices; ``--policy plan`` needs named tiers; a schedule the
-    JAX package compiled must be recompiled; a missing schedule file is
-    reported, not a traceback."""
-    out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke", "--mode", "continuous")
-    assert out.returncode != 0 and "queue 1 item 8" in out.stderr
+    """An unknown ``--mode`` and the unported archs are refused; ``--policy
+    plan`` needs named tiers; a schedule the JAX package compiled must be
+    recompiled; a missing schedule file is reported, not a traceback."""
+    out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke", "--mode", "slots")
+    assert out.returncode != 0 and "mode='slots'" in out.stderr
     out = _launch("--device", "cpu", "--arch", "deepseek-v2-lite-16b-smoke")
     assert out.returncode != 0 and "unknown arch" in out.stderr
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=tests/goldens/schedule_vggt_smoke.json")
@@ -188,13 +187,14 @@ def test_lm_launcher_serves_on_the_cpu_without_jax():
     """qwen3-14b-smoke through the LM engine behind ``AsyncServer``: two
     tiers, mixed-length prompts (8 and 6 tokens, both in the l8 bucket),
     every request served, the per-bucket table with both tiers' prefill and
-    decode rows, and the scheduler the ``auto`` mode resolved to."""
+    decode rows, and the scheduler the ``auto`` mode resolved to (the
+    continuous one)."""
     out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke", "--tiers",
                   "quality=fp,balanced=w4a8", "--requests", "4", "--prompt-len", "8", "--gen",
                   "8", "--batch", "2")
     assert out.returncode == 0, out.stderr
     assert "served 4/4 requests -> 32 tokens" in out.stdout
-    assert "scheduler: bucket (mode='auto'" in out.stdout and "decode tok/s" in out.stdout
+    assert "scheduler: continuous" in out.stdout and "decode tok/s" in out.stdout
     for tier in ("quality", "balanced"):
         assert f"{tier}:prefill:b" in out.stdout and f"{tier}:decode:b" in out.stdout
 

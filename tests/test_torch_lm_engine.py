@@ -1,12 +1,13 @@
-"""The port's LM ``Engine`` (bucket mode) on the CPU (``device="cpu"``):
-greedy ids against the JAX package's ``Engine(mode="bucket")`` on
-``mixed_len_prompts`` traffic in fp and W4A8 tiers, and the reference's own
-engine checks (``tests/serving/test_lm_engine.py``) run on the port:
-padded buckets token-exact against the unpadded prefill + decode, first-use
-counts per bucket variant, micro-batch split/merge, deadline flushes,
-overflow, sampling with an explicit generator, token accounting; plus the
-numeric quarantine under an injected fault, admission, the ``auto`` mode's
-report and the default device.
+"""The port's LM ``Engine`` on the CPU (``device="cpu"``): greedy ids
+against the JAX package's ``Engine(mode="bucket")`` on ``mixed_len_prompts``
+traffic in fp and W4A8 tiers, and the reference's own engine checks
+(``tests/serving/test_lm_engine.py``) run on the port in both modes (the
+default ``auto``, continuous for these configs, and bucket mode; only
+bucket mode where a check is about it): padded buckets token-exact against the unpadded prefill +
+decode, exact-length buckets for rwkv, first-use counts per bucket variant,
+micro-batch split/merge, deadline flushes, overflow, sampling with an
+explicit generator, token accounting; plus the numeric quarantine under an
+injected fault, admission, the modes and the default device.
 """
 import functools
 
@@ -49,6 +50,11 @@ def _smoke():
 
 def _prompts(b, n, seed=0):
     return np.random.default_rng(seed).integers(0, TINY["vocab_size"], (b, n)).astype(np.int32)
+
+
+# the default mode (continuous for attention-only patterns) and bucket mode:
+# each of the reference's engine checks below holds for both schedulers
+MODES = ("auto", "bucket")
 
 
 def _engine(**kw):
@@ -124,35 +130,40 @@ def test_fused_tier_matches_reference_engine():
 
 def test_generate_padded_prompt_matches_unpadded_reference():
     """l=12 pads into the l16 bucket (masked); the ids equal the unpadded
-    prefill + decode."""
-    eng = _engine(batch_buckets=(2,))
+    prefill + decode, in both modes."""
     prompts = _prompts(2, 12, seed=1)
-    got = eng.generate(prompts, 6)
-    assert np.array_equal(got, _ref_generate(_fixture()[1], prompts, 6))
-    assert PrefillBucket(2, 16) in eng.stats.buckets
+    want = _ref_generate(_fixture()[1], prompts, 6)
+    for mode in MODES:
+        eng = _engine(batch_buckets=(2,), mode=mode)
+        assert np.array_equal(eng.generate(prompts, 6), want), mode
+        assert PrefillBucket(2, 16) in eng.stats.buckets, mode
 
 
 def test_batch_padding_matches_unpadded_reference():
-    eng = _engine(batch_buckets=(4,))
     prompts = _prompts(3, 16, seed=2)
-    got = eng.generate(prompts, 5)
-    assert got.shape == (3, 5)
-    assert np.array_equal(got, _ref_generate(_fixture()[1], prompts, 5))
-    assert eng.stats.bucket(PrefillBucket(4, 16)).padded_items == 1
+    want = _ref_generate(_fixture()[1], prompts, 5)
+    for mode in MODES:
+        eng = _engine(batch_buckets=(4,), mode=mode)
+        got = eng.generate(prompts, 5)
+        assert got.shape == (3, 5)
+        assert np.array_equal(got, want), mode
+        assert eng.stats.bucket(PrefillBucket(4, 16)).padded_items == 1, mode
 
 
 def test_quantized_engine_padded_matches_quantized_reference():
-    eng = _engine(policy=W4A8, batch_buckets=(1,))
     prompts = _prompts(1, 10, seed=3)
-    got = eng.generate(prompts, 5)
-    assert np.array_equal(got, _ref_generate(eng.params, prompts, 5))
+    for mode in MODES:
+        eng = _engine(policy=W4A8, batch_buckets=(1,), mode=mode)
+        got = eng.generate(prompts, 5)
+        assert np.array_equal(got, _ref_generate(eng.params, prompts, 5)), mode
 
 
 def test_mixed_traffic_first_uses_bounded_per_bucket_variant():
-    """Two prompt lengths x two batch sizes, repeated: at most one first
-    use per (bucket, masked) variant, every request equal to its own
-    unbatched forward, and repeat traffic counts no new first use."""
-    eng = _engine(batch_buckets=(2, 4))
+    """Bucket mode, two prompt lengths x two batch sizes, repeated: at most
+    one first use per (bucket, masked) variant, every request equal to its
+    own unbatched forward, and repeat traffic counts no new first use (the
+    continuous mode's variants: ``tests/test_torch_scheduler.py``)."""
+    eng = _engine(batch_buckets=(2, 4), mode="bucket")
     params = _fixture()[1]
 
     def wave(seed):
@@ -170,84 +181,101 @@ def test_mixed_traffic_first_uses_bounded_per_bucket_variant():
 
 
 def test_microbatch_coalesce_split_roundtrip():
-    eng = _engine(batch_buckets=(4,), max_batch=4)
     params = _fixture()[1]
     singles = [_prompts(1, 10, seed=30 + i)[0] for i in range(3)]
-    reqs = [eng.enqueue(p, 4) for p in singles]
-    assert not any(r.ready for r in reqs)
     batch2 = _prompts(1, 12, seed=40)  # same l16 group; 3 + 1 == max_batch
-    r4 = eng.enqueue(batch2, 4)
-    assert all(r.ready for r in reqs) and r4.ready  # auto-flush on fill
-    assert eng.stats.bucket(PrefillBucket(4, 16)).calls == 1
-    for i, (p, r) in enumerate(zip(singles, reqs)):
-        assert np.array_equal(r.result(), _ref_generate(params, p[None, :], 4)[0]), i
-    assert np.array_equal(r4.result(), _ref_generate(params, batch2, 4))
+    for mode in MODES:
+        eng = _engine(batch_buckets=(4,), max_batch=4, mode=mode)
+        reqs = [eng.enqueue(p, 4) for p in singles]
+        assert not any(r.ready for r in reqs), mode
+        r4 = eng.enqueue(batch2, 4)
+        assert all(r.ready for r in reqs) and r4.ready, mode  # auto-flush on fill
+        assert eng.stats.bucket(PrefillBucket(4, 16)).calls == 1, mode
+        for i, (p, r) in enumerate(zip(singles, reqs)):
+            assert np.array_equal(r.result(), _ref_generate(params, p[None, :], 4)[0]), (mode, i)
+        assert np.array_equal(r4.result(), _ref_generate(params, batch2, 4)), mode
 
 
 def test_poll_flushes_after_deadline():
-    eng = _engine(max_batch=8, max_wait_s=0.0)
-    req = eng.enqueue(_prompts(1, 8, seed=50)[0], 3)
-    assert not req.ready
-    assert eng.poll() == 1
-    assert req.ready
+    for mode in MODES:
+        eng = _engine(max_batch=8, max_wait_s=0.0, mode=mode)
+        req = eng.enqueue(_prompts(1, 8, seed=50)[0], 3)
+        assert not req.ready, mode
+        assert eng.poll() == 1, mode  # a group flushed (bucket), a request admitted (auto)
+        assert req.ready, mode
 
 
 def test_mixed_n_steps_coalesce():
-    eng = _engine(max_batch=8)
-    a = eng.enqueue(_prompts(1, 8, seed=60)[0], 3)
-    b = eng.enqueue(_prompts(1, 8, seed=61)[0], 6)
-    eng.flush()
-    assert a.result().shape == (3,) and b.result().shape == (6,)
     want_a = _ref_generate(_fixture()[1], _prompts(1, 8, seed=60), 6)[0, :3]
-    assert np.array_equal(a.result(), want_a)
+    for mode in MODES:
+        eng = _engine(max_batch=8, mode=mode)
+        a = eng.enqueue(_prompts(1, 8, seed=60)[0], 3)
+        b = eng.enqueue(_prompts(1, 8, seed=61)[0], 6)
+        eng.flush()
+        assert a.result().shape == (3,) and b.result().shape == (6,), mode
+        assert np.array_equal(a.result(), want_a), mode
 
 
 def test_generate_rejects_cache_overflow():
-    eng = _engine(max_len=16, batch_buckets=(1,))
     prompts = _prompts(1, 8, seed=70)
-    assert eng.generate(prompts, 9).shape == (1, 9)  # 8 + 9 - 1 == 16 fits exactly
-    with pytest.raises(ValueError, match="exceeds the KV cache"):
-        eng.generate(prompts, 10)
-    with pytest.raises(ValueError, match="exceeds the KV cache"):
-        eng.enqueue(prompts[0], 10)
-    with pytest.raises(ValueError, match="n_steps"):
-        eng.generate(prompts, 0)
-    # a prompt longer than max_len fails with its REAL length
-    with pytest.raises(ValueError, match="length 20"):
-        eng.enqueue(_prompts(1, 20, seed=71)[0], 1)
+    for mode in MODES:
+        eng = _engine(max_len=16, batch_buckets=(1,), mode=mode)
+        assert eng.generate(prompts, 9).shape == (1, 9)  # 8 + 9 - 1 == 16 fits exactly
+        with pytest.raises(ValueError, match="exceeds the KV cache"):
+            eng.generate(prompts, 10)
+        with pytest.raises(ValueError, match="exceeds the KV cache"):
+            eng.enqueue(prompts[0], 10)
+        with pytest.raises(ValueError, match="n_steps"):
+            eng.generate(prompts, 0)
+        # a prompt longer than max_len fails with its REAL length
+        with pytest.raises(ValueError, match="length 20"):
+            eng.enqueue(_prompts(1, 20, seed=71)[0], 1)
 
 
 def test_sampling_requires_generator():
-    eng = _engine(batch_buckets=(1,))
+    """Sampling needs an explicit generator, and the same seed gives the
+    same sample, in both modes; a per-request generator needs the
+    continuous scheduler, which bucket mode refuses."""
     prompts = _prompts(1, 8, seed=80)
-    with pytest.raises(ValueError, match="torch.Generator"):
-        eng.generate(prompts, 4, greedy=False)
-    out = eng.generate(prompts, 4, greedy=False, generator=torch.Generator().manual_seed(7))
-    assert out.shape == (1, 4) and (out >= 0).all() and (out < TINY["vocab_size"]).all()
-    again = eng.generate(prompts, 4, greedy=False, generator=torch.Generator().manual_seed(7))
-    assert np.array_equal(out, again)  # same seed, same sample
-    with pytest.raises(ValueError, match="continuous scheduler"):
-        eng.enqueue(prompts[0], 4, generator=torch.Generator().manual_seed(7))
+    for mode in MODES:
+        eng = _engine(batch_buckets=(1,), mode=mode)
+        with pytest.raises(ValueError, match="torch.Generator"):
+            eng.generate(prompts, 4, greedy=False)
+        out = eng.generate(prompts, 4, greedy=False, generator=torch.Generator().manual_seed(7))
+        assert out.shape == (1, 4) and (out >= 0).all() and (out < TINY["vocab_size"]).all()
+        again = eng.generate(prompts, 4, greedy=False,
+                             generator=torch.Generator().manual_seed(7))
+        assert np.array_equal(out, again), mode  # same seed, same sample
+        if mode == "bucket":
+            with pytest.raises(ValueError, match="continuous scheduler"):
+                eng.enqueue(prompts[0], 4, generator=torch.Generator().manual_seed(7))
+        else:
+            req = eng.enqueue(prompts[0], 4, generator=torch.Generator().manual_seed(7))
+            eng.flush()
+            assert np.array_equal(req.result(), out[0])  # the same stream through enqueue
 
 
 def test_first_token_is_sampled_not_greedy():
-    eng = _engine(batch_buckets=(1,))
     prompts = _prompts(1, 8, seed=81)
-    greedy_first = eng.generate(prompts, 1)[0, 0]
-    sampled = [eng.generate(prompts, 1, greedy=False,
-                            generator=torch.Generator().manual_seed(k))[0, 0] for k in range(8)]
-    assert any(t != greedy_first for t in sampled), sampled
+    for mode in MODES:
+        eng = _engine(batch_buckets=(1,), mode=mode)
+        greedy_first = eng.generate(prompts, 1)[0, 0]
+        sampled = [eng.generate(prompts, 1, greedy=False,
+                                generator=torch.Generator().manual_seed(k))[0, 0]
+                   for k in range(8)]
+        assert any(t != greedy_first for t in sampled), (mode, sampled)
 
 
 def test_decode_token_accounting():
-    eng = _engine(batch_buckets=(4,))
-    eng.generate(_prompts(4, 8, seed=90), 8)
-    assert eng.stats.decode_tokens == 4 * 7
-    assert eng.stats.prefill_tokens == 4 * 8
-    assert eng.stats.bucket(DecodeBucket(4)).calls == 7
-    eng2 = _engine(batch_buckets=(4,))
-    eng2.generate(_prompts(4, 8, seed=91), 1)
-    assert eng2.stats.decode_tokens == 0 and eng2.stats.decode_s == 0.0
+    for mode in MODES:
+        eng = _engine(batch_buckets=(4,), mode=mode)
+        eng.generate(_prompts(4, 8, seed=90), 8)
+        assert eng.stats.decode_tokens == 4 * 7, mode
+        assert eng.stats.prefill_tokens == 4 * 8, mode
+        assert eng.stats.bucket(DecodeBucket(4)).calls == 7, mode
+        eng2 = _engine(batch_buckets=(4,), mode=mode)
+        eng2.generate(_prompts(4, 8, seed=91), 1)
+        assert eng2.stats.decode_tokens == 0 and eng2.stats.decode_s == 0.0, mode
 
 
 # ---------------------------------------------------------------------------
@@ -259,51 +287,90 @@ def test_decode_token_accounting():
                                         ("prefill.logits:req=1", "prefill")])
 def test_injected_nan_fails_only_its_request(site, stage):
     """``nan@<site>`` poisons request 1's logits; it alone fails with
-    ``NumericFault`` and its co-batched neighbours deliver their own ids."""
-    eng = _engine(batch_buckets=(4,), max_batch=3, faults=f"nan@{site}")
+    ``NumericFault`` and its co-batched neighbours deliver their own ids,
+    in both modes."""
     params = _fixture()[1]
     prompts = [_prompts(1, 8, seed=100 + i)[0] for i in range(3)]
-    reqs = [eng.enqueue(p, 5) for p in prompts]
-    assert all(r.ready for r in reqs)
-    with pytest.raises(NumericFault, match=stage):
-        reqs[1].result()
-    for i in (0, 2):
-        assert np.array_equal(reqs[i].result(), _ref_generate(params, prompts[i][None], 5)[0])
-    assert eng.stats.scheduler.numeric_faults == 1
+    for mode in MODES:
+        eng = _engine(batch_buckets=(4,), max_batch=3, faults=f"nan@{site}", mode=mode)
+        reqs = [eng.enqueue(p, 5) for p in prompts]
+        assert all(r.ready for r in reqs), mode
+        with pytest.raises(NumericFault, match=stage):
+            reqs[1].result()
+        for i in (0, 2):
+            assert np.array_equal(reqs[i].result(),
+                                  _ref_generate(params, prompts[i][None], 5)[0]), (mode, i)
+        assert eng.stats.scheduler.numeric_faults == 1, mode
 
 
 def test_admission_rejects_past_max_pending():
-    eng = _engine(max_batch=4, max_pending=1)
-    first = eng.enqueue(_prompts(1, 8, seed=1)[0], 2)
-    with pytest.raises(QueueFull):
-        eng.enqueue(_prompts(1, 8, seed=2)[0], 2)
-    assert eng.stats.scheduler.rejected == 1 and not first.ready
-    eng.flush()
-    assert first.result().shape == (2,)
+    for mode in MODES:
+        eng = _engine(max_batch=4, max_pending=1, mode=mode)
+        first = eng.enqueue(_prompts(1, 8, seed=1)[0], 2)
+        with pytest.raises(QueueFull):
+            eng.enqueue(_prompts(1, 8, seed=2)[0], 2)
+        assert eng.stats.scheduler.rejected == 1 and not first.ready, mode
+        eng.flush()
+        assert first.result().shape == (2,), mode
 
 
 def test_deadline_evicts_unserved_request():
-    eng = _engine(max_batch=4, max_wait_s=60.0)
-    req = eng.enqueue(_prompts(1, 8, seed=3)[0], 2, deadline_s=0.0)
-    eng.poll()
-    with pytest.raises(DeadlineExceeded):
-        req.result()
+    for mode in MODES:
+        eng = _engine(max_batch=4, max_wait_s=60.0, mode=mode)
+        req = eng.enqueue(_prompts(1, 8, seed=3)[0], 2, deadline_s=0.0)
+        eng.poll()
+        with pytest.raises(DeadlineExceeded):
+            req.result()
 
 
 def test_modes_and_schedule():
-    """``auto`` serves bucket mode and says why in the stats; ``continuous``
-    and ``schedule=`` wait for their ROADMAP items."""
+    """``auto`` serves the continuous scheduler for attention-only and
+    position-free recurrent patterns and says so in the stats; for a
+    pattern that mixes them it serves bucket mode and says why, and
+    ``continuous`` raises there, as in the reference.  ``schedule=`` waits
+    for its ROADMAP item; unported layer kinds raise."""
     eng = _engine()
-    assert eng.mode == "bucket"
-    assert "continuous scheduler" in eng.stats.summary()["mode"]
-    assert eng.stats.format().startswith("scheduler: bucket (mode='auto'")
-    assert _engine(mode="bucket").stats.mode == "bucket"
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        _engine(mode="continuous")
+    assert eng.mode == "continuous" and eng.continuous
+    assert eng.stats.summary()["mode"] == "continuous"
+    assert eng.stats.format().startswith("scheduler: continuous")
+    assert _engine(mode="continuous").continuous
+    assert _engine(mode="bucket").stats.mode == "bucket" and not _engine(mode="bucket").continuous
+    cfg, params = _fixture()
+    rwkv = get_config("rwkv6-1.6b-smoke")
+    rparams = lm.init_params(rwkv, torch.Generator().manual_seed(0))
+    for m in ("auto", "continuous"):
+        reng = Engine(rwkv, rparams, max_len=MAX_LEN, mode=m, device="cpu")
+        assert reng.continuous and not reng.pad_prompts and reng.stats.mode == "continuous"
+    hybrid = cfg.with_(pattern=("attn", "rwkv"), rwkv_head_dim=16)
+    hparams = lm.init_params(hybrid, torch.Generator().manual_seed(0))
+    heng = Engine(hybrid, hparams, max_len=MAX_LEN, device="cpu")
+    assert not heng.continuous and heng.stats.mode.startswith("bucket (mode='auto': pattern")
+    with pytest.raises(ValueError, match="mode='continuous' needs"):
+        Engine(hybrid, hparams, max_len=MAX_LEN, mode="continuous", device="cpu")
     with pytest.raises(NotImplementedError, match="LM lowering"):
         _engine(schedule="x.json")
     with pytest.raises(ValueError, match="mode"):
         _engine(mode="slots")
+    for kw in (dict(pattern=("attn", "mamba")), dict(mla=True),
+               dict(moe=True, n_experts=4, top_k=2)):
+        with pytest.raises(NotImplementedError, match="queue 1"):
+            Engine(cfg.with_(**kw), params, max_len=MAX_LEN, device="cpu")
+
+
+def test_recurrent_pattern_serves_exact_length_buckets():
+    """The reference's check (``tests/serving/test_lm_engine.py``): rwkv
+    cannot mask pad tokens out of its state, so prompts keep their exact
+    length (batch bucketing only), in both modes, and the ids equal the
+    unbatched prefill + decode."""
+    cfg = get_config("rwkv6-1.6b-smoke")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    want = _ref_generate(params, prompts, 4, cfg=cfg)
+    for mode in ("auto", "bucket"):
+        eng = Engine(cfg, params, max_len=MAX_LEN, batch_buckets=(2,), mode=mode, device="cpu")
+        assert not eng.pad_prompts and eng.prompt_bucket(11) == 11
+        assert np.array_equal(eng.generate(prompts, 4), want), mode
+        assert PrefillBucket(2, 11) in eng.stats.buckets  # exact, not pow2
 
 
 def test_default_device_is_cuda():

@@ -21,7 +21,7 @@ from repro_torch import obs
 from repro_torch.launch.specs import ServeSpec
 from repro_torch.models import vggt
 from repro_torch.obs import metrics
-from repro_torch.serving.batching import ServerStopped
+from repro_torch.serving.batching import PendingRequest, ServerStopped
 from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.server import AsyncServer
 from repro_torch.serving.vggt_engine import VGGTEngine
@@ -219,3 +219,47 @@ def test_loop_escalates_after_k_strikes():
     finally:
         srv.stop(drain=False)
         obs.disable_all(registry=reg)
+
+
+def test_submit_goes_before_the_next_busy_poll():
+    """A busy engine (decode slots occupied) has the loop re-take the lock
+    poll after poll; a lock is not fair, so without the hand-off a submit
+    waits out at least one more poll, and can starve.  With it, a submit
+    made during a poll runs as soon as that poll ends (one race of a few
+    microseconds may cost a poll now and then)."""
+
+    class Busy:
+        max_wait_s = 0.004
+        active = 1
+
+        def __init__(self):
+            self.polls, self.seen = 0, []
+
+        def enqueue(self, x):
+            self.seen.append(self.polls)
+            req = PendingRequest()
+            req._deliver(x)
+            return req
+
+        def poll(self):
+            self.polls += 1
+            time.sleep(0.01)  # a burst; the GIL is free, as in a device sync
+            return 0
+
+        def flush(self):
+            pass
+
+        def abort(self, err=None):
+            return 0
+
+    eng = Busy()
+    waited = []
+    with AsyncServer(eng) as srv:
+        time.sleep(0.05)
+        for i in range(20):
+            p0 = eng.polls
+            srv.submit(i)
+            waited.append(eng.seen[-1] - p0)
+            time.sleep(0.003)
+        eng.active = 0
+    assert max(waited) <= 1 and sum(waited) <= 5, waited

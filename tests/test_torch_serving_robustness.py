@@ -1,21 +1,36 @@
 """The port's serving robustness layer against the JAX package's on the same
 scripts: fault-plan grammar and seeded injection, admission control and
 shedding, the degradation ladder, priority packing, precision tiers in the
-VGGT engine, and the ``nan@scene`` quarantine."""
+VGGT engine, the ``nan@scene`` quarantine, and the LM engine's continuous-
+mode fault cases (``tests/serving/test_faults.py``): the decode and prefill
+quarantines, the numeric retry tier, ``slot_alloc`` and no fault variants
+without a plan."""
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import jax
+
+from repro.configs import get_config as j_get_config
+from repro.core import versaq as jvq
 from repro.launch.specs import ServeSpec as JServeSpec
+from repro.models import lm as jlm
+from repro.serving.engine import Engine as JEngine
 from repro.serving import batching as jb
 from repro.serving import faults as jf
 from repro.serving.vggt_engine import VGGTEngine as JVGGTEngine
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.precision.plan import PrecisionPlan
 from repro_torch.launch.specs import ServeSpec
 from repro_torch.serving import batching as tb
 from repro_torch.serving import faults as tf
+from repro_torch.serving.engine import Engine as LMEngine
 from repro_torch.serving.vggt_engine import Bucket, VGGTEngine
+from tests.test_torch_lm import flatten_jax
 from tests.test_torch_vggt_engine import REL_L2, _fixture, _scenes
 
 TIERS = "quality=fp,balanced=w4a8,fast=w4a8:fused"
@@ -302,3 +317,136 @@ def test_queue_full_then_flush_serves_the_first():
     assert teng.stats.scheduler.rejected == 1 and teng.pending == 1
     teng.flush()
     assert np.isfinite(first.result()["points"].numpy()).all()
+
+
+# ---------------------------------------------------------------------------
+# the LM engine's continuous mode under faults (tests/serving/test_faults.py)
+# ---------------------------------------------------------------------------
+
+LM_TINY = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=64)
+
+
+@functools.lru_cache(maxsize=1)
+def _lm_fixture():
+    jcfg = j_get_config("qwen3-14b-smoke").with_(**LM_TINY)
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, get_config("qwen3-14b-smoke").with_(**LM_TINY), jp, params_from_numpy(flatten_jax(jp))
+
+
+def _lm_engines(**kw):
+    """The reference's engine and the port's, same weights and arguments;
+    ``tiers`` names "fp" or "w4a8" per tier."""
+    jcfg, cfg, jp, tp = _lm_fixture()
+    names = kw.pop("tiers", None)
+    jkw, tkw = dict(kw), dict(kw)
+    if names is not None:
+        jkw["tiers"] = {n: None if v == "fp" else jvq.W4A8 for n, v in names.items()}
+        tkw["tiers"] = {n: None if v == "fp" else PrecisionPlan(default="w4a8", use_kernel=True)
+                        for n, v in names.items()}
+    return JEngine(jcfg, jp, **jkw), LMEngine(cfg, tp, device="cpu", **tkw)
+
+
+def _lm_prompt(n, seed):
+    return np.random.default_rng(seed).integers(0, LM_TINY["vocab_size"], (n,)).astype(np.int32)
+
+
+def _same_outcome(jreq, treq):
+    """Both delivered the same ids, or both failed with the same error class."""
+    if jreq._error is not None:
+        assert type(treq._error).__name__ == type(jreq._error).__name__
+        return
+    assert treq._error is None, treq._error
+    np.testing.assert_array_equal(treq.result(), np.asarray(jreq.result()))
+
+
+def test_lm_nan_mid_decode_quarantines_only_target_continuous():
+    """A NaN injected into one request's decode logits mid-burst fails that
+    request with NumericFault; the co-resident slots deliver bit-exact
+    against a fault-free run, and the same on the reference."""
+    prompts = [_lm_prompt(8, s) for s in (0, 1, 2)]
+    _, clean = _lm_engines(max_len=32, max_wait_s=0.0, batch_buckets=(4,))
+    want = [clean.enqueue(p, 6) for p in prompts]
+    clean.flush()
+    engs = _lm_engines(max_len=32, max_wait_s=0.0, batch_buckets=(4,),
+                       faults="nan@decode.logits:req=1,step=2")
+    got = []
+    for eng in engs:
+        reqs = [eng.enqueue(p, 6) for p in prompts]
+        eng.poll()  # all three admitted into one slot wave
+        eng.flush()
+        got.append(reqs)
+        assert eng.stats.scheduler.numeric_faults == 1
+        assert eng.stats.scheduler.numeric_retries == 0
+        assert eng.active == 0  # the quarantined request's slot was released
+    with pytest.raises(tb.NumericFault, match="quarantined"):
+        got[1][1].result()
+    for i in (0, 2):
+        np.testing.assert_array_equal(got[1][i].result(), want[i].result())
+    for j, t in zip(*got):
+        _same_outcome(j, t)
+
+
+def test_lm_inf_at_prefill_quarantines_before_slot_install():
+    for eng in _lm_engines(max_len=32, max_wait_s=0.0, batch_buckets=(4,),
+                           faults="inf@prefill.logits:req=0"):
+        bad = eng.enqueue(_lm_prompt(8, 3), 4)
+        good = eng.enqueue(_lm_prompt(8, 4), 4)
+        eng.flush()
+        with pytest.raises(Exception, match="prefill") as ei:
+            bad.result()
+        assert type(ei.value).__name__ == "NumericFault"
+        assert good.result().shape == (4,)
+        assert eng.stats.scheduler.numeric_faults == 1
+        assert eng.active == 0
+
+
+def test_lm_numeric_fault_retries_once_at_higher_tier():
+    """``numeric_retry_tier``: the faulted request re-queues once at the
+    quality tier and delivers that tier's ids (bucket mode's, and the
+    reference's)."""
+    tiers = {"quality": "fp", "fast": "w4a8"}
+    reqs = []
+    for eng in _lm_engines(max_len=32, max_wait_s=0.0, tiers=tiers, default_tier="fast",
+                           numeric_retry_tier="quality",
+                           faults="nan@decode.logits:req=0,step=0,times=1"):
+        req = eng.enqueue(_lm_prompt(8, 5), 4)
+        eng.flush()
+        assert req.tier == "quality" and req.retries == 1
+        assert eng.stats.scheduler.numeric_faults == 1
+        assert eng.stats.scheduler.numeric_retries == 1
+        reqs.append(req)
+    _same_outcome(*reqs)
+    _, cfg, _, tp = _lm_fixture()
+    ref = LMEngine(cfg, tp, max_len=32, mode="bucket", device="cpu",
+                   tiers={"quality": None, "fast": PrecisionPlan(default="w4a8", use_kernel=True)},
+                   default_tier="fast")
+    np.testing.assert_array_equal(reqs[1].result(),
+                                  ref.generate(_lm_prompt(8, 5)[None, :], 4, tier="quality")[0])
+    with pytest.raises(ValueError, match="numeric_retry_tier"):
+        LMEngine(cfg, tp, numeric_retry_tier="nope", device="cpu")
+
+
+def test_lm_slot_alloc_fault_fails_only_target():
+    got = []
+    for eng in _lm_engines(max_len=32, max_wait_s=0.0, faults="slot_alloc:req=0"):
+        doomed = eng.enqueue(_lm_prompt(8, 8), 4)
+        good = eng.enqueue(_lm_prompt(8, 9), 4)
+        eng.flush()
+        with pytest.raises(Exception, match="slot allocation") as ei:
+            doomed.result()
+        assert type(ei.value).__name__ == "InjectedFault"
+        assert good.result().shape == (4,)
+        got.append(good)
+    _same_outcome(*got)
+
+
+def test_lm_faults_off_has_no_fault_variants():
+    """With no plan armed the decode step never takes the fault-armed
+    variant (no inject vector, no per-step host copy)."""
+    _, eng = _lm_engines(max_len=32, max_wait_s=0.0)
+    assert eng._injector is None
+    req = eng.enqueue(_lm_prompt(8, 10), 4)
+    eng.flush()
+    assert req.result().shape == (4,)
+    slot = [v for _, v in eng._seen if isinstance(v, tuple) and v[0] == "slot"]
+    assert slot and all(v[2] is False for v in slot)
