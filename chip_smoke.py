@@ -16,8 +16,11 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    branches a planned tier reaches at those shapes (an A4 ``wqkv`` prologue,
    FFNs with A4 input and an A8 or A4 hidden), plus small cases (W8, A4, a requant
    epilogue, a pre-quantized input, a gated SiLU FFN, ragged M, causal and
-   GQA attention), and ``quant_matmul`` at the LM paths' shapes (qwen3-14b
-   decode and prefill, rwkv6-1.6b decode at 4 slots); times kernel, plain version,
+   GQA attention), ``quant_matmul`` at the LM paths' shapes (qwen3-14b
+   decode and prefill, rwkv6-1.6b decode at 4 slots), and its batched launch
+   at deepseek-moe-16b's routed experts (E 64, W4: M 120, a 2 x 512
+   prefill's capacity, and M 1, decode's, through gate/up K 2048 x N 1408
+   and down K 1408 x N 2048); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
    ``torch.matmul`` with the blocked Hadamard); for ``quant_matmul``, the
@@ -126,9 +129,31 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    prefill + decode), exact-length prefill buckets, ids against bucket
    mode, and 7 x 24 ``quant_matmul`` launches per w4a8 prefill wave and
    decode step; prints the same numbers and the WKV loop's share of a
-   256-token prefill (one layer's recurrence, host clock).
+   256-token prefill (one layer's recurrence, host clock);
+12. serves deepseek-moe-16b at full width (d 2048, 64 routed experts of
+   1408 at top-6, 2 shared, vocab 102,400), cut to ``MOE_LAYERS`` layers
+   (the dense layer 0 and 7 MoE layers, seed-0 weights), through the
+   continuous scheduler behind ``AsyncServer`` (``phase_moe``): tiers
+   ``quality=fp,balanced=w4a8``, two-stage attention, 8
+   ``mixed_len_prompts`` requests (512 and 384 tokens, both lengths in each
+   tier), two first and six while those decode, request 5 poisoned
+   (``nan@decode.logits``).  It holds the fault to its request, every other
+   request delivered, an admission mid-decode, and the balanced tier's
+   launches: 7 x layers 2-D ``quant_matmul`` (attention, the dense layer 0,
+   the shared experts) and 3 x MoE layers ``quant_matmul_batched`` (the
+   routed experts, one launch a projection) per prefill wave and decode
+   step, none on ``quality``.  Capacity makes a MoE model's ids depend on
+   its batch (decode keeps one slot an expert), so no cross-mode hold is
+   made (the CPU tests hold each mode against the reference's same mode);
+   instead the balanced tier's logits, teacher-forced on two served
+   requests at the same rows and pads, against the plain versions, and
+   every layer's branches (attention, dense and MoE FFN) against the plain
+   versions; then a [2, ``LM_SCORE_LEN``] scoring forward of the W4A8 tree
+   through the dh-128 two-stage kernel (16/16 heads) held the same way.
+   Prints prefill ms, decode ms per step, tok/s, TTFT p50/max, slot
+   occupancy and peak memory, and profiles one 8-step burst per tier.
 
-Each of the paths 4-11 runs with the launch counts set to 0 just before it
+Each of the paths 4-12 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -176,13 +201,17 @@ CONT_MAX_LEN = 1024
 # phase 11: rwkv6-1.6b requests at these exact prompt lengths, RWKV_GEN new
 # tokens each
 RWKV_PROMPTS, RWKV_GEN = (256, 96, 200, 128, 160, 224), 32
+# phase 12: deepseek-moe-16b at full width, cut to MOE_LAYERS of its 28
+# layers (f32 weights: one MoE layer 2.35 GB, the full model 65.5 GB, with
+# its W4 tier ~74 GB before activations; 8 layers 18.5 GB)
+MOE_LAYERS = 8
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
 # DCT-III (csrc/idct64.cuh) at ~10-12 operations an output.
 IDCT_OPS = (64 // 2 * 6 + 3 * 64 // 2 * 6) / 64
 KERNELS = ("quant_matmul", "two_stage_attention", "fused_matmul", "fused_ffn", "norm_quant",
-           "wht")
+           "wht", "quant_matmul_batched")
 
 
 def _fail(msg: str) -> None:
@@ -236,6 +265,7 @@ def main() -> int:
     paths["lm_continuous"] = phase_lm_continuous(torch, dev, raw)
     del raw
     paths["rwkv"] = phase_rwkv(torch, dev)
+    paths["moe"] = phase_moe(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -256,7 +286,7 @@ def main() -> int:
 # launches, the LM path's too, are in ``launches_by_path``)
 HOME = {"quant_matmul": "serve_unfused", "two_stage_attention": "serve_fused",
         "fused_matmul": "serve_fused", "fused_ffn": "serve_fused", "norm_quant": "prologue",
-        "wht": "prologue"}
+        "wht": "prologue", "quant_matmul_batched": "moe"}
 
 
 def summarize(kernels: dict[str, dict], paths: dict[str, dict]) -> list[dict]:
@@ -353,6 +383,7 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
     out["fused_ffn"] = _kernel_fused_ffn(torch, dev, cfg, m, randn)
     out["norm_quant"] = _kernel_norm_quant(torch, dev, cfg, m, randn)
     out["wht"] = _kernel_wht(torch, dev, cfg, m, randn)
+    out["quant_matmul_batched"] = _kernel_quant_matmul_batched(torch, randn)
     return out
 
 
@@ -441,6 +472,75 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
               f"bound={bound:.4f}ms ({by}), {ms / bound:.2f}x bound")
         del got, want, xq, wq
     return rows
+
+
+def _kernel_quant_matmul_batched(torch, randn) -> dict:
+    """``quant_matmul``'s batched launch at deepseek-moe-16b's routed experts
+    (E 64, W4; the routed experts' weights are those of one layer): gate/up
+    (K 2048, N 1408) and down (K 1408, N 2048) at M 120, each expert's
+    capacity in a 2 x 512 prefill, and at M 1, decode's.  Each against its
+    plain version, timed beside its bound and, where ``torch._int_mm`` takes
+    the shape (M > 16), a per-expert loop of ``torch._int_mm`` and the
+    scaling (no one PyTorch call computes the batched function).  The
+    record's totals weight each shape by its launches in one 2 x 512 prefill
+    and one decode step through ``MOE_LAYERS - 1`` MoE layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import quantize_per_token, quantize_weight, unpack_int4
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.measure import time_ms
+    from repro_torch.models.ffn import _cap
+
+    cfg = get_config("deepseek-moe-16b")
+    e, d, dff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    cap = _cap(cfg, BATCH * LM_PROMPT)
+    # (label, M, K, N, launches per MoE layer)
+    cases = [("prefill gate/up", cap, d, dff, 2), ("prefill down", cap, dff, d, 1),
+             ("decode gate/up", 1, d, dff, 2), ("decode down", 1, dff, d, 1)]
+    ent = _Entry("quant_matmul_batched", "src/repro_torch/csrc/quant_matmul.cu",
+                 "src/repro/kernels/quant_matmul.py:151",
+                 library_note="no one PyTorch call: torch._int_mm is 2-D; moe_cases time a "
+                              "per-expert torch._int_mm + scaling loop where M > 16")
+    rows = {}
+    for label, m, k, n, per in cases:
+        xq = quantize_per_token(randn(e, m, k), 8)
+        wqs = [quantize_weight(randn(k, n), 4) for _ in range(e)]
+        wv = torch.stack([w.values for w in wqs])
+        ws = torch.stack([w.scale.reshape(1, -1) for w in wqs])
+        del wqs
+        args = (xq.values, xq.scale, wv, ws)
+        got = qm.quant_matmul_batched(*args, packed=True)
+        want = qm.quant_matmul_batched_plain(*args, packed=True)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)  # integer part is exact
+        del got, want
+        ms = time_ms(lambda: qm.quant_matmul_batched(*args, packed=True))
+        plain = time_ms(lambda: qm.quant_matmul_batched_plain(*args, packed=True), reps=3)
+        bound, by = _bound_ms(qm.batched_function_bytes(e, e, m, k, n, packed=True),
+                              2.0 * e * m * k * n)
+        lib = None
+        if m > 16:
+            w_cm = [unpack_int4(wv[j], 0).t().contiguous().t() for j in range(e)]
+
+            def loop(w_cm=w_cm, args=args):
+                xv, xs, _, ws_ = args
+                return [torch._int_mm(xv[j], w_cm[j]).float() * xs[j] * ws_[j] for j in range(e)]
+
+            lib = time_ms(loop)
+            del w_cm
+        rows[label] = dict(e=e, m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by, library_ms=lib,
+                           library_note=None if lib is not None else
+                           "torch._int_mm needs M > 16 rows")
+        print(f"quant_matmul_batched {label:16s} E={e} M={m} K={k} N={n} W4: err={err:.3g} "
+              f"kernel={ms:.4f}ms plain={plain:.4f}ms "
+              f"int_mm loop={'n/a (M <= 16)' if lib is None else f'{lib:.4f}ms'} "
+              f"bound={bound:.4f}ms ({by}), {ms / bound:.2f}x bound")
+        ent.add(err, per * (MOE_LAYERS - 1), ms, plain, bound, by)
+        del xq, wv, ws, args
+    out = ent.done()
+    out["moe_cases"] = rows
+    return out
 
 
 def _attrs(kernel: str, *args) -> tuple[dict, str]:
@@ -773,7 +873,8 @@ class _PlainKernels:
         from repro_torch.kernels import wht as whtk
 
         return [(qm, "quant_matmul"), (tsa, "two_stage_attention"), (fz, "fused_matmul"),
-                (fz, "fused_ffn"), (fz, "norm_quant"), (whtk, "wht")]
+                (fz, "fused_ffn"), (fz, "norm_quant"), (whtk, "wht"),
+                (qm, "quant_matmul_batched")]
 
     def __enter__(self):
         self._saved = []
@@ -1453,7 +1554,7 @@ def _hold_lm(torch, tag, rels, moved_fn) -> None:
 
 
 def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
-    """Every layer's two branches (attention and FFN; for rwkv, time-mix
+    """Every layer's two branches (attention and FFN, dense or MoE; for rwkv, time-mix
     and channel-mix) with the kernels against the same layer with the plain
     versions, fed the same input: over one full-mode forward, or
     (``steps``) over a (left-padded) prefill and decode steps, where the
@@ -1467,17 +1568,25 @@ def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
     from repro_torch.models import lm
     from repro_torch.models import rwkv as R
 
-    sums = [[0.0, 0.0], [0.0, 0.0]]  # per kind: squared difference, squared reference
-    worst = [0.0, 0.0]
+    sums = [[0.0, 0.0], [0.0, 0.0], [0.0, 0.0]]  # per kind: squared difference, reference
+    worst = [0.0, 0.0, 0.0]
     sites = ([(R, "rwkv_time_mix"), (R, "rwkv_channel_mix")] if "rwkv" in cfg.pattern
-             else [(A, "gqa_attention"), (F, "dense_ffn")])
+             else [(A, "gqa_attention"), (F, "dense_ffn")] + ([(F, "moe_ffn")] if cfg.moe else []))
     saved = [getattr(mod, name) for mod, name in sites]
+
+    inside = [False]  # a MoE layer's shared experts are held within its branch
 
     def checked(j, fn):
         def run(*a, **kw):
-            r = fn(*a, **kw)
-            with _PlainKernels():
-                w = fn(*a, **kw)
+            if inside[0]:
+                return fn(*a, **kw)
+            inside[0] = True
+            try:
+                r = fn(*a, **kw)
+                with _PlainKernels():
+                    w = fn(*a, **kw)
+            finally:
+                inside[0] = False
             got, want = (r[0], w[0]) if isinstance(r, tuple) else (r, w)
             sums[j][0] += ((got.double() - want.double()) ** 2).sum().item()
             sums[j][1] += (want.double() ** 2).sum().item()
@@ -1496,7 +1605,8 @@ def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
     finally:
         for (mod, name), fn in zip(sites, saved):
             setattr(mod, name, fn)
-    pooled = [math.sqrt(d / max(r, 1e-300)) for d, r in sums]
+    pooled = [math.sqrt(d / max(r, 1e-300)) for d, r in sums[:len(sites)]]
+    worst = worst[:len(sites)]
     print(f"  {tag}: per-layer branches vs plain ({'full' if steps is None else 'prefill+decode'}"
           f"), rel L2 over all calls ({' and '.join(n for _, n in sites)}) "
           f"{[f'{p:.3g}' for p in pooled]}, worst "
@@ -1707,7 +1817,11 @@ def _lm_serve(torch, dev) -> dict:
     return {"counts": counts, "params": params_b, "cfg": cfg, "raw": params}
 
 
-def _lm_score(torch, dev, params, cfg) -> dict:
+def _lm_score(torch, dev, params, cfg, want=None) -> dict:
+    """One W4A8 scoring forward over [2, ``LM_SCORE_LEN``] tokens: its
+    launches (``want``, by default a dense GQA stack's 7 ``quant_matmul``
+    and one two-stage launch a layer), the logits against the plain
+    versions, every layer's branches."""
     from repro_torch.kernels import probe
     from repro_torch.models import lm
 
@@ -1725,12 +1839,13 @@ def _lm_score(torch, dev, params, cfg) -> dict:
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = cfg.n_layers
-    _check(log.by_name() == {"quant_matmul": 7 * n, "two_stage_attention": n},
-           f"lm scoring forward launches {log.by_name()}")
+    want = want or {"quant_matmul": 7 * n, "two_stage_attention": n}
+    _check(log.by_name() == want, f"lm scoring forward launches {log.by_name()}, expected {want}")
     with torch.inference_mode(), _PlainKernels():
         want, _ = lm.forward(cfg, params, toks)
     rel = _rel(torch, got, want)
-    print(f"lm scoring forward (W4A8, [2, {LM_SCORE_LEN}], causal, dh 128, GQA 40/8): launches "
+    print(f"lm scoring forward ({cfg.name} W4A8, [2, {LM_SCORE_LEN}], causal, dh "
+          f"{cfg.head_dim}, heads {cfg.n_heads}/{cfg.n_kv_heads}): launches "
           f"{log.by_name()}, {dt * 1e3:.1f}ms (first call), peak memory {peak:.2f} GiB; "
           f"vs plain rel L2 {rel:.3g}")
     _check(bool(torch.isfinite(got).all()), "lm scoring forward: non-finite logits")
@@ -2213,6 +2328,161 @@ def phase_rwkv(torch, dev) -> dict:
     del eng, raw, qparams
     print(f"rwkv: phase {time.perf_counter() - t_phase:.1f}s")
     return {"counts": log.by_name(), "runs": 1, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: deepseek-moe-16b (the MoE FFN and quant_matmul's batched launch)
+# ---------------------------------------------------------------------------
+
+
+def _moe_launches(cfg, calls: int) -> dict:
+    """A W4A8 deepseek stack's launches in ``calls`` prefill waves or decode
+    steps: 2-D ``quant_matmul`` for the 4 attention projections a layer,
+    the dense first layers' 3 FFN sites and each MoE layer's 3 shared-expert
+    sites (7 a layer in all); one batched launch a routed projection."""
+    n, moe = cfg.n_layers, cfg.n_layers - cfg.first_dense
+    return {"quant_matmul": (4 * n + 3 * cfg.first_dense + 3 * moe) * calls,
+            "quant_matmul_batched": 3 * moe * calls}
+
+
+def phase_moe(torch, dev) -> dict:
+    """See the module docstring (12)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import mixed_len_prompts
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import lm
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving.batching import ServeError
+    from repro_torch.serving.engine import DecodeRunner, Engine
+    from repro_torch.serving.server import AsyncServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("deepseek-moe-16b").with_(n_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tiers = {n: s.materialize() for n, s in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8").items()}
+    names = list(tiers)
+    n_req, nan = 8, 5  # request 5 (an enqueue ordinal) is poisoned
+    prompts = mixed_len_prompts(cfg.vocab_size, n_req, LM_PROMPT)
+    # q b b q q b b q: each tier serves both prompt lengths
+    assign = [names[((i + 1) // 2) % 2] for i in range(n_req)]
+    eng = Engine(cfg, raw, tiers=tiers, attn_impl="two_stage", mode="auto", max_len=CONT_MAX_LEN,
+                 batch_buckets=(1, 2, 4), max_batch=8, decode_steps_per_poll=8,
+                 faults=f"nan@decode.logits:req={nan},step=3", device="cuda")
+    _check(eng.mode == "continuous", f"moe: mode='auto' resolved to {eng.stats.mode}")
+    t0 = time.perf_counter()
+    for t in tiers:
+        eng.tier_params(t)
+    torch.cuda.synchronize()
+    print(f"moe: deepseek-moe-16b depth {MOE_LAYERS} of 28 layers (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} routed experts "
+          f"of {cfg.moe_d_ff} at top-{cfg.top_k}, {cfg.n_shared_experts} shared, dense layer 0 "
+          f"at {cfg.dense_d_ff}, vocab {cfg.vocab_size}); tiers quantized in "
+          f"{time.perf_counter() - t0:.1f}s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    tracer = obs_trace.Tracer(capacity=8192)
+    prev = obs_trace.install(tracer)
+    reqs = [None] * n_req
+    outcome = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with probe.tracking() as log, AsyncServer(eng) as srv:  # counts start at 0 here
+            def submit(i):
+                reqs[i] = srv.submit(prompts[i], LM_GEN, tier=assign[i])
+
+            submit(0)
+            submit(1)
+            t_wait = time.perf_counter() + 300
+            while eng.active < 2 and time.perf_counter() < t_wait:
+                time.sleep(0.002)
+            _check(eng.active >= 2, "moe: the first two requests never ran")
+            for i in range(2, n_req):  # arrive while the first two decode
+                submit(i)
+            for i, r in enumerate(reqs):
+                try:
+                    outcome[i] = srv.result(r, timeout=600)
+                except ServeError as e:
+                    outcome[i] = e
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        obs_trace.install(prev)
+    _serve_report(torch, eng, "moe", _ttft_ms(tracer, reqs), wall, peak)
+    for tier in names:
+        pre = [s for b, s in eng.stats.buckets.items()
+               if b.tier == tier and type(b).__name__ == "PrefillBucket"]
+        print(f"moe {tier}: prefill {1e3 * sum(s.total_s for s in pre) / sum(s.calls for s in pre):.2f}"
+              f"ms a wave over {sum(s.calls for s in pre)} waves of "
+              f"{sum(s.items for s in pre)} requests")
+    _check(type(outcome[nan]).__name__ == "NumericFault", f"moe nan fault: {outcome[nan]!r}")
+    served = [i for i in range(n_req) if i != nan]
+    for i in served:
+        _check(isinstance(outcome[i], np.ndarray) and outcome[i].shape == (LM_GEN,),
+               f"moe: request {i} not delivered: {outcome[i]!r}")
+    sched = eng.stats.scheduler
+    _check(sched.admitted_mid_decode >= 1, "moe: nothing joined mid-decode")
+    _check(sched.numeric_faults == 1, f"moe: numeric faults {sched.numeric_faults}")
+    _check(all(type(r) is DecodeRunner for r in eng._sched._runners.values()),
+           "moe: served through DecodeRunner")
+    calls = {t: [sum(s.calls for b, s in eng.stats.buckets.items()
+                     if b.tier == t and type(b).__name__ == k)
+                 for k in ("PrefillBucket", "DecodeBucket")] for t in names}
+    want = _moe_launches(cfg, sum(calls["balanced"]))
+    print(f"moe: launches {log.by_name()}; (prefill waves, decode steps) per tier {calls}")
+    _check(log.by_name() == want, f"moe: launches {log.by_name()}, expected {want} (per balanced "
+                                  "prefill wave and decode step; none on quality)")
+
+    # the balanced tier against the plain versions at the same rows and
+    # pads (so routing and capacity are the same): requests 1 (384 tokens)
+    # and 2 (512) teacher-forced on their served tokens
+    params_b = eng.tier_params("balanced")
+    idx = [1, 2]
+    L = eng.prompt_bucket(max(len(prompts[i]) for i in idx))
+    toks = torch.stack([torch.nn.functional.pad(torch.as_tensor(prompts[i], device=dev).long(),
+                                                (L - len(prompts[i]), 0)) for i in idx])
+    pad = torch.tensor([L - len(prompts[i]) for i in idx], device=dev)
+    served_ids = torch.stack([torch.as_tensor(outcome[i]) for i in idx]).to(dev).long()
+    got = _teacher_forced(torch, eng.cfg, params_b, toks, pad, served_ids[:, :4], CONT_MAX_LEN)
+    with _PlainKernels():
+        plain = _teacher_forced(torch, eng.cfg, params_b, toks, pad, served_ids[:, :4],
+                                CONT_MAX_LEN)
+    rels = [_rel(torch, g, w) for g, w in zip(got, plain)]
+    picked = torch.stack([w.argmax(dim=-1) for w in plain], dim=1)
+    agree = int((picked == served_ids[:, :5]).sum())
+    print(f"moe balanced: teacher-forced logits vs plain rel L2 (prefill, 4 decode steps) "
+          f"{[f'{r:.3g}' for r in rels]}; plain versions pick the served token {agree} of "
+          f"{picked.numel()} times (the served rows decoded beside other slots)")
+
+    def moved():
+        with _PlainKernels():
+            again = _teacher_forced(torch, eng.cfg, _noised(torch, params_b), toks, pad,
+                                    served_ids[:, :4], CONT_MAX_LEN)
+        return [_rel(torch, a, w) for a, w in zip(again, plain)]
+
+    _hold_lm(torch, "moe balanced teacher-forced", rels, moved)
+    del got, plain
+    _lm_branches(torch, eng.cfg, params_b, toks, "moe balanced", pad=pad, steps=served_ids[:, :4])
+    _profile_burst(torch, eng, prompts, "moe")
+    del eng
+    # one scoring forward of the W4A8 tree through the dh-128 two-stage kernel
+    n = cfg.n_layers
+    score = _lm_score(torch, dev, params_b, cfg,
+                      want={**_moe_launches(cfg, 1), "two_stage_attention": n})
+    counts = dict(log.by_name())
+    for k, v in score.items():
+        counts[k] = counts.get(k, 0) + v
+    del raw, params_b
+    print(f"moe: phase {time.perf_counter() - t_phase:.1f}s; launches served {log.by_name()}, "
+          f"scoring forward {score}")
+    return {"counts": counts, "runs": 1, "inplace": {}}
 
 
 if __name__ == "__main__":

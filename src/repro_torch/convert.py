@@ -13,24 +13,34 @@ the ``prefix`` list.
 :func:`kv_cache_from_numpy` and :func:`kv_cache_to_numpy` carry a decode
 cache (``models/lm.py::init_cache`` layout) across, each ``KVCache`` as a
 ``{"k", "v", "k_scale", "v_scale", "length"}`` dict and each ``RWKVState``
-as a ``{"tshift", "cshift", "wkv"}`` dict.  Quantized trees are carried by
-the tests that hold them leaf by leaf, not here: they are built on each
-side from the same raw tree.
+as a ``{"tshift", "cshift", "wkv"}`` dict.
+
+A quantized tree (``quantize_lm``'s output: ``QuantLinear`` with its
+``QTensor``, ``FoldedNorm``, ``FusedFFN`` leaves; a MoE layer's
+expert-stacked ``QuantLinear`` with values [G, E, K/2, N]) crosses the same
+way, each dataclass as a dict of its fields with its class name under
+``"__class__"``: array fields become tensors, every other field (bits,
+flags, kinds, tiles, site names) is kept as it is.  The two packages'
+dataclasses have the same names and fields.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.versaq import Norm
+from repro_torch.core.quantize import QTensor
+from repro_torch.core.versaq import Epilogue, FoldedNorm, FusedFFN, Norm, Prologue, QuantLinear
 from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv import RWKVState
 
 __all__ = ["params_from_numpy", "params_to_numpy", "kv_cache_from_numpy", "kv_cache_to_numpy"]
 
 _KV_FIELDS = ("k", "v", "k_scale", "v_scale")
+_CLASSES = {c.__name__: c for c in (QTensor, QuantLinear, FoldedNorm, FusedFFN, Norm, Prologue,
+                                    Epilogue)}
 
 
 def _is_norm(d: dict) -> bool:
@@ -44,6 +54,10 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     if tree is None:
         return None
     if isinstance(tree, dict):
+        if "__class__" in tree:
+            return _CLASSES[tree["__class__"]](**{
+                k: params_from_numpy(v, device) if isinstance(v, (dict, list, np.ndarray)) else v
+                for k, v in tree.items() if k != "__class__"})
         if _is_norm(tree):
             return Norm(
                 g=params_from_numpy(tree["g"], device),
@@ -58,13 +72,19 @@ def params_from_numpy(tree: Any, device=None) -> Any:
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """Inverse of :func:`params_from_numpy` for a raw (unquantized)
-    parameter tree."""
+    """Inverse of :func:`params_from_numpy`."""
     if tree is None:
         return None
     if isinstance(tree, Norm):
         return {"g": params_to_numpy(tree.g), "b": params_to_numpy(tree.b),
                 "kind": tree.kind, "eps": tree.eps}
+    if type(tree).__name__ in _CLASSES:
+        out = {"__class__": type(tree).__name__}
+        for f in dataclasses.fields(tree):
+            v = getattr(tree, f.name)
+            nested = isinstance(v, (dict, list, torch.Tensor)) or dataclasses.is_dataclass(v)
+            out[f.name] = params_to_numpy(v) if nested else v
+        return out
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):

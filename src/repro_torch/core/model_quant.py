@@ -1,6 +1,6 @@
 """Whole-model VersaQ quantization (the paper's offline pipeline, Fig. 6)
 — port of ``repro/core/model_quant.py``: ``quantize_vggt`` and, for
-dense GQA and RWKV-6 LMs, ``quantize_lm``.
+dense GQA, MoE and RWKV-6 LMs, ``quantize_lm``.
 
 * The **residual stream is rotated once** (VGGT: H fused on the patch
   projection's output side, special tokens rotated; LM: E ← E·H on the
@@ -10,8 +10,12 @@ dense GQA and RWKV-6 LMs, ``quantize_lm``.
 * V/O projections carry the per-head Hadamard pair; LayerScale folds into
   the output projections; the FFN hidden→down projection keeps the one
   online WHT.
-* Heads (VGGT's camera/DPT heads, the LM's ``lm_head``) stay full
-  precision and absorb the final norm; qk-norm and RoPE stay full precision.
+* Heads (VGGT's camera/DPT heads, the LM's ``lm_head``) and MoE routers
+  stay full precision and absorb the preceding norm; qk-norm and RoPE stay
+  full precision.
+* A MoE layer's routed experts are prepared per (scan group, expert) and
+  stacked over both axes: one expert-stacked ``QuantLinear`` per projection,
+  which the forward applies in one batched kernel launch.
 
 * With ``PrecisionPlan(fuse=True)`` the unified datapath is built: Q/K/V
   merge into one ``wqkv`` site that absorbs the LayerNorm as its kernel
@@ -21,9 +25,9 @@ dense GQA and RWKV-6 LMs, ``quantize_lm``.
 A uniform ``QuantPolicy``, a per-site ``PrecisionPlan`` and a compiled
 ``KernelSchedule`` (``core/precision/compiler.py``) are accepted.  With a
 schedule, fusion decisions and kernel launch tiles are read from it
-instead of decided inline.  The reference prepares the stacked scan
-groups with ``vmap``; here each group is prepared in a loop and the
-results are stacked, which yields the same leaves.
+instead of decided inline.  The reference prepares stacked scan groups and
+experts with ``vmap``; here each slice is prepared in a loop and the
+results are stacked (``_vmapped``), which yields the same leaves.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from repro_torch.core.versaq import (
     rotate_cols,
 )
 from repro_torch.core import transforms
+from repro_torch.models.lm import ffn_kind
 from repro_torch.tree import tree_stack
 
 __all__ = ["quantize_vggt", "quantize_lm", "FUSED_PANEL_BUDGET"]
@@ -118,17 +123,35 @@ class _Resolver:
         return self._schedule.fuse_decision(group)
 
 
-def _prep(w: torch.Tensor, pol: _Resolver, site: str, **kw):
-    """Per-site prepare (quantized or bf16-fused) of a stacked [G, K, N]
-    weight, one scan group at a time.  Tensor kwargs (gamma/beta/bias/
-    out_scale) carry the same leading group dim."""
+def _vmapped(fn, n_lead: int):
+    """``fn`` over ``n_lead`` stacked leading axes (scan groups, experts) of
+    its tensor arguments: the reference's ``vmap``, here one call per slice
+    with the results stacked."""
+    if n_lead == 0:
+        return fn
+    inner = _vmapped(fn, n_lead - 1)
+
+    def go(*arrs):
+        return tree_stack([inner(*(a[i] for a in arrs)) for i in range(arrs[0].shape[0])])
+
+    return go
+
+
+def _prep(w: torch.Tensor, pol: _Resolver, site: str, lead: int = 1, **kw):
+    """Per-site prepare (quantized or bf16-fused) of a weight with ``lead``
+    stacked leading axes ([K, N], [G, K, N], or [G, E, K, N] for a MoE
+    layer's experts).  Tensor kwargs (gamma/beta/bias/out_scale) carry the
+    same leading axes; None kwargs are passed through."""
     site_policy = pol.at(site)
     tiles = pol.tiles_at(site)
-    per_group = []
-    for gi in range(w.shape[0]):
-        kg = {k: (v[gi] if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
-        per_group.append(_prepare_site(w[gi], pol, site_policy, site=site, tiles=tiles, **kg))
-    return tree_stack(per_group)
+    arr_keys = [k for k in ("gamma", "beta", "bias", "out_scale") if kw.get(k) is not None]
+    static_kw = {k: v for k, v in kw.items() if k not in arr_keys}
+
+    def go(w_, *arrs):
+        return _prepare_site(w_, pol, site_policy, tiles=tiles, site=site, **static_kw,
+                             **dict(zip(arr_keys, arrs)))
+
+    return _vmapped(go, lead)(w, *[kw[k] for k in arr_keys])
 
 
 def _prepare_site(w, pol: _Resolver, site_policy, *, out_scale=None, tiles=None, site=None,
@@ -144,8 +167,8 @@ def _prepare_site(w, pol: _Resolver, site_policy, *, out_scale=None, tiles=None,
 
 
 def _fold_fp(w, gamma=None, beta=None, bias=None, rotate_in=False):
-    """Fold γ/β/H into a full-precision consumer (the heads), which takes
-    the rotated, γ-less norm output."""
+    """Fold γ/β/H into a full-precision consumer (the heads, a MoE router),
+    which takes the rotated, γ-less norm output."""
     w = w.to(torch.float32)
     if bias is None:
         b = torch.zeros((w.shape[-1],), dtype=torch.float32, device=w.device)
@@ -400,14 +423,13 @@ def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
     """Quantize an ``models/lm.py`` parameter tree with a uniform
     ``QuantPolicy``, a per-site ``PrecisionPlan`` or a compiled
     ``KernelSchedule``.  Returns a new tree; the forward code is unchanged
-    (dispatch happens on leaf types).  GQA/dense-FFN and rwkv layers; the
-    Mamba, MLA and MoE branches of the reference raise.  An rwkv stack
-    keeps an unrotated stream (its token shift and decay LoRA read the
-    stream in the clear), so every rwkv projection takes the online WHT."""
+    (dispatch happens on leaf types).  GQA layers with dense or MoE FFNs,
+    and rwkv layers; the Mamba and MLA branches of the reference raise.  An
+    rwkv stack keeps an unrotated stream (its token shift and decay LoRA
+    read the stream in the clear), so every rwkv projection takes the
+    online WHT."""
     if cfg.mla:
-        raise NotImplementedError("quantize_lm: MLA is not ported yet (ROADMAP queue 1 item 7)")
-    if cfg.moe:
-        raise NotImplementedError("quantize_lm: MoE is not ported yet (ROADMAP queue 1 item 7)")
+        raise NotImplementedError("quantize_lm: MLA is not ported yet (ROADMAP queue 1 item 7b)")
     if "mamba" in cfg.pattern:
         raise NotImplementedError(
             f"quantize_lm: the Mamba mixer is not ported yet (pattern {cfg.pattern}; "
@@ -432,15 +454,16 @@ def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
 
     # ---- prefix layers (not stacked) + scanned groups (stacked) ----
     q["prefix"] = [
-        _quantize_layer(cfg, lp, cfg.pattern[i % len(cfg.pattern)], pol, rotated, stacked=False,
-                        pfx=f"prefix.{i}")
+        _quantize_layer(cfg, lp, cfg.pattern[i % len(cfg.pattern)], ffn_kind(cfg, i), pol,
+                        rotated, lead=0, pfx=f"prefix.{i}")
         for i, lp in enumerate(params["prefix"])
     ]
     blocks = dict(params["blocks"])
     for j in range(len(cfg.pattern)):
-        kind = cfg.pattern[(cfg.first_dense + j) % len(cfg.pattern)]
-        blocks[f"l{j}"] = _quantize_layer(cfg, params["blocks"][f"l{j}"], kind, pol, rotated,
-                                          stacked=True, pfx=f"blocks.l{j}")
+        gi = cfg.first_dense + j
+        blocks[f"l{j}"] = _quantize_layer(cfg, params["blocks"][f"l{j}"],
+                                          cfg.pattern[gi % len(cfg.pattern)], ffn_kind(cfg, gi),
+                                          pol, rotated, lead=1, pfx=f"blocks.l{j}")
     q["blocks"] = blocks
 
     # ---- final norm + head ----
@@ -453,28 +476,28 @@ def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
     return q
 
 
-def _prep_any(w, pol: _Resolver, site: str, stacked: bool, **kw):
-    """``_prep`` over a stacked [G, K, N] weight, or one unstacked prefix
-    layer's [K, N] weight."""
-    if stacked:
-        return _prep(w, pol, site, **kw)
-    return _prepare_site(w, pol, pol.at(site), tiles=pol.tiles_at(site), site=site, **kw)
+def _bcast(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """[..., d] -> [..., n, d]: one copy of a norm's γ/β per expert."""
+    if x is None:
+        return None
+    return x[..., None, :].expand(tuple(x.shape[:-1]) + (n, x.shape[-1]))
 
 
-def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, pol: _Resolver, rotated: bool, *,
-                    stacked: bool, pfx: str) -> dict:
-    """One layer (stacked over scan groups or not).  Attention + dense FFN:
-    the GQA sites with the per-head V/O Hadamard pair and the LayerScale
-    fold, ``_fuse_qkv``; the dense FFN with the one online WHT before
-    ``w_down``, ``_fuse_ffn``.  rwkv: ``_quantize_rwkv``."""
+def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, pol: _Resolver,
+                    rotated: bool, *, lead: int, pfx: str) -> dict:
+    """One layer (``lead`` = 1: stacked over scan groups; 0: a prefix
+    layer).  Attention: the GQA sites with the per-head V/O Hadamard pair
+    and the LayerScale fold, ``_fuse_qkv``.  A dense FFN: the one online WHT
+    before ``w_down``, ``_fuse_ffn``; a MoE FFN (``fk``): ``_quantize_moe``.
+    rwkv: ``_quantize_rwkv``."""
     if kind == "rwkv":
-        return _quantize_rwkv(lp, pol, stacked=stacked, pfx=pfx)
+        return _quantize_rwkv(lp, pol, lead=lead, pfx=pfx)
     out = dict(lp)
     mn: Norm = lp["mixer_norm"]
     fnm: Norm = lp["ffn_norm"]
     g1, b1 = (mn.g, mn.b) if rotated else (None, None)
     g2, b2 = (fnm.g, fnm.b) if rotated else (None, None)
-    groups = int(mn.g.shape[0]) if stacked else None
+    groups = int(mn.g.shape[0]) if lead else None
     dev = mn.g.device
     if rotated:
         out["mixer_norm"] = _folded(mn.kind, cfg.d_model, groups, dev)
@@ -485,28 +508,32 @@ def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, pol: _Resolver, rotat
     mx = dict(lp["mixer"])  # qk-norm stays a full-precision island
     dh = cfg.head_dim
     for name in ("wq", "wk"):
-        mx[name] = _prep_any(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", stacked,
-                             gamma=g1, beta=b1, bias=lp["mixer"][name].get("b"), **common)
-    mx["wv"] = _prep_any(lp["mixer"]["wv"]["w"], pol, f"{pfx}.mixer.wv", stacked,
-                         gamma=g1, beta=b1, bias=lp["mixer"]["wv"].get("b"),
-                         head_rot_out=(cfg.n_kv_heads, dh), **common)
-    mx["wo"] = _prep_any(lp["mixer"]["wo"]["w"], pol, f"{pfx}.mixer.wo", stacked,
-                         bias=lp["mixer"]["wo"].get("b"), out_scale=ls1,
-                         head_rot_in=(cfg.n_heads, dh), rotate_out_offline=rotated)
+        mx[name] = _prep(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", lead,
+                         gamma=g1, beta=b1, bias=lp["mixer"][name].get("b"), **common)
+    mx["wv"] = _prep(lp["mixer"]["wv"]["w"], pol, f"{pfx}.mixer.wv", lead,
+                     gamma=g1, beta=b1, bias=lp["mixer"]["wv"].get("b"),
+                     head_rot_out=(cfg.n_kv_heads, dh), **common)
+    mx["wo"] = _prep(lp["mixer"]["wo"]["w"], pol, f"{pfx}.mixer.wo", lead,
+                     bias=lp["mixer"]["wo"].get("b"), out_scale=ls1,
+                     head_rot_in=(cfg.n_heads, dh), rotate_out_offline=rotated)
     if pol.fuse:
         mx = _fuse_qkv(mx, mn.kind, cfg.d_model, groups, rotated, dev,
                        decision=pol.fuse_decision(f"{pfx}.mixer.wqkv"))
     out["mixer"] = mx
     out.pop("ls1", None)
 
+    if fk == "moe":
+        out["ffn"] = _quantize_moe(cfg, lp["ffn"], pol, rotated, g2, b2, common, lead=lead,
+                                   pfx=pfx)
+        return out
     f = dict(lp["ffn"])
     for name in ("w_gate", "w_up"):
         if name in lp["ffn"]:
-            f[name] = _prep_any(lp["ffn"][name]["w"], pol, f"{pfx}.ffn.{name}", stacked,
-                                gamma=g2, beta=b2, bias=lp["ffn"][name].get("b"), **common)
-    f["w_down"] = _prep_any(lp["ffn"]["w_down"]["w"], pol, f"{pfx}.ffn.w_down", stacked,
-                            bias=lp["ffn"]["w_down"].get("b"), out_scale=ls2,
-                            rotate_input_online=True, rotate_out_offline=rotated)
+            f[name] = _prep(lp["ffn"][name]["w"], pol, f"{pfx}.ffn.{name}", lead,
+                            gamma=g2, beta=b2, bias=lp["ffn"][name].get("b"), **common)
+    f["w_down"] = _prep(lp["ffn"]["w_down"]["w"], pol, f"{pfx}.ffn.w_down", lead,
+                        bias=lp["ffn"]["w_down"].get("b"), out_scale=ls2,
+                        rotate_input_online=True, rotate_out_offline=rotated)
     if pol.fuse:
         f = _fuse_ffn(f, cfg.act, fnm.kind, cfg.d_model, groups, rotated, dev,
                       decision=pol.fuse_decision(f"{pfx}.ffn"))
@@ -515,7 +542,43 @@ def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, pol: _Resolver, rotat
     return out
 
 
-def _quantize_rwkv(lp: dict, pol: _Resolver, *, stacked: bool, pfx: str) -> dict:
+def _quantize_moe(cfg: ModelConfig, ffn: dict, pol: _Resolver, rotated: bool, g2, b2,
+                  common: dict, *, lead: int, pfx: str) -> dict:
+    """The reference's MoE branch: the router stays full precision and
+    absorbs the folded γ/β and the stream rotation; the routed experts are
+    prepared per (group, expert), ``w_gate``/``w_up`` like the dense gate/up
+    sites and ``w_down`` with the online WHT on its input; the shared
+    experts take the dense-site treatment, unfused."""
+    f = dict(ffn)
+    rt = ffn["router"]
+    arrs = {k: v for k, v in (("gamma", g2), ("beta", b2), ("bias", rt.get("b")))
+            if v is not None}
+    f["router"] = _vmapped(
+        lambda w_, *a: _fold_fp(w_, **dict(zip(arrs, a)), rotate_in=rotated), lead,
+    )(rt["w"], *arrs.values())
+    ex = ffn["experts"]
+    nex = dict(ex)
+    e = cfg.n_experts
+    for name in ("w_gate", "w_up"):
+        if name in ex:
+            nex[name] = _prep(ex[name], pol, f"{pfx}.ffn.experts.{name}", lead + 1,
+                              gamma=_bcast(g2, e), beta=_bcast(b2, e), **common)
+    nex["w_down"] = _prep(ex["w_down"], pol, f"{pfx}.ffn.experts.w_down", lead + 1,
+                          rotate_input_online=True, rotate_out_offline=rotated)
+    f["experts"] = nex
+    if "shared" in ffn:
+        sh = dict(ffn["shared"])
+        for name in ("w_gate", "w_up"):
+            if name in ffn["shared"]:
+                sh[name] = _prep(ffn["shared"][name]["w"], pol, f"{pfx}.ffn.shared.{name}",
+                                 lead, gamma=g2, beta=b2, **common)
+        sh["w_down"] = _prep(ffn["shared"]["w_down"]["w"], pol, f"{pfx}.ffn.shared.w_down",
+                             lead, rotate_input_online=True, rotate_out_offline=rotated)
+        f["shared"] = sh
+    return f
+
+
+def _quantize_rwkv(lp: dict, pol: _Resolver, *, lead: int, pfx: str) -> dict:
     """One rwkv layer: the time-mix ``wr/wk/wv/wg/wo`` and the channel-mix
     ``w_up/w_down``, each with the online WHT on its input; the lerp
     factors, the decay LoRA, the bonus, ``ln_x`` and both pre-norms stay
@@ -523,12 +586,12 @@ def _quantize_rwkv(lp: dict, pol: _Resolver, *, stacked: bool, pfx: str) -> dict
     out = dict(lp)
     mx = dict(lp["mixer"])
     for name in ("wr", "wk", "wv", "wg", "wo"):
-        mx[name] = _prep_any(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", stacked,
-                             rotate_input_online=True)
+        mx[name] = _prep(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", lead,
+                         rotate_input_online=True)
     out["mixer"] = mx
     f = dict(lp["ffn"])
     for name in ("w_up", "w_down"):
-        f[name] = _prep_any(lp["ffn"][name]["w"], pol, f"{pfx}.ffn.{name}", stacked,
-                            rotate_input_online=True)
+        f[name] = _prep(lp["ffn"][name]["w"], pol, f"{pfx}.ffn.{name}", lead,
+                        rotate_input_online=True)
     out["ffn"] = f
     return out

@@ -27,7 +27,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import transforms
-from repro_torch.core.quantize import QTensor, quantize_per_token, quantize_weight
+from repro_torch.core.quantize import QTensor, quantize_per_token, quantize_weight, unpack_int4
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.fused import act_rows as _act_fn
 from repro_torch.obs import quant_health
@@ -210,9 +210,13 @@ def online_wht(x: torch.Tensor) -> torch.Tensor:
 def _int_matmul(xq: QTensor, wq: QTensor) -> torch.Tensor:
     """(per-token int) x (per-channel int) -> scaled float32: the float32
     emulation of the integer matmul, op for op as the reference's
-    ``_int_matmul`` (the CUDA kernel is the exact hot path)."""
+    ``_int_matmul`` (the CUDA kernel is the exact hot path).  Expert-stacked
+    weights ([E, K(/2), N]) multiply x [..., E, M, K] expert by expert, as
+    the reference's ``vmap`` does."""
     xv = xq.values.to(torch.float32)
-    wv = wq.unpacked_values().to(torch.float32)
+    stacked = wq.values.ndim - 2
+    wv = (unpack_int4(wq.values, wq.pack_axis + stacked) if wq.packed
+          else wq.values).to(torch.float32)
     acc = xv @ wv
     return acc * xq.scale.to(torch.float32) * wq.scale.to(torch.float32)
 
@@ -263,7 +267,10 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
     """Dispatching linear: plain {"w", "b"} dict or QuantLinear.
 
     A QuantLinear quantizes activations per token at its own ``a_bits``
-    and runs the integer matmul on its own weight format.  ``use_kernel``
+    and runs the integer matmul on its own weight format.  A MoE layer's
+    expert-stacked QuantLinear (values [E, K(/2), N]) takes x [..., E, M, K]
+    and applies each expert to its rows (the reference's ``vmap``), on the
+    kernel path in one batched launch.  ``use_kernel``
     sites go to the CUDA kernels: a site with ``prologue``/``epilogue``
     descriptors to the one-launch ``kernels.ops.fused_linear``, any other
     to ``kernels.ops.quant_linear_matmul``.  Otherwise the float emulation

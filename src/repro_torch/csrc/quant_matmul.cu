@@ -53,6 +53,14 @@
 // float(acc) * xs * ws, as in the reference.  Ragged M, N and K edges are
 // zero-filled at the loads (cp.async with src-size 0) and masked at the
 // stores.
+//
+// Batched launch (vq_quant_matmul_batched): the reference runs the routed
+// experts of a MoE layer as jax.vmap over this pallas_call, i.e. one more
+// grid axis.  Here that axis is blockIdx.z: block (x, y, z) computes tile
+// (x, y) of problem z, whose x, xs and y sit z problems into their stacks
+// and whose weights and weight scales are those of expert z % WB (a
+// layer's WB experts, shared by every dispatch block of tokens).  Nothing
+// else in the kernel changes; the 2-D entry is the launch with one problem.
 #include "mma_s8.cuh"
 #include "wgmma_s8.cuh"
 
@@ -196,9 +204,17 @@ template <bool PACKED, bool VEC16>
 __global__ void __launch_bounds__(THREADS, 1)
     quant_matmul_kernel(const int8_t* __restrict__ xv, const float* __restrict__ xs,
                         const uint8_t* __restrict__ wv, const float* __restrict__ ws,
-                        float* __restrict__ out, int M, int N, int K) {
+                        float* __restrict__ out, int M, int N, int K, int WB) {
   using G = Geo<PACKED>;
   constexpr int S = G::STAGES;
+  {  // problem blockIdx.z of a batched launch (0 for the 2-D one)
+    const size_t z = blockIdx.z, zw = blockIdx.z % WB;
+    xv += z * M * K;
+    xs += z * M;
+    out += z * M * N;
+    wv += zw * (PACKED ? K / 2 : K) * N;
+    ws += zw * N;
+  }
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* ring = smem;
   int8_t* bops = reinterpret_cast<int8_t*>(smem + S * G::STAGE_BYTES);
@@ -277,7 +293,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 using Kernel = void (*)(const int8_t*, const float*, const uint8_t*, const float*, float*, int,
-                        int, int);
+                        int, int, int);
 
 // The instance for these operands, and its dynamic shared memory.
 Kernel pick(int N, const void* wv, int packed, int* smem) {
@@ -310,15 +326,21 @@ extern "C" int vq_quant_matmul_attrs(int N, int K, int packed, int* out) {
   return 0;
 }
 
-// C entry point (ctypes).  Shapes: xv [M,K] s8, xs [M] f32, ws [N] f32,
+// C entry points (ctypes).  Shapes: xv [M,K] s8, xs [M] f32, ws [N] f32,
 // out [M,N] f32; wv [K,N] s8, or [K/2,N] u8 when packed.  Requires
 // K % 16 == 0 (W8) or K % 32 == 0 (W4), N % 4 == 0, xv 16-byte and wv
 // 4-byte aligned — the Python wrapper checks these — and K < 2^17 at W4
-// (cudaErrorInvalidValue otherwise).  Returns cudaGetLastError().
-extern "C" int vq_quant_matmul(const void* xv, const void* xs, const void* wv, const void* ws,
-                               void* out, int M, int N, int K, int packed, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+// (cudaErrorInvalidValue otherwise).  The batched entry takes B stacked
+// problems (xv [B,M,K], xs [B,M], out [B,M,N]) over WB stacked weights
+// (wv [WB,K,N] or [WB,K/2,N], ws [WB,N]), problem b on weights b % WB,
+// with WB dividing B and B <= 65535 (the grid's z extent); K % 16 keeps
+// every problem's rows 16-byte aligned.  Returns cudaGetLastError().
+extern "C" int vq_quant_matmul_batched(const void* xv, const void* xs, const void* wv,
+                                       const void* ws, void* out, int B, int WB, int M, int N,
+                                       int K, int packed, void* stream) {
   if (packed && K >= (1 << 17)) return static_cast<int>(cudaErrorInvalidValue);  // 16 sum < 2^31
+  if (B < 1 || WB < 1 || B % WB != 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, B);
   int smem = 0;
   const Kernel k = pick(N, wv, packed, &smem);
   const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -326,6 +348,11 @@ extern "C" int vq_quant_matmul(const void* xv, const void* xs, const void* wv, c
   k<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(xv), static_cast<const float*>(xs),
       static_cast<const uint8_t*>(wv), static_cast<const float*>(ws), static_cast<float*>(out),
-      M, N, K);
+      M, N, K, WB);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vq_quant_matmul(const void* xv, const void* xs, const void* wv, const void* ws,
+                               void* out, int M, int N, int K, int packed, void* stream) {
+  return vq_quant_matmul_batched(xv, xs, wv, ws, out, 1, 1, M, N, K, packed, stream);
 }

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels for the perf-critical compute of VersaQ-3D.
 
 - quant_matmul.py: INT8/packed-INT4 tensor-core matmul (the reconfigurable
-  PE array; ``csrc/quant_matmul.cu``)
+  PE array; ``csrc/quant_matmul.cu``), and its batched launch over a MoE
+  layer's stacked experts
 - two_stage_attention.py: paper Alg. 1, stats pass + recompute pass in one
   launch (``csrc/two_stage_attention.cu``)
 - fused.py: the unified datapath (§IV-B) — ``fused_matmul``, ``fused_ffn``

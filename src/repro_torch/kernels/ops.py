@@ -77,11 +77,25 @@ def quant_linear_matmul(
     """Quantize activations per token and run the integer matmul kernel.
 
     x: [..., K] float -> [..., N] float32.  ``tiles``: see :func:`launch_tiles`.
+
+    Expert-stacked weights (values [E, K(/2), N], scales [E, 1, N]: a MoE
+    layer's routed experts) take x [..., E, M, K], quantize every row at
+    once and make one batched launch over all of x's [E, M] problems (the
+    reference's ``vmap`` over the kernel; leading axes of x beyond E are
+    dispatch blocks sharing the same experts).
     """
     launch_tiles("quant_matmul", tiles)
     lead = tuple(x.shape[:-1])
     k = x.shape[-1]
-    n = wq.shape[-1]
+    n = wq.values.shape[-1]
+    if wq.values.ndim == 3:
+        e = wq.values.shape[0]
+        xq = quantize_per_token(x.reshape(-1, x.shape[-2], k), a_bits)
+        y = _qm.quant_matmul_batched(
+            xq.values, xq.scale, wq.values, wq.scale.reshape(e, 1, n).to(torch.float32),
+            packed=wq.packed,
+        )
+        return y.reshape(lead + (n,))
     xq = quantize_per_token(x.reshape(-1, k), a_bits)
     y = _qm.quant_matmul(
         xq.values, xq.scale, wq.values, wq.scale.reshape(1, -1).to(torch.float32),

@@ -9,6 +9,9 @@ VGGT scenes through ``VGGTEngine``, LM prompts through the LM ``Engine``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --tiers fp=fp,w4a8=w4a8 --requests 6 --prompt-len 256 --gen 32 --batch 4
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b-smoke \\
+      --tiers quality=fp,balanced=w4a8 --requests 4 --prompt-len 8 --gen 8 --batch 2
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
       --tiers quality=fp,balanced=w4a8,planned=plan:fused,fast=w4a8:fused \\
       --attn-impl two_stage --requests 8 --scenes 1 --frames 8 --patches 1024 \\
@@ -241,7 +244,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vggt-1b-smoke",
                     help="a ported config: vggt-1b, vggt-1b-smoke, qwen3-14b, qwen3-14b-smoke, "
-                         "rwkv6-1.6b, rwkv6-1.6b-smoke")
+                         "rwkv6-1.6b, rwkv6-1.6b-smoke, deepseek-moe-16b, "
+                         "deepseek-moe-16b-smoke")
     ap.add_argument("--device", default="cuda",
                     help="where to serve (default: the CUDA device; no fallback)")
     ap.add_argument("--policy", default="w4a8",

@@ -1,5 +1,5 @@
 """Config-driven LM composition: init / forward / prefill / decode (port of
-``repro/models/lm.py``: dense GQA stacks and RWKV-6 stacks).
+``repro/models/lm.py``: dense GQA stacks, MoE stacks and RWKV-6 stacks).
 
 The reference groups the layer stack by the config's ``pattern`` period
 and scans the groups with ``jax.lax.scan``; here the scan is a Python loop
@@ -9,8 +9,9 @@ non-uniform first layers as the list ``params["prefix"]``.
 
 The same forward runs full precision (plain dict leaves) and
 VersaQ-quantized (``QuantLinear``/``FoldedNorm`` leaves, see
-``core/model_quant.py::quantize_lm``).  Mamba, MLA and MoE layers raise
-``NotImplementedError``.
+``core/model_quant.py::quantize_lm``).  Mamba and MLA layers raise
+``NotImplementedError``.  With ``pad_lens`` the forward also masks the pad
+slots out of MoE routing (``token_mask``), as the reference does.
 
 The decode cache's ``pos`` and every ``KVCache.length`` are host ints: all
 rows of a served batch share one decode clock (see ``models/attention.py``).
@@ -46,9 +47,8 @@ __all__ = [
 # what each unported layer kind waits for (ROADMAP.md, queue 1)
 _UNPORTED = {
     "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9; it comes with "
-             "jamba, after MoE)",
-    "mla": "MLA attention is not ported yet (ROADMAP queue 1 item 7)",
-    "moe": "the MoE FFN is not ported yet (ROADMAP queue 1 item 7)",
+             "jamba)",
+    "mla": "MLA attention is not ported yet (ROADMAP queue 1 item 7b)",
 }
 
 
@@ -85,8 +85,6 @@ def _check_ported(cfg: ModelConfig) -> None:
             _unported(kind)
     if cfg.mla:
         _unported("mla")
-    if cfg.moe:
-        _unported("moe")
 
 
 # ---------------------------------------------------------------------------
@@ -105,11 +103,18 @@ def _init_layer(generator: torch.Generator, cfg: ModelConfig, global_idx: int, d
             "ffn": R.init_rwkv_channel(generator, cfg, **kw),
         }
     else:
+        if ffn_kind(cfg, global_idx) == "moe":
+            ffn = F.init_moe(generator, cfg, **kw)
+        else:
+            # a MoE stack's dense layers (the first_dense prefix and the
+            # dense_inner ones) take dense_d_ff, as in the reference
+            dff = (cfg.dense_d_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
+            ffn = F.init_dense_ffn(generator, cfg.d_model, dff, cfg.act, **kw)
         p = {
             "mixer_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
             "mixer": A.init_gqa(generator, cfg, **kw),
             "ffn_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
-            "ffn": F.init_dense_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act, **kw),
+            "ffn": ffn,
         }
     if cfg.layerscale:
         p["ls1"] = torch.full((cfg.d_model,), cfg.layerscale_init, **kw)
@@ -297,11 +302,11 @@ def cache_set_clock(cfg: ModelConfig, cache: dict, clock: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer(cfg: ModelConfig, lp: dict, kind: str, x: torch.Tensor, *, positions,
-                 cache=None, mode: str = "full", pad_lens=None):
-    """One layer: an attention mixer and a dense FFN, or an rwkv time-mix
-    and channel-mix.  Returns (x, the new cache entry): the KV cache written
-    in place, or a new ``RWKVState`` (None without a cache)."""
+def _apply_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, x: torch.Tensor, *,
+                 positions, cache=None, mode: str = "full", pad_lens=None, token_mask=None):
+    """One layer: an attention mixer and a dense or MoE FFN (``fk``), or an
+    rwkv time-mix and channel-mix.  Returns (x, the new cache entry): the KV
+    cache written in place, or a new ``RWKVState`` (None without a cache)."""
     # fused sites absorb their pre-norm (unified-datapath prologue): pass
     # the raw residual stream and let the kernel run the norm statistics
     h = x if F.carries_norm(lp["mixer"]) else L.norm(lp["mixer_norm"], x)
@@ -322,6 +327,8 @@ def _apply_layer(cfg: ModelConfig, lp: dict, kind: str, x: torch.Tensor, *, posi
         if cache is not None:
             new_cache = R.RWKVState(tshift=tshift.to(torch.float32),
                                     cshift=cshift.to(torch.float32), wkv=wkv)
+    elif fk == "moe":
+        out = F.moe_ffn(lp["ffn"], cfg, h, token_mask=token_mask)
     else:
         out = F.dense_ffn(lp["ffn"], cfg.act, h)
     if "ls2" in lp:
@@ -375,17 +382,23 @@ def forward(
     lq = inputs.shape[1]
     slots = (pos0 + torch.arange(lq, device=inputs.device))[None, :]
     positions = slots
+    token_mask = None
     if pad_lens is not None:
         # logical positions: slot s of a row with p leading pads holds
         # token s - p (clamped for the masked pad slots themselves)
         positions = torch.clamp_min(slots - pad_lens[:, None], 0)
+        # slot validity: the first pad_lens slots of a row are padding, which
+        # MoE routing must not let take expert capacity (an idle decode slot,
+        # pad max_len + 1, is masked whole)
+        token_mask = slots >= pad_lens[:, None]
     x = _embed_inputs(cfg, params, inputs, positions)
 
     new_prefix = []
     for i, lp in enumerate(params["prefix"]):
         c = cache["prefix"][i] if cache is not None else None
-        x, c2 = _apply_layer(cfg, lp, mixer_kind(cfg, i), x, positions=positions, cache=c,
-                             mode=mode, pad_lens=pad_lens)
+        x, c2 = _apply_layer(cfg, lp, mixer_kind(cfg, i), ffn_kind(cfg, i), x,
+                             positions=positions, cache=c, mode=mode, pad_lens=pad_lens,
+                             token_mask=token_mask)
         new_prefix.append(c2)
 
     period = len(cfg.pattern)
@@ -402,8 +415,11 @@ def forward(
                 else:
                     c = A.KVCache(full.k[g], full.v[g], full.k_scale[g], full.v_scale[g],
                                   full.length)
-            x, c2 = _apply_layer(cfg, gp[name], kind, x, positions=positions, cache=c,
-                                 mode=mode, pad_lens=pad_lens)
+            # the reference's scan body takes each pattern position's FFN
+            # kind from the first group (``ffn_kind(first_dense + j)``)
+            x, c2 = _apply_layer(cfg, gp[name], kind, ffn_kind(cfg, cfg.first_dense + j), x,
+                                 positions=positions, cache=c, mode=mode, pad_lens=pad_lens,
+                                 token_mask=token_mask)
             if c2 is None:
                 continue
             if kind == "rwkv":  # write the group's state in place

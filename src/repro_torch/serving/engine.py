@@ -38,7 +38,10 @@ mode beside it (port of ``repro/serving/engine.py``).
   each tier has its own decode runner, and each tier's tree is quantized
   lazily on first use.  A uniform ``w4a8`` plan with ``use_kernel=True``
   runs every projection of prefill and decode on the ``quant_matmul``
-  kernel.  The served prefill and decode take the masked vanilla attention
+  kernel; a MoE layer's routed experts run on its batched launch, one per
+  projection, and the ``pad_lens`` of every masked prefill wave and slot
+  decode step keep pad and idle-slot rows out of routing and capacity.
+  The served prefill and decode take the masked vanilla attention
   over the int8 cache, as in the reference; only
   ``lm.forward(mode="full")`` reaches the two-stage kernel.
 * **Sampling** — per request, from an explicit ``torch.Generator``: in
@@ -956,10 +959,11 @@ class Engine:
             raise NotImplementedError(
                 "Engine(schedule=...): the kernel-schedule compiler's LM lowering is not "
                 "ported yet (ROADMAP.md, queue 1 item 7); serve tiers or a policy")
-        if "mamba" in cfg.pattern or cfg.mla or cfg.moe or cfg.embed_inputs:
+        if "mamba" in cfg.pattern or cfg.mla or cfg.embed_inputs:
             raise NotImplementedError(
-                f"{cfg.name}: only dense GQA and rwkv token LMs are ported (ROADMAP.md, "
-                "queue 1 items 7 and 9)")
+                f"{cfg.name}: only GQA (dense or MoE FFN) and rwkv token LMs are ported "
+                "(ROADMAP.md, queue 1: MLA item 7b, Mamba item 9, embedding inputs with the "
+                "rest of the zoo)")
         self.device = batching.resolve_device(device, "Engine")
         if self.device.type == "cuda":
             # the float parts of the forward (fp tiers, the IDCT blocks, the

@@ -880,3 +880,85 @@ def test_continuous_matches_bucket_on_the_card(dev, arch, policy):
     ref = Engine(cfg, params, policy=pol, max_len=64, mode="bucket", device="cuda")
     for p, ids in zip(prompts, got):
         np.testing.assert_array_equal(ids, ref.generate(p[None], 12)[0])
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul's batched launch (a MoE layer's routed experts)
+# ---------------------------------------------------------------------------
+
+
+def _stacked(rng, b, e, m, k, n, packed, dev):
+    """B problems' quantized rows over E quantized expert weights."""
+    xq = quantize_per_token(_normal(rng, (b, m, k), dev), 8)
+    ws, wv = [], []
+    for _ in range(e):
+        wq = quantize_weight(_normal(rng, (k, n), dev), 4 if packed else 8)
+        wv.append(wq.values)
+        ws.append(wq.scale.reshape(1, -1))
+    return xq.values, xq.scale, torch.stack(wv), torch.stack(ws)
+
+
+# deepseek-moe-16b's routed experts at W4 (E 64; gate/up K 2048 x N 1408,
+# down K 1408 x N 2048) at a 2 x 512 prefill's capacity (M 120) and
+# decode's (M 1); two dispatch blocks sharing three experts' weights; W8;
+# ragged M and N tiles, N % 16 != 0 and a partial K step.
+@pytest.mark.parametrize("packed,b,e,m,k,n", [
+    (True, 64, 64, 120, 2048, 1408), (True, 64, 64, 120, 1408, 2048),
+    (True, 64, 64, 1, 2048, 1408), (True, 64, 64, 1, 1408, 2048),
+    (True, 6, 3, 130, 256, 260), (False, 8, 8, 37, 128, 132), (False, 4, 2, 129, 96, 388),
+    (True, 5, 5, 65, 96, 64),
+])
+def test_quant_matmul_batched_matches_plain(dev, packed, b, e, m, k, n):
+    rng = np.random.default_rng(b + e + m + k + n)
+    xv, xs, wv, ws = _stacked(rng, b, e, m, k, n, packed, dev)
+    with probe.tracking() as log:
+        got = qm.quant_matmul_batched(xv, xs, wv, ws, packed=packed)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"quant_matmul_batched": 1}
+    want = qm.quant_matmul_batched_plain(xv, xs, wv, ws, packed=packed)
+    # the integer part is exact; only the two float scale multiplies round
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    # each problem is bit for bit the 2-D launch on its slice
+    for i in sorted({0, b // 2, b - 1}):
+        one = qm.quant_matmul(xv[i], xs[i], wv[i % e], ws[i % e], packed=packed)
+        assert torch.equal(got[i], one), i
+
+
+def test_quant_linear_matmul_expert_stacked_is_one_launch(dev):
+    """``ops.quant_linear_matmul`` on an expert-stacked weight and x of two
+    dispatch blocks [2, E, cap, K]: one batched launch, the plain result."""
+    from repro_torch.core.quantize import QTensor
+
+    rng = np.random.default_rng(3)
+    e, cap, k, n = 8, 5, 128, 64
+    wqs = [quantize_weight(_normal(rng, (k, n), dev), 4) for _ in range(e)]
+    wq = QTensor(values=torch.stack([w.values for w in wqs]),
+                 scale=torch.stack([w.scale for w in wqs]), bits=4, packed=True, pack_axis=0)
+    x = _normal(rng, (2, e, cap, k), dev)
+    with probe.tracking() as log:
+        got = ops.quant_linear_matmul(x, wq)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"quant_matmul_batched": 1} and got.shape == (2, e, cap, n)
+    xq = quantize_per_token(x, 8)
+    for blk in range(2):
+        for j in range(e):
+            want = qm.quant_matmul_plain(xq.values[blk, j], xq.scale[blk, j], wqs[j].values,
+                                         wqs[j].scale.reshape(1, -1), packed=True)
+            torch.testing.assert_close(got[blk, j], want, rtol=1e-6, atol=0)
+
+
+def test_quant_matmul_batched_rejects_bad_shapes(dev):
+    xv = torch.zeros((6, 4, 64), dtype=torch.int8, device=dev)
+    xs = torch.ones((6, 4, 1), device=dev)
+    wv = torch.zeros((4, 32, 8), dtype=torch.uint8, device=dev)
+    ws = torch.ones((4, 1, 8), device=dev)
+    with probe.tracking() as log:
+        with pytest.raises(ValueError, match="E must divide B"):
+            qm.quant_matmul_batched(xv, xs, wv, ws, packed=True)  # 6 problems over 4 experts
+        k = 1 << 17
+        with pytest.raises(ValueError, match="2\\^17"):
+            qm.quant_matmul_batched(torch.zeros((1, 1, k), dtype=torch.int8, device=dev),
+                                    torch.ones((1, 1, 1), device=dev),
+                                    torch.zeros((1, k // 2, 4), dtype=torch.uint8, device=dev),
+                                    torch.ones((1, 1, 4), device=dev), packed=True)
+    assert log.count == 0

@@ -563,7 +563,6 @@ def test_fused_matches_unfused():
 
 def test_unported_layers_raise():
     cfg = get_config("qwen3-14b-smoke")
-    for kw, what in ((dict(pattern=("attn", "mamba")), "item 9"), (dict(mla=True), "item 7"),
-                     (dict(moe=True, n_experts=4, top_k=2), "item 7")):
+    for kw, what in ((dict(pattern=("attn", "mamba")), "item 9"), (dict(mla=True), "item 7")):
         with pytest.raises(NotImplementedError, match=what):
             lm.init_params(cfg.with_(**kw), torch.Generator().manual_seed(0))

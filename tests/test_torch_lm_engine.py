@@ -351,8 +351,7 @@ def test_modes_and_schedule():
         _engine(schedule="x.json")
     with pytest.raises(ValueError, match="mode"):
         _engine(mode="slots")
-    for kw in (dict(pattern=("attn", "mamba")), dict(mla=True),
-               dict(moe=True, n_experts=4, top_k=2)):
+    for kw in (dict(pattern=("attn", "mamba")), dict(mla=True), dict(embed_inputs=True)):
         with pytest.raises(NotImplementedError, match="queue 1"):
             Engine(cfg.with_(**kw), params, max_len=MAX_LEN, device="cpu")
 
