@@ -20,7 +20,9 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    decode and prefill, rwkv6-1.6b decode at 4 slots), and its batched launch
    at deepseek-moe-16b's routed experts (E 64, W4: M 120, a 2 x 512
    prefill's capacity, and M 1, decode's, through gate/up K 2048 x N 1408
-   and down K 1408 x N 2048); times kernel, plain version,
+   and down K 1408 x N 2048), ``fused_matmul`` at deepseek-moe-16b's fused
+   ``wqkv`` (K 2048, N 6144, RMS prologue) and ``wo`` (N 2048) at M 1024, 1
+   and 4 (the ``lm_cases`` of its record); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
    ``torch.matmul`` with the blocked Hadamard); for ``quant_matmul``, the
@@ -152,6 +154,34 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    through the dh-128 two-stage kernel (16/16 heads) held the same way.
    Prints prefill ms, decode ms per step, tok/s, TTFT p50/max, slot
    occupancy and peak memory, and profiles one 8-step burst per tier.
+11b. (run after 10, on its weights; ``phase_lm_schedule``) plans, tunes,
+   compiles and serves LM kernel schedules (``core/precision/planner.py``,
+   ``compiler.py``, ``tuner.py``, ``Engine(schedule=path)``): (a)
+   qwen3-14b, the same 8 layers and seed-0 weights: ``plan_model(...,
+   use_kernel=True, fuse=True)`` with each site's errors, a compile with the
+   tuner timing each signature on the card into a fresh DB and a recompile
+   that times nothing, each fallback reason (nothing fuses at d 5120), the
+   saved schedule served behind ``AsyncServer`` through the continuous
+   scheduler (4 ``mixed_len_prompts`` requests, two joining mid-decode, 16
+   new tokens) with every prefill wave's and decode step's launches equal
+   to ``launches_per_forward(two_stage_attention=False)``, the
+   teacher-forced logits against the plain versions (< 1e-3), and a [1,
+   512] scoring forward under the schedule's attention tiles (one dh-128
+   two-stage launch a layer, held as in 9c); (b) deepseek-moe-16b at full
+   width cut to 2 layers (layer 0 dense, one MoE layer), ``w4a8:fused``:
+   ``fused_matmul`` for ``wqkv`` and ``wo``, 3 ``quant_matmul_batched``
+   for the routed experts, ``quant_matmul`` for the shared experts and the
+   dense FFN (each with its fallback reason), one prefill wave and 4 decode
+   steps each launching what the schedule predicts, the teacher-forced
+   logits against the plain versions (each step within 3x the plain
+   versions' largest movement over the steps under two last-bit embedding
+   changes: routing turns a flipped rounding into a step) and every layer's
+   branches against the plain versions; (c) rwkv6-1.6b: a 24-layer ``w4a8`` compile
+   on ``meta`` (timed), and a 2-layer cut served for one prefill wave and
+   2 decode steps with the predicted launches; (d) ``python -m
+   repro_torch.launch.compile --arch qwen3-14b --spec w4a8:fused`` as a
+   subprocess (40 layers on ``meta``): exit 0 and the in-process
+   compile's site and group counts and hash.  Prints the phase's seconds.
 
 Each of the paths 4-12 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
@@ -168,6 +198,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -263,6 +294,7 @@ def main() -> int:
     paths["lm"] = phase_lm(torch, dev)
     raw = paths["lm"].pop("raw")
     paths["lm_continuous"] = phase_lm_continuous(torch, dev, raw)
+    paths["lm_schedule"] = phase_lm_schedule(torch, dev, raw)
     del raw
     paths["rwkv"] = phase_rwkv(torch, dev)
     paths["moe"] = phase_moe(torch, dev)
@@ -673,6 +705,7 @@ def _kernel_fused_matmul(torch, dev, cfg, m, randn) -> dict:
                library_note="no single PyTorch call computes norm+WHT+quantize+int matmul+IDCT")
     attrs, res = _attrs("fused_matmul", 3 * d, d, 0, 0)  # at wqkv's widths
     e.d.update(attrs)
+    e.d["lm_cases"] = _fused_matmul_lm_rows(torch, randn)
     for (label, mm, k, n, wb, ab, norm, pwht, act, ewht, rq, idct, preq, nper) in cases:
         wq = quantize_weight(randn(k, n) / math.sqrt(k), wb)
         ws = wq.scale.reshape(1, -1).contiguous()
@@ -725,6 +758,62 @@ def _kernel_fused_matmul(torch, dev, cfg, m, randn) -> dict:
               f"({by}) x{nper}/forward; {res}")
         e.add(err, nper, ms, plain, bound, by)
     return e.done()
+
+
+def _fused_matmul_lm_rows(torch, randn) -> dict:
+    """``fused_matmul`` at deepseek-moe-16b's fused sites under a
+    ``w4a8:fused`` schedule (``phase_lm_schedule``): ``wqkv`` (K 2048, N
+    6144, the RMS norm absorbed into the prologue, W4A8, IDCT, no bias) and
+    ``wo`` with its epilogue (K 2048, N 2048, the input quantized in the
+    prologue, IDCT), at a 2 x 512 prefill wave's M = 1024 and decode's M = 1
+    and 4; the flags are read off the compiled schedule.  Each against its
+    plain version (rel L2 < 1e-3) and against the plain version fed the
+    kernel's own prologue (< 1e-5), timed beside its bound; no PyTorch call
+    computes the function.  Not weighted into the record's vggt-1b totals."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPlan, compile_schedule
+    from repro_torch.core.quantize import quantize_weight
+    from repro_torch.kernels import fused as fz
+    from repro_torch.kernels.measure import time_ms
+
+    sched = compile_schedule(get_config("deepseek-moe-16b").with_(n_layers=2),
+                             PrecisionPlan(default="w4a8", use_kernel=True, fuse=True))
+    sites = {"wqkv": sched.site("blocks.l0.mixer.wq"), "wo": sched.site("blocks.l0.mixer.wo")}
+    rows = {}
+    for name, site in sites.items():
+        k = site.d_in
+        n = 3 * site.d_out if name == "wqkv" else site.d_out
+        norm = site.prologue["norm"] if site.prologue else None
+        wq = quantize_weight(randn(k, n) / math.sqrt(k), 4)
+        ws = wq.scale.reshape(1, -1).contiguous()
+        kw = dict(packed=True, a_bits=8, norm_kind=norm, pro_wht_block=None, act="none",
+                  epi_wht_block=None, requant_bits=None, dct_block=64 if site.idct else None)
+        for m in (1024, 1, 4):
+            label = f"deepseek {name} {'prefill' if m > 4 else 'decode'}"
+            x = randn(m, k)
+            args = (x, wq.values, ws, None, None, None)
+            got = fz.fused_matmul(*args, **kw)
+            want = fz.fused_matmul_plain(*args, **kw)
+            q, sc = fz.norm_quant(x, None, norm_kind=norm, wht_block=None, a_bits=8)
+            exact = fz.fused_matmul_plain(q, wq.values, ws, sc, None, **{**kw, "norm_kind": None})
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel, rel_x = _rel(torch, got, want), _rel(torch, got, exact)
+            _check(rel < 1e-3 and rel_x < 1e-5, f"fused_matmul {label} M={m}: rel L2 {rel}, vs "
+                                                f"its own prologue {rel_x}")
+            del got, want, exact
+            ms = time_ms(lambda: fz.fused_matmul(*args, **kw))
+            plain = time_ms(lambda: fz.fused_matmul_plain(*args, **kw), reps=3, warmup=1)
+            nbytes = 4 * m * k + wq.values.numel() + 8 * n + 16384 + 4 * m * n
+            f32, sfu = _fused_ops(m, k, n, prologue=True, idct=site.idct)
+            bound, by = _bound_ms(nbytes, 2.0 * m * k * n, sfu=sfu, f32_ops=f32)
+            rows[f"{label} M={m}"] = dict(m=m, k=k, n=n, norm=norm, max_abs_err=err, rel=rel,
+                                          ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                          library_ms=None)
+            print(f"fused_matmul {label:22s} M={m} K={k} N={n} W4A8 norm={norm} idct={site.idct}: "
+                  f"err={err:.3g} rel={rel:.3g} rel(own prologue)={rel_x:.3g} kernel={ms:.4f}ms "
+                  f"plain={plain:.4f}ms bound={bound:.4f}ms ({by}), {ms / bound:.2f}x bound")
+    return rows
 
 
 def _kernel_fused_ffn(torch, dev, cfg, m, randn) -> dict:
@@ -2328,6 +2417,332 @@ def phase_rwkv(torch, dev) -> dict:
     del eng, raw, qparams
     print(f"rwkv: phase {time.perf_counter() - t_phase:.1f}s")
     return {"counts": log.by_name(), "runs": 1, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: LM schedules (the planner's and the compiler's LM walks)
+# ---------------------------------------------------------------------------
+
+
+class _CallLaunches:
+    """Each served prefill wave's and decode step's kernel launches, read
+    from ``kernels.probe``: every ``lm.forward`` call (the engine's prefill,
+    and ``lm.decode_step``, which calls it with ``mode="decode"``) runs
+    under a ``probe.tracking`` log of its own, kept here as ``(mode,
+    launches)``.  The logs nest in any outer one, so the phase's counted
+    window still sees every launch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import probe
+        from repro_torch.models import lm
+
+        self.calls = []
+        self._saved = fwd = lm.forward
+
+        def run(*a, **kw):
+            with probe.tracking() as log:
+                out = fwd(*a, **kw)
+            self.calls.append((kw.get("mode", "full"), log.by_name()))
+            return out
+
+        lm.forward = run
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import lm
+
+        lm.forward = self._saved
+        return False
+
+    def hold(self, tag, want) -> dict:
+        """Every call launched ``want``; returns {kind: calls}."""
+        n = {}
+        for kind, got in self.calls:
+            _check(got == want, f"{tag}: a {kind} call launched {got}, the schedule predicts "
+                                f"{want}")
+            n[kind] = n.get(kind, 0) + 1
+        _check(n.get("prefill", 0) >= 1 and n.get("decode", 0) >= 1,
+               f"{tag}: prefill waves and decode steps {n}")
+        return n
+
+
+def _padded(torch, dev, prompts, idx, L):
+    """Requests ``idx`` left-padded to ``L`` tokens, and their pad counts."""
+    toks = torch.stack([torch.nn.functional.pad(torch.as_tensor(prompts[i], device=dev).long(),
+                                                (L - len(prompts[i]), 0)) for i in idx])
+    return toks, torch.tensor([L - len(prompts[i]) for i in idx], device=dev)
+
+
+def _bucket_ms(eng, kind: str) -> tuple[float, int]:
+    """Mean ms a call over every bucket of ``kind`` (PrefillBucket or
+    DecodeBucket), and the calls."""
+    ss = [s for b, s in eng.stats.buckets.items() if type(b).__name__ == kind]
+    calls = sum(s.calls for s in ss)
+    return 1e3 * sum(s.total_s for s in ss) / max(calls, 1), calls
+
+
+def phase_lm_schedule(torch, dev, raw) -> dict:
+    """See the module docstring (11b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import (
+        Autotuner, KernelSchedule, PrecisionPlan, TuningDB, compile_schedule, plan_model,
+    )
+    from repro_torch.data.pipeline import mixed_len_prompts
+    from repro_torch.kernels import probe
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.server import AsyncServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    counts = {}
+
+    def add(log):
+        for k, v in log.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) qwen3-14b, 8 of 40 layers: plan, tune, compile, serve the schedule
+    cfg = get_config("qwen3-14b").with_(n_layers=LM_LAYERS)
+    t0 = time.perf_counter()
+    plan, report = plan_model(cfg, raw, name="plan", use_kernel=True, fuse=True)
+    print(f"lm schedule: planned qwen3-14b ({LM_LAYERS} layers) in "
+          f"{time.perf_counter() - t0:.1f}s: levels {report['level_counts']}, default "
+          f"{plan.default}, overrides {list(plan.overrides)}; modeled weights "
+          f"{report['weight_bytes'] / 1e6:.1f} of {report['weight_bytes_budget'] / 1e6:.1f} MB, "
+          f"latency {report['modeled_latency_s'] * 1e3:.3f} of "
+          f"{report['latency_budget_s'] * 1e3:.3f} ms")
+    for site, errs in report["site_errors"].items():
+        print(f"  site {site:24s} {report['assignment'][site]:5s} errors "
+              + " ".join(f"{lv}={e:.4g}" for lv, e in errs.items()))
+    db_path, path = work / "lm_tune.json", work / "qwen3.schedule.json"
+    db_path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    tuner = Autotuner(db=TuningDB(str(db_path)), device="cuda")
+    sched = compile_schedule(cfg, plan, tuner=tuner)
+    print(f"lm schedule: compiled in {time.perf_counter() - t0:.1f}s: {sched.summary()}, "
+          f"{len(sched.groups)} fused groups, {tuner.timing_runs} timing runs, "
+          f"hash {sched.hash[:12]}")
+    for key, e in sorted(tuner.db.entries.items()):
+        print(f"  tuned {key}: {e['cost']:.4f} ms (tiles {e['tiles']})")
+    for s in sched.sites:
+        if s.fallback:
+            print(f"  fallback {s.site}: {s.fallback}")
+    _check(tuner.timing_runs == len(tuner.db.entries) > 0, "lm schedule: one timing run a "
+                                                           "signature")
+    again = Autotuner(db=TuningDB(str(db_path)), device="cuda")
+    _check(compile_schedule(cfg, plan, tuner=again).hash == sched.hash,
+           "lm schedule: the recompile changed the schedule")
+    print(f"lm schedule: recompiled on the filled DB: {again.timing_runs} timing runs, "
+          f"{again.db.hits} hits / {again.db.misses} misses")
+    _check(again.timing_runs == 0 and again.db.misses == 0, "lm schedule: the recompile timed")
+    sched.save(path)
+    _check(KernelSchedule.load(path).hash == sched.hash, "lm schedule: save/load")
+    want = sched.launches_per_forward(two_stage_attention=False)
+    print(f"lm schedule: launches the schedule predicts per prefill wave and decode step: {want}")
+
+    eng = Engine(cfg, raw, schedule=str(path), mode="auto", max_len=CONT_MAX_LEN,
+                 batch_buckets=(1, 2, 4), max_batch=4, decode_steps_per_poll=8, device="cuda")
+    _check(eng.continuous, f"lm schedule: mode='auto' resolved to {eng.stats.mode}")
+    _check(eng.cfg.attn_tiles == sched.attention_targets(), "lm schedule: attention tiles")
+    params_s = eng.params
+    torch.cuda.synchronize()
+    prompts = mixed_len_prompts(cfg.vocab_size, 4, LM_PROMPT)
+    gen = 16
+    reqs = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with probe.tracking() as log, _CallLaunches() as calls, AsyncServer(eng) as srv:
+        reqs += [srv.submit(p, gen) for p in prompts[:2]]
+        t_wait = time.perf_counter() + 300
+        while eng.active < 2 and time.perf_counter() < t_wait:
+            time.sleep(0.002)
+        _check(eng.active >= 2, "lm schedule: the first two requests never ran")
+        reqs += [srv.submit(p, gen) for p in prompts[2:]]
+        outs = [srv.result(r, timeout=600) for r in reqs]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    add(log.by_name())
+    n_calls = calls.hold("lm schedule", want)
+    _check(all(o.shape == (gen,) for o in outs), "lm schedule: every request delivered")
+    _check(eng.stats.scheduler.admitted_mid_decode >= 1, "lm schedule: nothing joined mid-decode")
+    _check(all(key[-1] == sched.hash for key in eng._seen), "lm schedule: first-use keys")
+    pre_ms, waves = _bucket_ms(eng, "PrefillBucket")
+    dec_ms, steps = _bucket_ms(eng, "DecodeBucket")
+    print(eng.stats.format())
+    print(f"lm schedule: qwen3-14b planned schedule served {len(outs)} requests of "
+          f"{sorted({len(p) for p in prompts})} tokens, {gen} new each, in {wall:.2f}s: prefill "
+          f"{pre_ms:.2f}ms a wave over {waves} waves, decode {dec_ms:.3f}ms a step over {steps} "
+          f"steps, admitted mid-decode {eng.stats.scheduler.admitted_mid_decode}, peak memory "
+          f"{peak:.2f} GiB; every one of {n_calls} calls launched {want}")
+
+    # teacher-forced on the served tokens (requests 1 and 2: 384 and 512)
+    idx = [1, 2]
+    L = eng.prompt_bucket(max(len(prompts[i]) for i in idx))
+    toks, pad = _padded(torch, dev, prompts, idx, L)
+    served = torch.stack([torch.as_tensor(outs[i]) for i in idx]).to(dev).long()
+    got = _teacher_forced(torch, eng.cfg, params_s, toks, pad, served[:, :4], CONT_MAX_LEN)
+    with _PlainKernels():
+        plain = _teacher_forced(torch, eng.cfg, params_s, toks, pad, served[:, :4], CONT_MAX_LEN)
+    rels = [_rel(torch, g, w) for g, w in zip(got, plain)]
+    print(f"lm schedule: teacher-forced logits vs plain rel L2 (prefill, 4 decode steps) "
+          f"{[f'{r:.3g}' for r in rels]}")
+    _check(max(rels) < 1e-3, f"lm schedule vs plain: {rels}")
+    del got, plain, eng
+
+    # one scoring forward [1, 512] under the schedule's attention tiles
+    scfg = cfg.with_(attn_impl="two_stage", attn_tiles=sched.attention_targets())
+    want_full = sched.launches_per_forward(two_stage_attention=True)
+    x = toks[1:]
+    with torch.inference_mode(), probe.tracking() as flog:
+        full, _ = lm.forward(scfg, params_s, x)
+        torch.cuda.synchronize()
+    add(flog.by_name())
+    _check(flog.by_name() == want_full, f"lm schedule scoring forward launches "
+                                        f"{flog.by_name()}, expected {want_full}")
+    _check(flog.by_name().get("two_stage_attention") == LM_LAYERS,
+           "lm schedule: the scoring forward's dh-128 two-stage launches")
+    with torch.inference_mode(), _PlainKernels():
+        full_plain, _ = lm.forward(scfg, params_s, x)
+    rel = _rel(torch, full, full_plain)
+    print(f"lm schedule: scoring forward [1, {x.shape[1]}] launches {flog.by_name()}; vs plain "
+          f"rel L2 {rel:.3g}")
+
+    def moved():
+        with torch.inference_mode(), _PlainKernels():
+            out, _ = lm.forward(scfg, _noised(torch, params_s), x)
+        return [_rel(torch, out, full_plain)]
+
+    _hold_lm(torch, "lm schedule scoring forward", [rel], moved)
+    del full, full_plain, params_s, toks, x
+
+    # (b) deepseek-moe-16b at full width, 2 layers, w4a8:fused: fused_matmul
+    # for wqkv and wo, the batched launch for the routed experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = get_config("deepseek-moe-16b").with_(n_layers=2)
+    mraw = lm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0))
+    mtuner = Autotuner(db=TuningDB(str(db_path)), device="cuda")
+    msched = compile_schedule(mcfg, PrecisionPlan(default="w4a8", use_kernel=True, fuse=True,
+                                                  name="w4a8"), tuner=mtuner)
+    for key, e in sorted(mtuner.db.entries.items()):
+        if key not in tuner.db.entries:
+            print(f"  tuned {key}: {e['cost']:.4f} ms (tiles {e['tiles']})")
+    mpath = work / "deepseek.schedule.json"
+    msched.save(mpath)
+    mwant = msched.launches_per_forward(two_stage_attention=False)
+    print(f"lm schedule: deepseek-moe-16b (2 of 28 layers) w4a8:fused: {msched.summary()}, "
+          f"groups {[g.name for g in msched.groups]} (wo epilogue "
+          f"{[g.wo_epilogue for g in msched.groups]}); predicted per call {mwant}")
+    for s in msched.sites:
+        if s.fallback:
+            print(f"  fallback {s.site}: {s.fallback}")
+    moe_layers = mcfg.n_layers - mcfg.first_dense
+    _check(mwant.get("fused_matmul") == 2 * mcfg.n_layers
+           and mwant.get("quant_matmul_batched") == 3 * moe_layers,
+           f"deepseek schedule predicts {mwant}: wqkv and wo on fused_matmul a layer, the "
+           "routed experts on 3 batched launches a MoE layer")
+    meng = Engine(mcfg, mraw, schedule=str(mpath), mode="auto", max_len=CONT_MAX_LEN,
+                  batch_buckets=(1, 2, 4), max_batch=4, device="cuda")
+    mparams = meng.params
+    mprompts = mixed_len_prompts(mcfg.vocab_size, 2, LM_PROMPT)
+    with probe.tracking() as mlog, _CallLaunches() as mcalls:
+        mreqs = [meng.enqueue(p, 5) for p in mprompts]
+        meng.flush()
+        torch.cuda.synchronize()
+    add(mlog.by_name())
+    n_m = mcalls.hold("deepseek schedule", mwant)
+    _check(n_m == {"prefill": 1, "decode": 4}, f"deepseek schedule: calls {n_m}")
+    mouts = [r.result() for r in mreqs]
+    print(f"lm schedule: deepseek served {n_m['prefill']} prefill wave and {n_m['decode']} decode "
+          f"steps, launches {mlog.by_name()}")
+    mtoks, mpad = _padded(torch, dev, mprompts, [0, 1], meng.prompt_bucket(LM_PROMPT))
+    msteps = torch.stack([torch.as_tensor(o) for o in mouts]).to(dev).long()[:, :4]
+    # The whole-model logits: fused_matmul's prologue sums the RMS norm in
+    # another order than the plain version (rel 1.8e-7 a launch), an int8
+    # rounding it flips can move a token to another expert, and routing
+    # turns that into a step in the logits at whichever step it happens, as
+    # a last-bit change of the embedding does.  So each step's reading is
+    # held to NOISE_MARGIN times the plain versions' largest movement over
+    # the run's steps under two such changes (PERF.md, section 6: a
+    # step-by-step pairing failed once, 0.0756 against 3 x 0.0247, while
+    # the next step moved 0.0742).  The layers are held below, each fed the
+    # same input.
+    got = _teacher_forced(torch, meng.cfg, mparams, mtoks, mpad, msteps, CONT_MAX_LEN)
+    with _PlainKernels():
+        plain = _teacher_forced(torch, meng.cfg, mparams, mtoks, mpad, msteps, CONT_MAX_LEN)
+    _check(all(torch.isfinite(g).all() for g in got), "deepseek schedule: non-finite logits")
+    rels = [_rel(torch, g, w) for g, w in zip(got, plain)]
+    print(f"lm schedule: deepseek teacher-forced logits vs plain rel L2 (prefill, 4 decode "
+          f"steps) {[f'{r:.3g}' for r in rels]}")
+
+    def moved():
+        runs = []
+        with _PlainKernels():
+            for seed in (7, 8):
+                again = _teacher_forced(torch, meng.cfg, _noised(torch, mparams, seed), mtoks,
+                                        mpad, msteps, CONT_MAX_LEN)
+                runs.append([_rel(torch, a, w) for a, w in zip(again, plain)])
+        print(f"  deepseek schedule: the plain versions' own movement per step under last-bit "
+              f"embedding changes (seeds 7, 8) {[[f'{m:.3g}' for m in r] for r in runs]}")
+        return [max(max(r) for r in runs)] * len(rels)
+
+    _hold_lm(torch, "deepseek schedule teacher-forced", rels, moved)
+    del got, plain
+    _lm_branches(torch, meng.cfg, mparams, mtoks, "deepseek schedule", pad=mpad, steps=msteps)
+    del meng, mparams, mraw
+
+    # (c) rwkv6-1.6b: a full-depth compile on meta, a 2-layer cut served
+    rcfg = get_config("rwkv6-1.6b")
+    w4a8 = PrecisionPlan(default="w4a8", use_kernel=True, name="w4a8")
+    t0 = time.perf_counter()
+    rfull = compile_schedule(rcfg, w4a8)
+    print(f"lm schedule: rwkv6-1.6b ({rcfg.n_layers} layers) w4a8 compiled on meta in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f}ms: {rfull.summary()}, attention "
+          f"{rfull.attention}, predicted per call {rfull.launches_per_forward(two_stage_attention=False)}")
+    rcut = rcfg.with_(n_layers=2)
+    rsched = compile_schedule(rcut, w4a8)
+    rwant = rsched.launches_per_forward(two_stage_attention=False)
+    _check(rwant == {"quant_matmul": 14}, f"rwkv6 schedule predicts {rwant}")
+    rraw = lm.init_params(rcut, torch.Generator(device=dev).manual_seed(0))
+    reng = Engine(rcut, rraw, schedule=rsched, mode="auto", max_len=CONT_MAX_LEN, device="cuda")
+    reng.params
+    with probe.tracking() as rlog, _CallLaunches() as rcalls:
+        rreq = reng.enqueue(mixed_len_prompts(rcut.vocab_size, 1, 96)[0], 3)
+        reng.flush()
+        torch.cuda.synchronize()
+    add(rlog.by_name())
+    n_r = rcalls.hold("rwkv6 schedule", rwant)
+    _check(n_r == {"prefill": 1, "decode": 2} and rreq.result().shape == (3,),
+           f"rwkv6 schedule: calls {n_r}")
+    print(f"lm schedule: rwkv6 (2 layers) served 1 prefill wave and 2 decode steps, launches "
+          f"{rlog.by_name()}")
+    del reng, rraw
+
+    # (d) the launcher: a 40-layer qwen3-14b compile on meta, as a subprocess
+    out_path = work / "qwen3-14b.w4a8-fused.schedule.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.compile", "--arch", "qwen3-14b", "--spec",
+         "w4a8:fused", "--out", str(out_path)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    print(f"lm schedule: python -m repro_torch.launch.compile --arch qwen3-14b --spec w4a8:fused "
+          f"exited {proc.returncode} in {time.perf_counter() - t0:.1f}s: "
+          f"{proc.stdout.strip().splitlines()[:1]}")
+    _check(proc.returncode == 0, f"launcher: {proc.stderr[-2000:]}")
+    inproc = compile_schedule(get_config("qwen3-14b"), PrecisionPlan(
+        default="w4a8", use_kernel=True, fuse=True, name="w4a8"))
+    _check(f"sites={len(inproc.sites)} groups={len(inproc.groups)}" in proc.stdout
+           and KernelSchedule.load(out_path).hash == inproc.hash,
+           f"launcher: {proc.stdout} vs sites={len(inproc.sites)} groups={len(inproc.groups)}")
+    print(f"lm schedule: the launcher's schedule equals the in-process compile (hash "
+          f"{inproc.hash[:12]}, {inproc.launches_per_forward(two_stage_attention=False)} a call)")
+    print(f"lm schedule: phase {time.perf_counter() - t_phase:.1f}s")
+    return {"counts": counts, "runs": 1, "inplace": {}}
 
 
 # ---------------------------------------------------------------------------

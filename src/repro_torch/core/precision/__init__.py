@@ -25,13 +25,14 @@ network runs 4-bit.  This package is the software realization:
   card) and persists winners in a :class:`TuningDB` keyed on (kernel,
   shape, bits, fusion, backend).
 
-Dispatch lives in ``core/model_quant``: ``quantize_vggt`` accepts a
-:class:`PrecisionPlan` or a :class:`KernelSchedule` wherever it accepts a
-uniform ``QuantPolicy``, and emits per-site ``QuantLinear`` leaves (the
-int8 kernel path, the packed-int4 path, or a transform-fused float
-passthrough).  ``quantize_lm`` takes uniform plans; the planner's and
-the compiler's LM walkers are not ported yet (``ROADMAP.md``, queue 1
-item 7).
+Dispatch lives in ``core/model_quant``: ``quantize_vggt`` and
+``quantize_lm`` accept a :class:`PrecisionPlan` or a
+:class:`KernelSchedule` wherever they accept a uniform ``QuantPolicy``,
+and emit per-site ``QuantLinear`` leaves (the int8 kernel path, the
+packed-int4 path, or a transform-fused float passthrough).  The planner
+and the compiler walk VGGT and the ported LMs (GQA and rwkv mixers with
+dense, MoE and rwkv channel-mix FFNs); MLA and Mamba layers raise with
+their ``ROADMAP.md`` queue-1 items (7b, 9).
 """
 from repro_torch.core.precision.plan import (
     LEVELS,

@@ -12,17 +12,21 @@ explicitly, and writes it down:
               quantize_vggt consumes the schedule's decisions
 
 **Lowering** runs the real quantization walker on the ``meta`` device —
-an abstract init of the model's shapes (``vggt.init_params`` with
-``device="meta"``), zero FLOPs, zero allocation — and reads the decisions
-off the abstract quantized tree: a merged ``wqkv`` site means QKV fused, a
-``FusedFFN`` node means the FFN fused, and a site that *didn't* fuse gets
-its reason recomputed from the same eligibility predicates the walker
-used.  The schedule therefore cannot disagree with what ``quantize_vggt``
-would have done.
+an abstract init of the model's shapes (``vggt.init_params`` or
+``lm.init_params`` with ``device="meta"``), zero FLOPs, zero allocation —
+and reads the decisions off the abstract quantized tree: a merged
+``wqkv`` site means QKV fused, a ``FusedFFN`` node means the FFN fused,
+and a site that *didn't* fuse gets its reason recomputed from the same
+eligibility predicates the walker used.  The schedule therefore cannot
+disagree with what ``quantize_vggt`` or ``quantize_lm`` would have done.
+The LM walk covers GQA attention and rwkv mixers with dense, MoE and rwkv
+channel-mix FFNs (qwen3-14b, deepseek-moe-16b, rwkv6-1.6b); MLA and Mamba
+layers raise, as ``quantize_lm`` does.
 
 **Tiles** are the launch tiles of the kernel each site runs
 (``kernels.ops.launch_tiles``): ``quant_matmul``'s for a plain integer
-site, ``fused_matmul``'s for a site with a prologue or epilogue (a fused
+site (a MoE layer's routed experts too: their batched launch runs the
+same tiles), ``fused_matmul``'s for a site with a prologue or epilogue (a fused
 QKV group, ``wo`` with its in-kernel IDCT/bias), ``fused_ffn``'s for a
 fused FFN group, the two-stage kernel's for attention.  A tuner replaces
 them with its DB's winners.  Sites off the kernels (``fp``, the float
@@ -61,7 +65,6 @@ SCHEDULE_VERSION = 1
 # What the port's schedules are compiled for; the reference writes
 # ``interpret`` (CPU) or ``tpu``.
 BACKENDS = ("cuda", "cpu")
-_LM_NOT_PORTED = "the LM path is not ported yet (ROADMAP.md, queue 1 item 7)"
 
 
 def _tiles_tuple(tiles: Optional[dict]) -> Optional[tuple]:
@@ -147,6 +150,10 @@ class AttentionSchedule:
         return cls(impl=d["impl"], tiles=_tiles_tuple(d.get("tiles")) or ())
 
 
+# the dotted-name part of a MoE layer's routed-expert sites
+_EXPERTS = ".ffn.experts."
+
+
 def _kernel_level(level: str) -> bool:
     """A level whose integer matmul the CUDA kernels take (bits <= 8)."""
     bits = parse_level(level)
@@ -226,13 +233,22 @@ class KernelSchedule:
             )
 
     def launches_per_forward(self, *, two_stage_attention: bool) -> dict[str, int]:
-        """Kernel launches one forward makes under this schedule: one
-        ``fused_matmul`` per fused QKV group and one ``fused_ffn`` per
-        fused FFN group a layer, and per other kernel-routed site one
-        ``fused_matmul`` (a site with a prologue or epilogue) or
-        ``quant_matmul``; with ``two_stage_attention`` (the two-stage
-        kernel serves the attention: ``attn_impl="two_stage"``, no padding
-        mask) one launch per attention block whose Q is quantized."""
+        """Kernel launches one forward makes under this schedule — for an
+        LM, one prefill wave or one decode step.
+
+        One ``fused_matmul`` per fused QKV group and one ``fused_ffn`` per
+        fused FFN group a layer; per other kernel-routed site one
+        ``fused_matmul`` (a site with a prologue or epilogue, e.g. ``wo``
+        with its in-kernel IDCT/bias) or ``quant_matmul`` a layer; a MoE
+        layer's routed-expert site makes one ``quant_matmul_batched``
+        launch a layer for all its experts (``count / n_experts``, the
+        layer's own count), not ``count`` 2-D launches.  With
+        ``two_stage_attention`` one launch per attention layer whose Q is
+        quantized: a VGGT forward with ``attn_impl="two_stage"`` and no
+        padding mask, or an LM scoring forward (``lm.forward(mode=
+        "full")``).  The served LM prefill and decode attend over the int8
+        KV cache with the masked emulation and never reach the two-stage
+        kernel: count them with ``two_stage_attention=False``."""
         out: dict[str, int] = {}
 
         def add(kernel: str, n: int) -> None:
@@ -244,6 +260,9 @@ class KernelSchedule:
                 add("fused_matmul" if g.kind == "qkv" else "fused_ffn", members[0].count)
         for s in self.sites:
             if s.fused_group is None and s.kernel == "matmul" and _kernel_level(s.level):
+                if _EXPERTS in s.site:
+                    add("quant_matmul_batched", self._layer_count(s.site))
+                    continue
                 fused = s.prologue is not None or s.epilogue is not None
                 add("fused_matmul" if fused else "quant_matmul", s.count)
         if two_stage_attention:
@@ -251,6 +270,13 @@ class KernelSchedule:
                 if s.site.rsplit(".", 1)[-1] == "wq" and s.kernel != "fp":
                     add("two_stage_attention", s.count)
         return out
+
+    def _layer_count(self, expert_site: str) -> int:
+        """Stacked layers behind a routed-expert site: the count of its
+        layer's mixer sites (the expert site's own count is layers x
+        experts)."""
+        layer = expert_site.split(_EXPERTS)[0] + ".mixer."
+        return next(s.count for s in self.sites if s.site.startswith(layer))
 
     def _by_site(self) -> dict:
         cache = self.__dict__.get("_site_index")
@@ -336,12 +362,14 @@ def _abstract_quantize(cfg: ModelConfig, plan: PrecisionPlan):
     init on the ``meta`` device, so every fusion decision is the walker's
     own.  ``init_params`` draws nothing there: meta tensors carry shapes
     and dtypes, and the generator is never read."""
-    from repro_torch.core.model_quant import quantize_vggt
-    from repro_torch.models import vggt
+    from repro_torch.core.model_quant import quantize_lm, quantize_vggt
+    from repro_torch.models import lm, vggt
 
     with torch.no_grad():
-        params = vggt.init_params(cfg, torch.Generator(), device="meta")
-        return quantize_vggt(cfg, params, plan)
+        if cfg.vggt:
+            return quantize_vggt(cfg, vggt.init_params(cfg, torch.Generator(), device="meta"),
+                                 plan)
+        return quantize_lm(cfg, lm.init_params(cfg, torch.Generator(), device="meta"), plan)
 
 
 def _leaf_dims(p) -> tuple[int, int, int]:
@@ -375,13 +403,18 @@ class _Lowering:
         self.sites: list[SiteSchedule] = []
         self.groups: list[FusedGroupSchedule] = []
 
-    def _site_tiles(self, leaf: QuantLinear, d_in: int, d_out: int) -> Optional[tuple]:
+    def _site_tiles(self, leaf: QuantLinear, d_in: int, d_out: int,
+                    experts: Optional[int] = None) -> Optional[tuple]:
         """The launch tiles of the kernel ``apply_linear`` sends the site
         to: ``fused_matmul`` with a prologue or epilogue, else
-        ``quant_matmul``."""
+        ``quant_matmul`` (``experts`` stacked: its batched launch)."""
         fused = leaf.prologue is not None or leaf.epilogue is not None
         norm = leaf.prologue.norm if leaf.prologue is not None else None
-        if self.tuner is not None:
+        if experts is not None and self.tuner is not None:
+            tiles = self.tuner.tune_matmul_batched(d_in, d_out, experts=experts,
+                                                   w_bits=leaf.qw.bits, a_bits=leaf.a_bits,
+                                                   packed=leaf.qw.packed)
+        elif self.tuner is not None:
             tiles = self.tuner.tune_matmul(d_in, d_out, w_bits=leaf.qw.bits, a_bits=leaf.a_bits,
                                            packed=leaf.qw.packed, fused=fused, norm=norm)
         else:
@@ -489,6 +522,24 @@ class _Lowering:
             if name in f:
                 self.emit(f"{pfx}.{name}", f[name], fallback=fallback)
 
+    def plain(self, pfx: str, node: dict, names: tuple[str, ...]) -> None:
+        for name in names:
+            self.emit(f"{pfx}.{name}", node[name])
+
+    def experts(self, pfx: str, ex: dict) -> None:
+        """A MoE layer's routed experts: one batched ``quant_matmul``
+        launch a projection, tuned under its own signature."""
+        for name in ("w_gate", "w_up", "w_down"):
+            if name not in ex:
+                continue
+            leaf = ex[name]
+            tiles = None
+            if isinstance(leaf, QuantLinear) and leaf.use_kernel:
+                d_in, d_out, _ = _leaf_dims(leaf)
+                tiles = self._site_tiles(leaf, d_in, d_out,
+                                         experts=int(leaf.qw.values.shape[-3]))
+            self.emit(f"{pfx}.{name}", leaf, tiles=tiles)
+
 
 def _qkv_fallback(parts, groups) -> Optional[str]:
     """Why a requested QKV fusion fell back (mirrors ``_fuse_qkv``)."""
@@ -512,6 +563,38 @@ def _ffn_fallback(f: dict, groups) -> Optional[str]:
     if sum(_panel_bytes(p, groups) for p in parts) > FUSED_PANEL_BUDGET:
         return "ffn panel exceeds fused VMEM budget"
     return None
+
+
+def _lower_lm(low: _Lowering, q: dict) -> None:
+    """The reference's LM walk over the prefix layers and the stacked
+    pattern positions: attention through :meth:`_Lowering.attn`, dense
+    FFNs through :meth:`_Lowering.ffn_dense`, a MoE layer's routed and
+    shared experts site by site, rwkv sites plain (never fused)."""
+    from repro_torch.models import lm
+
+    cfg = low.cfg
+    layers = [(f"prefix.{i}", q["prefix"][i], lm.mixer_kind(cfg, i), lm.ffn_kind(cfg, i))
+              for i in range(cfg.first_dense)]
+    for j in range(len(cfg.pattern)):
+        gi = cfg.first_dense + j
+        layers.append((f"blocks.l{j}", q["blocks"][f"l{j}"], lm.mixer_kind(cfg, gi),
+                       lm.ffn_kind(cfg, gi)))
+    for pfx, lp, kind, fk in layers:
+        mx = lp["mixer"]
+        if kind == "attn":
+            low.attn(f"{pfx}.mixer", mx)
+        elif kind == "rwkv":
+            low.plain(f"{pfx}.mixer", mx, ("wr", "wk", "wv", "wg", "wo"))
+        f = lp["ffn"]
+        if fk in ("dense", "dense_inner"):
+            low.ffn_dense(f"{pfx}.ffn", f)
+        elif fk == "moe":
+            low.experts(f"{pfx}.ffn.experts", f["experts"])
+            if "shared" in f:
+                low.plain(f"{pfx}.ffn.shared", f["shared"],
+                          tuple(n for n in ("w_gate", "w_up", "w_down") if n in f["shared"]))
+        elif fk == "rwkv_channel":
+            low.plain(f"{pfx}.ffn", f, ("w_up", "w_down"))
 
 
 def _lower_vggt(low: _Lowering, q: dict) -> None:
@@ -542,16 +625,16 @@ def compile_schedule(
         backend = tuner.backend if tuner is not None else "cuda"
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: the port compiles for one of {BACKENDS}")
-    if not cfg.vggt:
-        raise NotImplementedError(f"compile_schedule({cfg.name}): {_LM_NOT_PORTED}")
     q = _abstract_quantize(cfg, plan)
     low = _Lowering(cfg, plan, tuner)
-    _lower_vggt(low, q)
-    if tuner is not None:
-        atiles = tuner.tune_attention(cfg.head_dim)
-    else:
-        atiles = kernel_ops.launch_tiles("two_stage_attention")
-    attention = AttentionSchedule(impl=cfg.attn_impl, tiles=_tiles_tuple(atiles))
+    (_lower_vggt if cfg.vggt else _lower_lm)(low, q)
+    attention = None
+    if cfg.vggt or "attn" in cfg.pattern:
+        if tuner is not None:
+            atiles = tuner.tune_attention(cfg.head_dim)
+        else:
+            atiles = kernel_ops.launch_tiles("two_stage_attention")
+        attention = AttentionSchedule(impl=cfg.attn_impl, tiles=_tiles_tuple(atiles))
     if tuner is not None:
         tuner.flush()
     return KernelSchedule(

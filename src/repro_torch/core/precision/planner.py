@@ -61,7 +61,11 @@ __all__ = [
 # cheapest-first upgrade ladder (stored-bytes then activation width)
 LADDER = ("w4a4", "w4a8", "w8a8", "bf16")
 
-_LM_NOT_PORTED = "the LM path is not ported yet (ROADMAP.md, queue 1 item 7)"
+# what each unported layer kind waits for (ROADMAP.md, queue 1)
+_UNPORTED = {
+    "mla": "MLA attention is not ported yet (ROADMAP queue 1 item 7b)",
+    "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,16 +116,60 @@ def enumerate_sites(cfg: ModelConfig, params: dict) -> list[SiteInfo]:
         count = int(np.prod(w.shape[:lead])) if lead else 1
         sites.append(SiteInfo(site, int(w.shape[-2]), int(w.shape[-1]), count, _rep(w)))
 
-    if not cfg.vggt:
-        raise NotImplementedError(f"enumerate_sites({cfg.name}): {_LM_NOT_PORTED}")
-    for blk in ("frame", "global"):
-        bp = params["blocks"][blk]
-        for n in ("wq", "wk", "wv", "wo"):
-            add(f"{blk}.attn.{n}", bp["attn"][n]["w"])
-        for n in ("w_gate", "w_up", "w_down"):
-            if n in bp["ffn"]:
-                add(f"{blk}.ffn.{n}", bp["ffn"][n]["w"])
+    if cfg.vggt:
+        for blk in ("frame", "global"):
+            bp = params["blocks"][blk]
+            for n in ("wq", "wk", "wv", "wo"):
+                add(f"{blk}.attn.{n}", bp["attn"][n]["w"])
+            for n in ("w_gate", "w_up", "w_down"):
+                if n in bp["ffn"]:
+                    add(f"{blk}.ffn.{n}", bp["ffn"][n]["w"])
+        return sites
+
+    from repro_torch.models import lm  # local, as in the reference
+
+    _check_lm_ported(cfg)
+
+    def layer(pfx: str, lp: dict, kind: str, fk: str) -> None:
+        mx = lp["mixer"]
+        if kind == "attn":
+            for n in ("wq", "wk", "wv", "wo"):
+                add(f"{pfx}.mixer.{n}", mx[n]["w"])
+        elif kind == "rwkv":
+            for n in ("wr", "wk", "wv", "wg", "wo"):
+                add(f"{pfx}.mixer.{n}", mx[n]["w"])
+        if fk in ("dense", "dense_inner"):
+            for n in ("w_gate", "w_up", "w_down"):
+                if n in lp["ffn"]:
+                    add(f"{pfx}.ffn.{n}", lp["ffn"][n]["w"])
+        elif fk == "moe":
+            for n in ("w_gate", "w_up", "w_down"):
+                if n in lp["ffn"]["experts"]:
+                    add(f"{pfx}.ffn.experts.{n}", lp["ffn"]["experts"][n])
+            if "shared" in lp["ffn"]:
+                for n in ("w_gate", "w_up", "w_down"):
+                    if n in lp["ffn"]["shared"]:
+                        add(f"{pfx}.ffn.shared.{n}", lp["ffn"]["shared"][n]["w"])
+        elif fk == "rwkv_channel":
+            for n in ("w_up", "w_down"):
+                add(f"{pfx}.ffn.{n}", lp["ffn"][n]["w"])
+
+    for i, lp in enumerate(params["prefix"]):
+        layer(f"prefix.{i}", lp, lm.mixer_kind(cfg, i), lm.ffn_kind(cfg, i))
+    for j in range(len(cfg.pattern)):
+        gi = cfg.first_dense + j
+        layer(f"blocks.l{j}", params["blocks"][f"l{j}"], lm.mixer_kind(cfg, gi),
+              lm.ffn_kind(cfg, gi))
     return sites
+
+
+def _check_lm_ported(cfg: ModelConfig) -> None:
+    """The LM walk covers GQA attention and rwkv mixers with dense, MoE
+    and rwkv channel-mix FFNs; MLA and Mamba layers raise."""
+    if cfg.mla:
+        raise NotImplementedError(f"{cfg.name}: {_UNPORTED['mla']}")
+    if "mamba" in cfg.pattern:
+        raise NotImplementedError(f"{cfg.name} (pattern {cfg.pattern}): {_UNPORTED['mamba']}")
 
 
 # ---------------------------------------------------------------------------
@@ -378,29 +426,45 @@ def proxy_recon_error(
     patches: int = 32,
     tokens: int = 16,
     batch: int = 2,
+    inputs: Optional[torch.Tensor] = None,
 ) -> float:
     """Whole-model proxy error of a policy/plan vs the fp forward.
 
     VGGT: mean relative error over points/depth/pose on a synthetic scene
-    batch drawn from ``generator`` (default: seed 0 on the device of
-    ``params``).  No calibration data; the same inputs are used for every
-    policy, so the numbers are comparable across plans.  ``tokens`` is the
-    LM branch's sequence length.
+    batch ``[batch, frames, patches, d_model]``.  LM: relative logits error
+    on random tokens ``[batch, tokens]`` (``[batch, tokens, d_model]``
+    floats for an ``embed_inputs`` config).  The inputs are drawn from
+    ``generator`` (default: seed 0 on the device of ``params``) unless
+    ``inputs`` gives them; the reference draws them with ``jax.random``,
+    which torch cannot reproduce, so a caller holding the two against each
+    other passes the same ``inputs`` to both.  No calibration data; the
+    same inputs are used for every policy, so the numbers are comparable
+    across plans.
     """
-    del tokens
-    if not cfg.vggt:
-        raise NotImplementedError(f"proxy_recon_error({cfg.name}): {_LM_NOT_PORTED}")
-    from repro_torch.core.model_quant import quantize_vggt
-    from repro_torch.models import vggt
+    from repro_torch.core.model_quant import quantize_lm, quantize_vggt
+    from repro_torch.models import lm, vggt
 
-    dev = params["patch_proj"]["w"].device
+    if not cfg.vggt:
+        _check_lm_ported(cfg)
+    dev = (params["patch_proj"] if cfg.vggt else params["embed"])["w"].device
     gen = torch.Generator(device=dev).manual_seed(0) if generator is None else generator
-    x = torch.randn((batch, frames, patches, cfg.d_model), generator=gen, device=dev)
+    if inputs is not None:
+        x = inputs
+    elif cfg.vggt:
+        x = torch.randn((batch, frames, patches, cfg.d_model), generator=gen, device=dev)
+    elif cfg.embed_inputs:
+        x = torch.randn((batch, tokens, cfg.d_model), generator=gen, device=dev)
+    else:
+        x = torch.randint(0, cfg.vocab_size, (batch, tokens), generator=gen, device=dev)
+
+    def rel(got, ref) -> float:
+        return float(torch.linalg.norm(got - ref) / (torch.linalg.norm(ref) + 1e-9))
+
     with torch.inference_mode():
-        ref = vggt.forward(cfg, params, x)
-        got = vggt.forward(cfg, quantize_vggt(cfg, params, policy), x)
-        errs = [
-            float(torch.linalg.norm(got[k] - ref[k]) / (torch.linalg.norm(ref[k]) + 1e-9))
-            for k in ("points", "depth", "pose")
-        ]
-    return float(np.mean(errs))
+        if cfg.vggt:
+            ref = vggt.forward(cfg, params, x)
+            got = vggt.forward(cfg, quantize_vggt(cfg, params, policy), x)
+            return float(np.mean([rel(got[k], ref[k]) for k in ("points", "depth", "pose")]))
+        ref, _ = lm.forward(cfg, params, x)
+        got, _ = lm.forward(cfg, quantize_lm(cfg, params, policy), x)
+        return rel(got, ref)

@@ -18,7 +18,8 @@ kernel variants.
 The cost signal follows the tuner's ``device``:
 
 * ``cuda`` — the real kernel at ``TUNE_M`` tokens (attention: ``TUNE_LQ``
-  queries over ``TUNE_LK`` keys), timed with ``kernels.measure.time_ms``
+  queries over ``TUNE_LK`` keys; a routed-expert site's batched launch:
+  ``TUNE_EXPERT_M`` rows for each expert), timed with ``kernels.measure.time_ms``
   (median of CUDA-event runs, L2 flushed), in milliseconds;
 * ``cpu`` — the modeled bytes the kernel's function moves at that size,
   as its wrapper records them in ``kernels.probe`` when it launches.
@@ -41,13 +42,17 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import two_stage_attention as _tsa
 
-__all__ = ["TuningDB", "Autotuner", "matmul_key", "attention_key", "ffn_key"]
+__all__ = ["TuningDB", "Autotuner", "matmul_key", "batched_key", "attention_key", "ffn_key"]
 
 DB_VERSION = 1
 
 # Reference token count used when timing matmul candidates — the real M is
 # runtime-dependent, so candidates are ranked at a representative size.
 TUNE_M = 256
+# Rows per expert when timing a MoE layer's batched launch: each expert's
+# capacity in a 2 x 512-token prefill wave of deepseek-moe-16b (64 experts,
+# top-6, capacity factor 1.25).
+TUNE_EXPERT_M = 120
 # Reference sequence lengths for attention candidates.
 TUNE_LQ = 256
 TUNE_LK = 1024
@@ -74,6 +79,15 @@ def matmul_key(
         + (f"|norm{norm}" if norm is not None else "")
         + f"|{backend}"
     )
+
+
+def batched_key(k: int, n: int, *, experts: int, w_bits: int, a_bits: int, packed: bool,
+                backend: str) -> str:
+    """DB key for a MoE layer's routed-expert site: ``quant_matmul``'s
+    batched launch over ``experts`` stacked weights (its tiles are the 2-D
+    launch's, but its time is not)."""
+    return (f"quant_matmul_batched|e{experts}xk{k}xn{n}|w{w_bits}a{a_bits}"
+            f"|packed{int(packed)}|{backend}")
 
 
 def attention_key(head_dim: int, *, backend: str) -> str:
@@ -145,8 +159,9 @@ class Autotuner:
     (``cuda`` or ``cpu``) picks the cost signal and is the ``backend`` of
     every key.  ``measure`` is injectable for tests: ``measure(kind,
     tiles) -> cost`` replaces both the wall-clock and the modeled-bytes
-    paths; ``kind`` is the kernel (``quant_matmul``, ``fused_matmul``,
-    ``fused_ffn``) or ``two_stage_mha``.
+    paths; ``kind`` is the kernel (``quant_matmul``,
+    ``quant_matmul_batched``, ``fused_matmul``, ``fused_ffn``) or
+    ``two_stage_mha``.
     """
 
     db: TuningDB
@@ -189,6 +204,31 @@ class Autotuner:
             return _time(lambda: kernel_ops.quant_linear_matmul(x, wq, a_bits, tiles=tiles))
         site = _fused_site(k, n, w_bits=w_bits, a_bits=a_bits, norm=norm, device=dev)
         return _time(lambda: kernel_ops.fused_linear(x, site, tiles=tiles))
+
+    def tune_matmul_batched(self, k: int, n: int, *, experts: int, w_bits: int, a_bits: int,
+                            packed: bool) -> dict:
+        """A routed-expert site: the batched launch at ``TUNE_EXPERT_M``
+        rows for each of ``experts`` problems.  Its candidates are
+        ``quant_matmul``'s launch tiles, which the batched launch shares."""
+        key = batched_key(k, n, experts=experts, w_bits=w_bits, a_bits=a_bits, packed=packed,
+                          backend=self.backend)
+
+        def cost(tiles):
+            self.timing_runs += 1
+            if self.measure is not None:
+                return float(self.measure("quant_matmul_batched", tiles))
+            if self.backend == "cpu":
+                return float(_qm.batched_function_bytes(experts, experts, TUNE_EXPERT_M, k, n,
+                                                        packed=packed))
+            dev = torch.device(self.device)
+            x = _ramp((experts, TUNE_EXPERT_M, k), dev)
+            one = quantize_weight(_ramp((k, n), dev), w_bits)
+            wq = dataclasses.replace(one, values=one.values.expand(experts, -1, -1).contiguous(),
+                                     scale=one.scale.reshape(1, 1, n).expand(experts, 1, n)
+                                     .contiguous())
+            return _time(lambda: kernel_ops.quant_linear_matmul(x, wq, a_bits, tiles=tiles))
+
+        return self._tune(key, "quant_matmul", cost)
 
     # -- fused FFN groups -----------------------------------------------
 

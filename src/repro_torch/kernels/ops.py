@@ -47,6 +47,9 @@ __all__ = [
 ]
 
 
+# ``quant_matmul``'s batched launch (a MoE layer's routed experts) runs the
+# 2-D launch's tiles, one grid plane a problem: it has no entry of its own,
+# and a schedule's expert sites carry ``quant_matmul``'s tiles.
 _LAUNCH_TILES = {
     "quant_matmul": _qm.LAUNCH_TILES,
     "two_stage_attention": _tsa.LAUNCH_TILES,

@@ -9,6 +9,10 @@ serving engine loads at startup (``launch/serve.py --schedule``)::
     python -m repro_torch.launch.compile --arch vggt-1b \\
         --spec w4a8:fused --out vggt.schedule.json
 
+    # an LM: a uniform spec lowers on the meta device, no weights drawn
+    python -m repro_torch.launch.compile --arch qwen3-14b \\
+        --spec w4a8:fused --out qwen3.schedule.json
+
     # plan mixed precision on the seed-0 weights and time each kernel
     # signature on the card, persisting the times so re-compiles are free
     python -m repro_torch.launch.compile --arch vggt-1b --spec plan:fused \\
@@ -27,8 +31,13 @@ timings, the schedule's ``backend``) unless ``--device cpu`` is given;
 without a CUDA device and without that flag it exits non-zero.  A
 schedule the JAX package compiled (backend ``interpret`` or ``tpu``)
 carries TPU tilings: recompile it here before serving it.  It lowers
-VGGT configs only; the LM lowering (``ROADMAP.md``, queue 1 item 7) is not
-ported yet.
+VGGT configs and the ported LMs (qwen3-14b, rwkv6-1.6b, deepseek-moe-16b
+and their smoke configs); the reference's other configs are not in the
+port's registry, whose error points to ``ROADMAP.md`` queue 1, and the
+planner and the compiler refuse an MLA or Mamba config naming items 7b and
+9.  A uniform spec lowers on
+the ``meta`` device and draws no weights, so a full-depth config compiles
+on any host; ``plan`` draws the seed-0 weights on ``--device``.
 """
 from __future__ import annotations
 
@@ -58,10 +67,11 @@ def build_plan(spec: ServeSpec, cfg, *, device="cuda", verbose: bool = False) ->
         raise ValueError("--spec schedule=<path> is already compiled")
     if spec.level == "plan":
         from repro_torch.core.precision import plan_model
-        from repro_torch.models import vggt
+        from repro_torch.models import lm, vggt
 
         dev = torch.device(device)
-        params = vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        params = (vggt if cfg.vggt else lm).init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0))
         plan, report = plan_model(cfg, params, method=spec.method, name="plan",
                                   use_kernel=True, fuse=spec.fused)
         if verbose:
@@ -76,8 +86,9 @@ def build_plan(spec: ServeSpec, cfg, *, device="cuda", verbose: bool = False) ->
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="vggt-1b-smoke",
-                    help="a VGGT config (vggt-1b, vggt-1b-smoke)")
+    ap.add_argument("--arch", default="qwen3-14b-smoke",
+                    help="a ported config: vggt-1b, qwen3-14b, rwkv6-1.6b, deepseek-moe-16b, "
+                         "each also as -smoke")
     ap.add_argument("--spec", default="w4a8:fused",
                     help=f"precision spec: {SERVE_SPEC_GRAMMAR}")
     ap.add_argument("--method", default="versaq", help="versaq|quarot|rtn")
@@ -98,11 +109,8 @@ def main(argv=None) -> int:
 
     try:
         cfg = get_config(args.arch)
-    except KeyError:
-        cfg = None
-    if cfg is None or not cfg.vggt:
-        ap.error(f"--arch {args.arch}: the compiler lowers VGGT configs only; its LM "
-                 "lowering (ROADMAP.md, queue 1 item 7) is not ported yet")
+    except KeyError as e:
+        ap.error(f"--arch {args.arch}: {e.args[0]}")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("compile: RuntimeError: the compiler runs on the CUDA device unless told "

@@ -20,6 +20,8 @@ VGGT scenes through ``VGGTEngine``, LM prompts through the LM ``Engine``.
   # serve a schedule compiled by ``python -m repro_torch.launch.compile``
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
       --schedule build/vggt.schedule.json --attn-impl two_stage ...
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --schedule build/qwen3.schedule.json --requests 4 --prompt-len 512 ...
 
 Precision tiers (one engine, several quantization levels; requests are
 assigned tiers round-robin and only coalesce within their tier).  Tier
@@ -38,7 +40,8 @@ at its exact length) with ``max_len = --prompt-len + --gen``.  ``--mode``
 picks the scheduler: ``continuous`` (slot-batched: requests join the
 running decode batch), ``bucket`` (drain-then-refill) or ``auto`` (the
 default: continuous wherever the config supports it, which every ported
-LM does).  It takes no ``--schedule`` yet.
+LM does), with ``--tiers`` (``plan[:fused]`` plans on the seed-0 weights)
+or one ``--schedule``.
 
 The launcher runs on the CUDA device; ``--device cpu`` runs it on the
 CPU (each kernel wrapper then takes its plain PyTorch version).  Without
@@ -204,15 +207,13 @@ def serve_lm(cfg, args) -> None:
     from repro_torch.serving.engine import Engine
 
     dev = resolve_device(args.device, "Engine")  # the engine's check, before any weights
-    if args.schedule is not None:
-        raise ValueError("--schedule: the compiler's LM lowering is not ported yet "
-                         "(ROADMAP.md, queue 1 item 7)")
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     tiers = _tiers(args, cfg, params)
     eng = Engine(
         cfg,
         params,
-        policy=None if tiers else _policy(args),
+        policy=None if (tiers or args.schedule) else _policy(args),
+        schedule=args.schedule,
         tiers=tiers,
         attn_impl=args.attn_impl,
         max_len=args.prompt_len + args.gen,
@@ -256,8 +257,8 @@ def main(argv=None) -> int:
                          "schedule=<path>}; overrides --policy")
     ap.add_argument("--schedule", default=None,
                     help="serve from a compiled KernelSchedule JSON "
-                         "(repro_torch.launch.compile output); overrides --policy "
-                         "and conflicts with --tiers")
+                         "(repro_torch.launch.compile output, VGGT or LM); overrides "
+                         "--policy and conflicts with --tiers")
     ap.add_argument("--method", default="versaq", help="versaq|quarot|rtn")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-wait-s", type=float, default=0.005,

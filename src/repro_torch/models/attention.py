@@ -116,7 +116,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_groups: int,
                   kv_dtype=torch.int8, device=None) -> KVCache:
     """Stacked cache for ``n_groups`` scan groups (GQA layout)."""
     if cfg.mla:
-        raise NotImplementedError("the MLA cache is not ported yet (ROADMAP queue 1 item 7)")
+        raise NotImplementedError("the MLA cache is not ported yet (ROADMAP queue 1 item 7b)")
     shape = (n_groups, batch, max_len, cfg.n_kv_heads)
     return KVCache(
         k=torch.zeros(shape + (cfg.head_dim,), dtype=kv_dtype, device=device),

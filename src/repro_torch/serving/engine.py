@@ -62,8 +62,11 @@ mode beside it (port of ``repro/serving/engine.py``).
   mode it is first re-queued once at ``numeric_retry_tier``, when set);
   co-batched requests are delivered.
 
-``schedule=`` (a compiled kernel schedule) waits for the compiler's LM
-lowering.  ``compiles`` in the stats counts the first use of each
+``schedule=`` (a compiled ``KernelSchedule`` or a path to one) serves in
+place of ``policy=``/``tiers=``: its plan sets each site's level, its
+fusion decisions and launch tiles are read, not re-derived, its attention
+tiles go on ``cfg.attn_tiles``, and its hash is part of every first-use
+key.  ``compiles`` in the stats counts the first use of each
 ``(bucket, variant)`` — masked or unmasked prefill, greedy or sampled and
 plain or fault-armed decode step — as in the port's ``VGGTEngine``: eager
 PyTorch compiles nothing.  Results are numpy int32 ids, as in the
@@ -955,10 +958,6 @@ class Engine:
             raise ValueError(f"attn_impl={attn_impl!r}: expected flash | two_stage | vanilla")
         if mode not in ("auto", "continuous", "bucket"):
             raise ValueError(f"mode={mode!r}: expected auto | continuous | bucket")
-        if schedule is not None:
-            raise NotImplementedError(
-                "Engine(schedule=...): the kernel-schedule compiler's LM lowering is not "
-                "ported yet (ROADMAP.md, queue 1 item 7); serve tiers or a policy")
         if "mamba" in cfg.pattern or cfg.mla or cfg.embed_inputs:
             raise NotImplementedError(
                 f"{cfg.name}: only GQA (dense or MoE FFN) and rwkv token LMs are ported "
@@ -972,6 +971,17 @@ class Engine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg.with_(attn_impl=attn_impl) if attn_impl is not None else cfg
+        # A compiled KernelSchedule (or a path to one) replaces the implicit
+        # policy: the walker reads its fusion decisions and launch tiles, and
+        # its hash keys every bucket and slot first use.
+        self.schedule, self._schedule_hash = batching.load_schedule(schedule)
+        if self.schedule is not None:
+            if policy is not None or tiers is not None:
+                raise ValueError("pass either schedule= or policy=/tiers=, not both")
+            policy = self.schedule
+            targets = self.schedule.attention_targets()
+            if targets:
+                self.cfg = self.cfg.with_(attn_tiles=targets)
         self._raw = to_device(params, self.device)
         self._tierset = batching.TierSet(
             tiers=tiers, policy=policy, default_tier=default_tier,
@@ -1143,8 +1153,9 @@ class Engine:
         ``compiles`` field (the reference's stats schema, where each is a
         compile; here "bucket first use"): a prefill's ``masked`` flag, a
         slot step's ``("slot", sampled, faulty)``, a bucket-mode decode
-        step's ``masked``.  Each variant counts apart."""
-        key = (bucket, variant)
+        step's ``masked``.  Each variant counts apart, and the key holds the
+        schedule's hash."""
+        key = (bucket, variant, self._schedule_hash)
         if key not in self._seen:
             self._seen.add(key)
             self.stats.bucket(bucket).compiles += 1

@@ -197,9 +197,21 @@ def test_schedule_quantizes_as_the_plan(name):
                 assert leaf.tiles == want
 
 
-def test_lm_configs_wait_for_the_lm_slice():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        compile_schedule(j_get_config("qwen3-14b-smoke"), PrecisionPlan())
+@pytest.mark.parametrize("kw,item", [({}, None), (dict(mla=True), "item 7b"),
+                                     (dict(pattern=("attn", "mamba"), n_layers=4), "item 9")],
+                         ids=["gqa", "mla", "mamba"])
+def test_lm_configs_wait_for_the_lm_slice(kw, item):
+    """The LM lowering has landed for GQA stacks (and rwkv and MoE ones,
+    held against the reference in ``tests/test_torch_lm_planner.py``); MLA
+    and Mamba layers wait for their ROADMAP items."""
+    cfg = get_config("qwen3-14b-smoke").with_(**kw)
+    if item is None:
+        sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, fuse=True))
+        assert [g.name for g in sched.groups] == ["blocks.l0.mixer.wqkv", "blocks.l0.ffn"]
+        assert dict(sched.attention.tiles) == tsa.LAUNCH_TILES
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        compile_schedule(cfg, PrecisionPlan())
 
 
 # ---------------------------------------------------------------------------

@@ -962,3 +962,91 @@ def test_quant_matmul_batched_rejects_bad_shapes(dev):
                                     torch.zeros((1, k // 2, 4), dtype=torch.uint8, device=dev),
                                     torch.ones((1, 1, 4), device=dev), packed=True)
     assert log.count == 0
+
+
+# ---------------------------------------------------------------------------
+# LM schedules: the compiler's LM lowering served on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 4, 1024])
+@pytest.mark.parametrize("site", ["wqkv", "wo"])
+def test_fused_matmul_at_deepseek_sites(dev, site, m):
+    """deepseek-moe-16b's fused sites under ``w4a8:fused`` (its W4 QKV
+    panel, 2048 x 6144 / 2, is under the 8 MiB budget): ``wqkv`` with the
+    RMS norm absorbed and ``wo`` with its epilogue, W4A8 with the IDCT and
+    no bias, at decode's M = 1 and 4 and a 2 x 512 prefill wave's 1024."""
+    n, norm = (6144, "rms") if site == "wqkv" else (2048, None)
+    test_fused_matmul_matches_plain(
+        dev, (m, 2048, n, 4, 8, norm, False, "none", False, None, True, False, False))
+
+
+def test_tuner_times_the_batched_expert_launch(dev, tmp_path):
+    """A MoE schedule compiled with the tuner on the card: the routed
+    experts' signature times the batched launch, and a recompile on the
+    filled DB times nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import Autotuner, PrecisionPlan, TuningDB, compile_schedule
+    from repro_torch.core.precision import tuner as ttuner
+
+    cfg = get_config("deepseek-moe-16b-smoke")
+    plan = PrecisionPlan(default="w4a8", use_kernel=True, fuse=True)
+    db = str(tmp_path / "tune.json")
+    t1 = Autotuner(db=TuningDB(db), device="cuda")
+    s1 = compile_schedule(cfg, plan, tuner=t1)
+    key = ttuner.batched_key(cfg.d_model, cfg.moe_d_ff, experts=cfg.n_experts, w_bits=4,
+                             a_bits=8, packed=True, backend="cuda")
+    assert 0.0 < t1.db.entries[key]["cost"] < 100.0
+    t2 = Autotuner(db=TuningDB(db), device="cuda")
+    assert compile_schedule(cfg, plan, tuner=t2).hash == s1.hash and t2.timing_runs == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b-smoke", "rwkv6-1.6b-smoke", "deepseek-moe-16b-smoke"])
+def test_lm_schedule_launches_what_it_predicts(dev, tmp_path, arch):
+    """A ``w4a8:fused`` schedule served through ``Engine(schedule=path)``
+    on the card, requests joining mid-decode: every prefill wave and decode
+    step launches what ``launches_per_forward(two_stage_attention=False)``
+    predicts (``fused_matmul``/``fused_ffn`` where the smoke widths fuse,
+    the batched launch for deepseek's routed experts), and the ids equal
+    the same plan served as a policy."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPlan, compile_schedule
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config(arch)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    plan = PrecisionPlan(default="w4a8", use_kernel=True, fuse=True, name="w4a8")
+    sched = compile_schedule(cfg, plan)
+    path = str(tmp_path / "s.json")
+    sched.save(path)
+    want = sched.launches_per_forward(two_stage_attention=False)
+    rng = np.random.default_rng(4)
+    lens = (16, 12, 9, 16) if arch.startswith(("qwen", "deepseek")) else (16, 12, 9, 7)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32) for n in lens]
+    eng = Engine(cfg, params, schedule=path, max_len=64, max_batch=8, decode_steps_per_poll=4,
+                 device="cuda")
+    eng.params
+    calls = []
+    fwd = lm.forward
+
+    def counted(*a, **kw):
+        with probe.tracking() as log:
+            out = fwd(*a, **kw)
+        calls.append((kw.get("mode"), log.by_name()))
+        return out
+
+    lm.forward = counted
+    try:
+        got = _lm_serving_script(eng, prompts, 12)
+    finally:
+        lm.forward = fwd
+    torch.cuda.synchronize()
+    assert {mode for mode, _ in calls} == {"prefill", "decode"}
+    assert all(log == want for _, log in calls), (want, calls)
+    if cfg.moe:
+        assert want["quant_matmul_batched"] == 3 * (cfg.n_layers - cfg.first_dense)
+    ref = Engine(cfg, params, policy=plan, max_len=64, max_batch=8, decode_steps_per_poll=4,
+                 device="cuda")
+    for g, r in zip(got, _lm_serving_script(ref, prompts, 12)):
+        np.testing.assert_array_equal(g, r)

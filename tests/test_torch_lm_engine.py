@@ -22,6 +22,7 @@ from repro.models import lm as jlm
 from repro.serving.engine import Engine as JEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.precision import compile_schedule
 from repro_torch.core.precision.plan import PrecisionPlan
 from repro_torch.data.pipeline import mixed_len_prompts
 from repro_torch.models import lm
@@ -327,8 +328,10 @@ def test_modes_and_schedule():
     """``auto`` serves the continuous scheduler for attention-only and
     position-free recurrent patterns and says so in the stats; for a
     pattern that mixes them it serves bucket mode and says why, and
-    ``continuous`` raises there, as in the reference.  ``schedule=`` waits
-    for its ROADMAP item; unported layer kinds raise."""
+    ``continuous`` raises there, as in the reference.  ``schedule=``
+    serves a compiled schedule in place of a policy or tiers (token parity
+    in ``tests/test_torch_lm_schedule_serving.py``); unported layer kinds
+    raise."""
     eng = _engine()
     assert eng.mode == "continuous" and eng.continuous
     assert eng.stats.summary()["mode"] == "continuous"
@@ -347,8 +350,13 @@ def test_modes_and_schedule():
     assert not heng.continuous and heng.stats.mode.startswith("bucket (mode='auto': pattern")
     with pytest.raises(ValueError, match="mode='continuous' needs"):
         Engine(hybrid, hparams, max_len=MAX_LEN, mode="continuous", device="cpu")
-    with pytest.raises(NotImplementedError, match="LM lowering"):
-        _engine(schedule="x.json")
+    sched = compile_schedule(cfg, W4A8)
+    eng = _engine(schedule=sched)
+    assert eng.schedule is sched and eng.policy is sched
+    assert eng.cfg.attn_tiles == sched.attention_targets()
+    for kw in (dict(policy=W4A8), dict(tiers={"w4a8": W4A8})):
+        with pytest.raises(ValueError, match="either schedule= or policy=/tiers="):
+            _engine(schedule=sched, **kw)
     with pytest.raises(ValueError, match="mode"):
         _engine(mode="slots")
     for kw in (dict(pattern=("attn", "mamba")), dict(mla=True), dict(embed_inputs=True)):

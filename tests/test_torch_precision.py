@@ -21,6 +21,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.precision import PrecisionPlan, plan as plan_mod
 from repro_torch.core.precision import planner as tpl
 from repro_torch.launch import roofline_util
+from repro_torch.models import lm as tlm
 from test_torch_vggt import flatten_jax
 
 # Relative tolerance of a site's error at a level against the reference's:
@@ -184,9 +185,24 @@ def test_proxy_recon_error_orders_the_levels():
     assert tpl.proxy_recon_error(cfg, tp, PrecisionPlan(default="w4a4"), g) == errs["w4a4"]
 
 
-def test_lm_branches_wait_for_the_lm_slice():
-    cfg = j_get_config("qwen3-14b-smoke")
+@pytest.mark.parametrize("kw,item", [({}, None), (dict(mla=True), "item 7b"),
+                                     (dict(pattern=("attn", "mamba"), n_layers=4), "item 9")],
+                         ids=["gqa", "mla", "mamba"])
+def test_lm_branches_wait_for_the_lm_slice(kw, item):
+    """The LM slice has landed for GQA stacks (and rwkv and MoE ones, held
+    against the reference in ``tests/test_torch_lm_planner.py``): the site
+    walk and the proxy error run; MLA and Mamba layers wait for their
+    ROADMAP items."""
+    cfg = get_config("qwen3-14b-smoke").with_(**kw)
+    if item is None:
+        params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+        sites = tpl.enumerate_sites(cfg, params)
+        assert [s.site for s in sites[:4]] == [f"blocks.l0.mixer.{n}" for n in
+                                               ("wq", "wk", "wv", "wo")]
+        assert all(s.count == cfg.n_layers for s in sites)
+        assert 0.0 < tpl.proxy_recon_error(cfg, params, PrecisionPlan(default="w4a8")) < 1.0
+        return
     for fn in (lambda: tpl.enumerate_sites(cfg, {}),
                lambda: tpl.proxy_recon_error(cfg, {}, PrecisionPlan())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match=item):
             fn()

@@ -153,8 +153,8 @@ def test_serve_spec_plan_and_schedule_materialize(monkeypatch, tmp_path):
 def _recording(monkeypatch):
     """Kernel wrappers that record their launch and run the plain version:
     the launch accounting of the card, on the CPU."""
-    for mod, name in ((qm, "quant_matmul"), (tsa, "two_stage_attention"),
-                      (fz, "fused_matmul"), (fz, "fused_ffn")):
+    for mod, name in ((qm, "quant_matmul"), (qm, "quant_matmul_batched"),
+                      (tsa, "two_stage_attention"), (fz, "fused_matmul"), (fz, "fused_ffn")):
         plain = getattr(mod, f"{name}_plain")
 
         def run(*a, _plain=plain, _name=name, **kw):

@@ -448,5 +448,6 @@ def test_lm_faults_off_has_no_fault_variants():
     req = eng.enqueue(_lm_prompt(8, 10), 4)
     eng.flush()
     assert req.result().shape == (4,)
-    slot = [v for _, v in eng._seen if isinstance(v, tuple) and v[0] == "slot"]
+    # first-use keys are (bucket, variant, schedule hash)
+    slot = [v for _, v, _ in eng._seen if isinstance(v, tuple) and v[0] == "slot"]
     assert slot and all(v[2] is False for v in slot)
