@@ -22,7 +22,11 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    prefill's capacity, and M 1, decode's, through gate/up K 2048 x N 1408
    and down K 1408 x N 2048), ``fused_matmul`` at deepseek-moe-16b's fused
    ``wqkv`` (K 2048, N 6144, RMS prologue) and ``wo`` (N 2048) at M 1024, 1
-   and 4 (the ``lm_cases`` of its record); times kernel, plain version,
+   and 4 (the ``lm_cases`` of its record), and the two-stage kernel at the
+   LM scoring shapes (qwen3-14b dh 128, phi3-mini-3.8b dh 96, paligemma-3b
+   dh 256 MQA, [2, 2048] causal) and a ragged non-causal case at dh 96 and
+   256 (Lq 1000, Lk 1500), with every instance's registers and spills (none
+   may spill); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
    that call (``torch._int_mm``, ``F.scaled_dot_product_attention``,
    ``torch.matmul`` with the blocked Hadamard); for ``quant_matmul``, the
@@ -182,8 +186,36 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    repro_torch.launch.compile --arch qwen3-14b --spec w4a8:fused`` as a
    subprocess (40 layers on ``meta``): exit 0 and the in-process
    compile's site and group counts and hash.  Prints the phase's seconds.
+13. serves phi3-mini-3.8b (MHA 32/32 heads of 96, SwiGLU) at full width and
+   depth (32 layers, seed-0 weights; ``phase_phi3``) with the tiers
+   ``quality=fp,balanced=w4a8`` and two-stage attention: through the
+   continuous scheduler behind ``AsyncServer`` (6 ``mixed_len_prompts``
+   requests of ``ZOO_PROMPT`` and 3/4 of that tokens, ``ZOO_GEN`` new tokens,
+   four joining while two decode) and in bucket mode; holds every request
+   delivered, an admission mid-decode, 7 x 32 ``quant_matmul`` per balanced
+   prefill wave and decode step in each mode and none on ``quality``, ids of
+   the two modes as in 10 (``_hold_same_ids``), the balanced tier's
+   teacher-forced logits against the plain versions (``_hold_lm``) and
+   every layer's branches (< 1e-3); then a [2, ``LM_SCORE_LEN``] scoring
+   forward of the W4A8 tree: 7 x 32 ``quant_matmul`` and 32 dh-96
+   two-stage launches, held as in 9c.  Prints TTFT, decode ms per step,
+   tok/s, occupancy and peak memory per mode;
+14. runs paligemma-3b (MQA 8/1 heads of 256, GeGLU, embedding inputs) at
+   full width and depth (18 layers, seed-0 weights; ``phase_paligemma``):
+   the ``Engine``'s refusals as the reference's (bucket mode under
+   ``auto``, ``mode="continuous"``, ``enqueue`` and ``generate`` of
+   embeddings); a W4A8 left-padded prefill of 2 x ``ZOO_PROMPT`` seeded
+   embeddings and 4 ``decode_step`` calls with [2, 1, d] embeddings over
+   the int8 cache, 7 x 18 ``quant_matmul`` each, logits and branches held
+   as in 13, prefill and decode times; a [2, ``LM_SCORE_LEN``] scoring
+   forward through 18 dh-256 two-stage launches (its [2, 2048, 257216]
+   logits, 4.2 GB of float32, are compared in chunks, ``_rel``); and the
+   compiled ``w4a8:fused`` schedule (``wqkv`` and ``wo`` on
+   ``fused_matmul``, the FFN on ``quant_matmul``): a full forward and a
+   prefill with 2 decode steps launching what the schedule predicts,
+   logits and branches held.  Each prints its seconds.
 
-Each of the paths 4-12 runs with the launch counts set to 0 just before it
+Each of the paths 4-14 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -236,11 +268,18 @@ RWKV_PROMPTS, RWKV_GEN = (256, 96, 200, 128, 160, 224), 32
 # layers (f32 weights: one MoE layer 2.35 GB, the full model 65.5 GB, with
 # its W4 tier ~74 GB before activations; 8 layers 18.5 GB)
 MOE_LAYERS = 8
+# phases 13-14: phi3-mini-3.8b and paligemma-3b at full depth (f32 weights
+# 15.7 and 12.2 GB); served prompts of ZOO_PROMPT tokens (and 3/4 of that),
+# ZOO_GEN new tokens each
+ZOO_PROMPT, ZOO_GEN = 256, 16
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
 # DCT-III (csrc/idct64.cuh) at ~10-12 operations an output.
 IDCT_OPS = (64 // 2 * 6 + 3 * 64 // 2 * 6) / 64
+# the two-stage kernel phase's rows at the LM paths' shapes
+LM_ATTENTION_ROWS = ("qwen3 scoring", "phi3 scoring", "paligemma scoring", "dh96 ragged",
+                     "dh256 ragged")
 KERNELS = ("quant_matmul", "two_stage_attention", "fused_matmul", "fused_ffn", "norm_quant",
            "wht", "quant_matmul_batched")
 
@@ -298,6 +337,8 @@ def main() -> int:
     del raw
     paths["rwkv"] = phase_rwkv(torch, dev)
     paths["moe"] = phase_moe(torch, dev)
+    paths["phi3"] = phase_phi3(torch, dev)
+    paths["paligemma"] = phase_paligemma(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -355,7 +396,16 @@ def _bound_ms(nbytes: float, int8_ops: float = 0.0, sfu: float = 0.0,
 
 
 def _rel(torch, got, want) -> float:
-    return ((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30)).item()
+    """Relative L2 in float64, summed over chunks of 2^26 entries: a [2,
+    2048] forward's logits at paligemma-3b's vocabulary are 4.2 GB of
+    float32, and whole float64 copies of two of them would take 25 GB."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    d = r = 0.0
+    for i in range(0, g.numel(), 1 << 26):
+        gd, wd = g[i:i + (1 << 26)].double(), w[i:i + (1 << 26)].double()
+        d += (gd - wd).square().sum().item()
+        r += wd.square().sum().item()
+    return math.sqrt(d) / max(math.sqrt(r), 1e-30)
 
 
 def _q_flips(torch, got, want) -> int:
@@ -593,22 +643,36 @@ def _kernel_attention(torch, cfg, randn) -> dict:
 
     h, dh = cfg.n_heads, cfg.head_dim
     t = cfg.n_special_tokens + N_PATCHES
-    # (label, B, H, Hkv, L, dh, causal, launches per forward of the fused
-    # path); "qwen3 scoring" is one layer of phase 9's full-mode forward
-    # (qwen3-14b, [2, 2048] tokens), recorded apart in ``lm_case``
-    cases = [("frame", BATCH * S_FRAMES, h, h, t, dh, False, cfg.n_layers),
-             ("global", BATCH, h, h, S_FRAMES * t, dh, False, cfg.n_layers),
-             ("causal check", 1, 4, 4, 300, dh, True, 0), ("gqa check", 1, 8, 2, 500, dh, False, 0),
-             ("qwen3 scoring", 2, 40, 8, LM_SCORE_LEN, 128, True, 0)]
+    # (label, B, H, Hkv, Lq, Lk, dh, causal, launches per forward of the fused
+    # path); the LM rows (LM_ATTENTION_ROWS: one layer of a [2, 2048] scoring
+    # forward of qwen3-14b, phi3-mini-3.8b and paligemma-3b, and a ragged
+    # non-causal check at each new head dim) are recorded apart in
+    # ``lm_cases``
+    L = LM_SCORE_LEN
+    cases = [("frame", BATCH * S_FRAMES, h, h, t, t, dh, False, cfg.n_layers),
+             ("global", BATCH, h, h, S_FRAMES * t, S_FRAMES * t, dh, False, cfg.n_layers),
+             ("causal check", 1, 4, 4, 300, 300, dh, True, 0),
+             ("gqa check", 1, 8, 2, 500, 500, dh, False, 0),
+             ("qwen3 scoring", 2, 40, 8, L, L, 128, True, 0),
+             ("phi3 scoring", 2, 32, 32, L, L, 96, True, 0),
+             ("paligemma scoring", 2, 8, 1, L, L, 256, True, 0),
+             ("dh96 ragged", 1, 4, 4, 1000, 1500, 96, False, 0),
+             ("dh256 ragged", 1, 8, 1, 1000, 1500, 256, False, 0)]
     e = _Entry("two_stage_attention", "src/repro_torch/csrc/two_stage_attention.cu",
                "src/repro/kernels/two_stage_attention.py:210")
-    attrs, res = _attrs("two_stage_attention", dh, 1.0 / math.sqrt(dh))
-    attrs128, res128 = _attrs("two_stage_attention", 128, 1.0 / math.sqrt(128))
-    e.d.update(attrs, pq_flips={}, attrs_dh128=attrs128)
-    print(f"two_stage_attention dh 128 instance: {res128}")
-    for label, b, hq, hkv, length, dh, causal, nper in cases:
-        lm_row = label.startswith("qwen3")
-        args, gqa, vscale = attention_inputs(randn, b, hq, hkv, length, dh)
+    res = {}
+    for d in (32, 64, 96, 128, 256):  # every instance's resources; none may spill
+        a, res[d] = _attrs("two_stage_attention", d, 1.0 / math.sqrt(d))
+        print(f"two_stage_attention dh {d} instance: {res[d]}")
+        _check(a["spill_bytes"] == 0, f"two_stage_attention dh {d} spills: {a}")
+        if d == dh:
+            e.d.update(a)
+        else:
+            e.d[f"attrs_dh{d}"] = a
+    e.d.update(pq_flips={}, lm_cases={})
+    for label, b, hq, hkv, lq, lk, dh, causal, nper in cases:
+        lm_row = label in LM_ATTENTION_ROWS
+        args, gqa, vscale = attention_inputs(randn, b, hq, hkv, lq, dh, lk=lk)
         got = tsa.two_stage_attention(*args, causal=causal, **gqa)
         want = tsa.two_stage_attention_plain(*args, causal=causal, **gqa)
         torch.cuda.synchronize()
@@ -618,22 +682,23 @@ def _kernel_attention(torch, cfg, randn) -> dict:
         ms = time_ms(lambda: tsa.two_stage_attention(*args, causal=causal, **gqa))
         plain = time_ms(lambda: tsa.two_stage_attention_plain(*args, causal=causal, **gqa),
                         reps=2, warmup=1)
-        pairs = length * (length + 1) / 2 if causal else float(length) * length
-        nbytes = (b * hq * length * (dh + 4) + 2 * b * hkv * length * dh + b * hkv * length * 4
-                  + 4 * b * hq + 4 * b * hq * length * dh)
+        # top-left causal at Lq == Lk: row r sees keys 0..r
+        pairs = lq * (lq + 1) / 2 if causal else float(lq) * lk
+        nbytes = (b * hq * lq * (dh + 4) + 2 * b * hkv * lk * dh + b * hkv * lk * 4
+                  + 4 * b * hq + 4 * b * hq * lq * dh)
         # the function's own work, not the kernel's: QK^T once and P.V once
         # (2 ops per multiply-add), and one exp per score (the row max needs
         # none; p = exp(s - m) then feeds both l and pq)
         bound, by = _bound_ms(nbytes, 4.0 * b * hq * pairs * dh, sfu=1.0 * b * hq * pairs)
-        lib = None
+        lib = flips = None
         if nper or lm_row:  # the yardstick: bf16 SDPA on the dequantized tensors, made once
-            qf = (args[0].float() * args[1]).to(torch.bfloat16).view(b, hq, length, dh)
-            kf = (args[2].float() * args[3]).to(torch.bfloat16).view(b, hkv, length, dh)
-            vf = (args[4].float() * vscale).to(torch.bfloat16).view(b, hkv, length, dh)
+            qf = (args[0].float() * args[1]).to(torch.bfloat16).view(b, hq, lq, dh)
+            kf = (args[2].float() * args[3]).to(torch.bfloat16).view(b, hkv, lk, dh)
+            vf = (args[4].float() * vscale).to(torch.bfloat16).view(b, hkv, lk, dh)
             sdpa = dict(is_causal=causal, enable_gqa=hq != hkv)
             lib = time_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf, **sdpa))
             ref = F.scaled_dot_product_attention(qf, kf, vf, **sdpa).float()
-            ref = ref.view(b * hq, length, dh)
+            ref = ref.view(b * hq, lq, dh)
             rel = ((ref - tsa.two_stage_attention(*args, causal=causal, **gqa)).norm()
                    / ref.norm()).item()
             print(f"  two-stage int8 vs bf16 SDPA rel L2 = {rel:.3g}")
@@ -641,14 +706,15 @@ def _kernel_attention(torch, cfg, randn) -> dict:
             flips, n = pq_flips(args)
             e.d["pq_flips"][label] = [flips, n]
             print(f"  pq flips vs plain (head 0, no mask): {flips} of {n}")
-        print(f"two_stage_attention {label:12s} B={b} H={hq} Hkv={hkv} L={length} dh={dh} "
+        print(f"two_stage_attention {label:17s} B={b} H={hq} Hkv={hkv} Lq={lq} Lk={lk} dh={dh} "
               f"causal={causal}: err={err:.3g} kernel={ms:.4f}ms plain={plain:.4f}ms "
               f"sdpa={'n/a' if lib is None else f'{lib:.4f}ms'} bound={bound:.4f}ms ({by}) "
-              f"x{nper}/forward; {res128 if dh == 128 else res}")
+              f"x{ms / bound:.1f} bound, x{nper}/forward; {res[dh]}")
         if lm_row:
-            e.d["lm_case"] = dict(b=b, h=hq, hkv=hkv, l=length, dh=dh, causal=causal,
-                                  max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                                  bound_by=by, library_ms=lib, pq_flips=[flips, n])
+            e.d["lm_cases"][label] = dict(
+                b=b, h=hq, hkv=hkv, lq=lq, lk=lk, dh=dh, causal=causal, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                pq_flips=[flips, n])
             e.d["max_abs_err"] = max(e.d["max_abs_err"], err)
             continue
         e.add(err, nper, ms, plain, bound, by, lib)
@@ -1605,14 +1671,19 @@ def _lm_tiers():
             "w4a8:fused": PrecisionPlan(default="w4a8", use_kernel=True, fuse=True)}
 
 
-def _noised(torch, params, seed=7):
-    """``params`` with every embedding entry's last bit flipped at random
-    (``w·(1 ± 2^-23)``): the forward's float inputs changed in the last
-    place, as another summation order changes them."""
-    w = params["embed"]["w"]
+def _last_bit(torch, w, seed):
+    """``w·(1 ± 2^-23)``, the sign of each entry drawn from ``seed``."""
     gen = torch.Generator(device=w.device).manual_seed(seed)
     sign = torch.randint(0, 2, w.shape, generator=gen, device=w.device, dtype=torch.int8)
-    return {**params, "embed": {"w": w * (1 + (sign * 2 - 1) * 2.0**-23)}}
+    return w * (1 + (sign * 2 - 1) * 2.0**-23)
+
+
+def _noised(torch, params, seed=7):
+    """``params`` with every embedding entry's last bit flipped at random:
+    the forward's float inputs changed in the last place, as another
+    summation order changes them.  (An ``embed_inputs`` model reads no
+    embedding table: ``_last_bit`` its inputs instead.)"""
+    return {**params, "embed": {"w": _last_bit(torch, params["embed"]["w"], seed)}}
 
 
 # A quantized LM's whole-model logits at qwen3-14b-smoke width, kernels
@@ -1705,7 +1776,8 @@ def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
 
 def _teacher_forced(torch, cfg, params, toks, pad_lens, steps, max_len):
     """Logits of a left-padded prefill and of decode steps fed ``steps``
-    ([B, n] tokens): a list of [B, V] tensors."""
+    ([B, n] tokens, or [B, n, d] embeddings for an ``embed_inputs``
+    config): a list of [B, V] tensors."""
     from repro_torch.models import lm
 
     with torch.inference_mode():
@@ -1715,7 +1787,8 @@ def _teacher_forced(torch, cfg, params, toks, pad_lens, steps, max_len):
         out = [logits[:, -1]]
         del logits
         for i in range(steps.shape[1]):
-            logits, cache = lm.decode_step(cfg, params, steps[:, i], cache, pad_lens=pad_lens)
+            step = steps[:, i:i + 1] if cfg.embed_inputs else steps[:, i]
+            logits, cache = lm.decode_step(cfg, params, step, cache, pad_lens=pad_lens)
             out.append(logits[:, 0])
     return out
 
@@ -1907,16 +1980,20 @@ def _lm_serve(torch, dev) -> dict:
 
 
 def _lm_score(torch, dev, params, cfg, want=None) -> dict:
-    """One W4A8 scoring forward over [2, ``LM_SCORE_LEN``] tokens: its
-    launches (``want``, by default a dense GQA stack's 7 ``quant_matmul``
-    and one two-stage launch a layer), the logits against the plain
-    versions, every layer's branches."""
+    """One W4A8 scoring forward over [2, ``LM_SCORE_LEN``] tokens (seeded
+    [2, ``LM_SCORE_LEN``, d] embeddings for an ``embed_inputs`` config):
+    its launches (``want``, by default a dense GQA stack's 7
+    ``quant_matmul`` and one two-stage launch a layer), the logits against
+    the plain versions, every layer's branches."""
     from repro_torch.kernels import probe
     from repro_torch.models import lm
 
     cfg = cfg.with_(attn_impl="two_stage")
-    toks = torch.randint(0, cfg.vocab_size, (2, LM_SCORE_LEN),
-                         generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if cfg.embed_inputs:
+        toks = torch.randn((2, LM_SCORE_LEN, cfg.d_model), generator=gen, device=dev)
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (2, LM_SCORE_LEN), generator=gen, device=dev)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1942,7 +2019,10 @@ def _lm_score(torch, dev, params, cfg, want=None) -> dict:
 
     def moved():
         with torch.inference_mode(), _PlainKernels():
-            out, _ = lm.forward(cfg, _noised(torch, params), toks)
+            if cfg.embed_inputs:
+                out, _ = lm.forward(cfg, params, _last_bit(torch, toks, 7))
+            else:
+                out, _ = lm.forward(cfg, _noised(torch, params), toks)
         return [_rel(torch, out, want)]
 
     _hold_lm(torch, "lm scoring forward", [rel], moved)
@@ -2897,6 +2977,329 @@ def phase_moe(torch, dev) -> dict:
     del raw, params_b
     print(f"moe: phase {time.perf_counter() - t_phase:.1f}s; launches served {log.by_name()}, "
           f"scoring forward {score}")
+    return {"counts": counts, "runs": 1, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: phi3-mini-3.8b and paligemma-3b at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def _raises(fn, exc, text: str, tag: str) -> None:
+    """``fn()`` must raise ``exc`` with ``text`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        _check(text in str(e), f"{tag}: {type(e).__name__}: {e}")
+        return
+    _fail(f"{tag}: no {exc.__name__} raised")
+
+
+def phase_phi3(torch, dev) -> dict:
+    """See the module docstring (13)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import mixed_len_prompts
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import lm
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.server import AsyncServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("phi3-mini-3.8b")
+    n = cfg.n_layers
+    print(f"phi3: phi3-mini-3.8b at full depth, {n} layers (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_counts()[0] / 1e9:.2f} B parameters)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tiers = {k: v.materialize() for k, v in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8").items()}
+    names = list(tiers)
+    kw = dict(tiers=tiers, attn_impl="two_stage", max_len=CONT_MAX_LEN, batch_buckets=(1, 2, 4),
+              device="cuda")
+    eng = Engine(cfg, raw, mode="auto", max_batch=4, decode_steps_per_poll=8, **kw)
+    _check(eng.mode == "continuous", f"phi3: mode='auto' resolved to {eng.stats.mode}")
+    for t in tiers:
+        eng.tier_params(t)
+    torch.cuda.synchronize()
+    print(f"phi3: weights and tiers quantized in {time.perf_counter() - t0:.1f}s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n_req = 6
+    prompts = mixed_len_prompts(cfg.vocab_size, n_req, ZOO_PROMPT)
+    assign = [names[i % 2] for i in range(n_req)]
+    counts = {}
+
+    def add(log):
+        for k, v in log.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # continuous: two requests first, four joining while those decode
+    tracer = obs_trace.Tracer(capacity=4096)
+    prev = obs_trace.install(tracer)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with probe.tracking() as log, _LogitTap(eng) as tap, AsyncServer(eng) as srv:
+            reqs = [srv.submit(prompts[i], ZOO_GEN, tier=assign[i]) for i in (0, 1)]
+            t_wait = time.perf_counter() + 300
+            while eng.active < 2 and time.perf_counter() < t_wait:
+                time.sleep(0.002)
+            _check(eng.active >= 2, "phi3: the first two requests never ran")
+            reqs += [srv.submit(prompts[i], ZOO_GEN, tier=assign[i]) for i in range(2, n_req)]
+            outs = [srv.result(r, timeout=600) for r in reqs]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        obs_trace.install(prev)
+    _serve_report(torch, eng, "phi3 continuous", _ttft_ms(tracer, reqs), wall, peak)
+    _check(all(o.shape == (ZOO_GEN,) for o in outs), "phi3 continuous: every request delivered")
+    _check(eng.stats.scheduler.admitted_mid_decode >= 1, "phi3: nothing joined mid-decode")
+    calls = {t: [sum(s.calls for b, s in eng.stats.buckets.items()
+                     if b.tier == t and type(b).__name__ == k)
+                 for k in ("PrefillBucket", "DecodeBucket")] for t in names}
+    want = {"quant_matmul": 7 * n * sum(calls["balanced"])}
+    print(f"phi3 continuous: launches {log.by_name()}; (prefill waves, decode steps) per tier "
+          f"{calls}")
+    _check(log.by_name() == want, f"phi3 continuous: launches {log.by_name()}, expected {want}")
+    add(log.by_name())
+
+    # bucket mode on the same requests: its launches, its ids against continuous
+    beng = Engine(cfg, raw, mode="bucket", max_batch=2, max_wait_s=60.0, **kw)
+    for t in tiers:
+        beng.tier_params(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with probe.tracking() as blog, _LogitTap(beng) as btap:
+        breqs = [beng.enqueue(p, ZOO_GEN, tier=assign[i]) for i, p in enumerate(prompts)]
+        beng.flush()
+        torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    bcalls = {t: [sum(s.calls for b, s in beng.stats.buckets.items()
+                      if b.tier == t and type(b).__name__ == k)
+                  for k in ("PrefillBucket", "DecodeBucket")] for t in names}
+    bwant = {"quant_matmul": 7 * n * sum(bcalls["balanced"])}
+    _check(blog.by_name() == bwant, f"phi3 bucket: launches {blog.by_name()}, expected {bwant}")
+    add(blog.by_name())
+    print(beng.stats.format())
+    for tier in names:
+        for kind in ("PrefillBucket", "DecodeBucket"):
+            ss = [st for b, st in beng.stats.buckets.items()
+                  if b.tier == tier and type(b).__name__ == kind]
+            c, tot, tk = (sum(x.calls for x in ss), sum(x.total_s for x in ss),
+                          sum(x.tokens for x in ss))
+            print(f"phi3 bucket {tier}: {kind[:-6].lower()} {1e3 * tot / max(c, 1):.3f}ms a call "
+                  f"over {c} calls, {tk / max(tot, 1e-9):.1f} tok/s")
+    print(f"phi3 bucket: served {n_req} requests in {bwall:.2f}s; (prefill waves, decode steps) "
+          f"per tier {bcalls}")
+    same = 0
+    for i in range(n_req):
+        want_ids = breqs[i].result()
+        same += int(np.array_equal(want_ids, outs[i]))
+        _hold_same_ids(torch, f"phi3 request {i} ({assign[i]}) continuous vs bucket", want_ids,
+                       outs[i], lambda s_, i=i: btap.at(breqs[i], s_),
+                       lambda s_, i=i: tap.at(reqs[i], s_),
+                       _forced_at(torch, eng.cfg, prompts[i], eng.prompt_bucket(len(prompts[i])),
+                                  True, want_ids, CONT_MAX_LEN),
+                       eng.tier_params(assign[i]))
+    print(f"phi3: greedy ids equal between modes for {same} of {n_req} requests")
+    del beng, btap, tap
+
+    # the balanced pair, teacher-forced on its own tokens: kernels against plain
+    params_b = eng.tier_params("balanced")
+    idx = [i for i in range(n_req) if assign[i] == "balanced"][:2]
+    toks, pad = _padded(torch, dev, prompts, idx,
+                        eng.prompt_bucket(max(len(prompts[i]) for i in idx)))
+    served = torch.stack([torch.as_tensor(outs[i]) for i in idx]).to(dev).long()[:, :4]
+    got = _teacher_forced(torch, eng.cfg, params_b, toks, pad, served, CONT_MAX_LEN)
+    with _PlainKernels():
+        plain = _teacher_forced(torch, eng.cfg, params_b, toks, pad, served, CONT_MAX_LEN)
+    _check(all(torch.isfinite(g).all() for g in got), "phi3 balanced: non-finite logits")
+    rels = [_rel(torch, g, w) for g, w in zip(got, plain)]
+    print(f"phi3 balanced: teacher-forced logits vs plain rel L2 (prefill, 4 decode steps) "
+          f"{[f'{r:.3g}' for r in rels]}")
+
+    def moved():
+        with _PlainKernels():
+            again = _teacher_forced(torch, eng.cfg, _noised(torch, params_b), toks, pad, served,
+                                    CONT_MAX_LEN)
+        return [_rel(torch, a, w) for a, w in zip(again, plain)]
+
+    _hold_lm(torch, "phi3 balanced teacher-forced", rels, moved)
+    del got, plain
+    _lm_branches(torch, eng.cfg, params_b, toks, "phi3 balanced", pad=pad, steps=served)
+    del eng
+    # a [2, LM_SCORE_LEN] scoring forward through the dh-96 two-stage kernel
+    score = _lm_score(torch, dev, params_b, cfg)
+    _check(score == {"quant_matmul": 7 * n, "two_stage_attention": n},
+           f"phi3 scoring forward launches {score}")
+    add(score)
+    del raw, params_b
+    print(f"phi3: phase {time.perf_counter() - t_phase:.1f}s; launches {counts}")
+    return {"counts": counts, "runs": 1, "inplace": {}}
+
+
+def phase_paligemma(torch, dev) -> dict:
+    """See the module docstring (14)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_lm
+    from repro_torch.core.precision import PrecisionPlan, compile_schedule
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("paligemma-3b").with_(attn_impl="two_stage")
+    n = cfg.n_layers
+    print(f"paligemma: paligemma-3b at full depth, {n} layers (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"{cfg.act}, vocab {cfg.vocab_size}, embedding inputs, "
+          f"{cfg.param_counts()[0] / 1e9:.2f} B parameters)")
+    torch.cuda.reset_peak_memory_stats()
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    counts = {}
+
+    def add(log):
+        for k, v in log.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # the Engine refuses as the reference's does: it constructs in bucket
+    # mode, refuses continuous mode and refuses embeddings
+    tiers = {k: v.materialize() for k, v in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8").items()}
+    eng = Engine(cfg, raw, tiers=tiers, max_len=CONT_MAX_LEN, device="cuda")
+    _check(eng.mode == "bucket" and "stub frontends can't serve" in eng.stats.mode,
+           f"paligemma engine: {eng.stats.mode}")
+    _raises(lambda: Engine(cfg, raw, tiers=tiers, max_len=CONT_MAX_LEN, mode="continuous",
+                           device="cuda"), ValueError, "mode='continuous' needs",
+            "paligemma continuous")
+    emb = torch.randn((2, 8, cfg.d_model), device=dev)
+    _raises(lambda: eng.enqueue(emb, 4), ValueError,
+            "embed_inputs stub frontends are not servable", "paligemma enqueue")
+    _raises(lambda: eng.generate(emb, 4), ValueError, "prompts must be [B, L] ints",
+            "paligemma generate")
+    print(f"paligemma: Engine mode {eng.stats.mode!r}; continuous mode, enqueue and generate "
+          "of embeddings refused as the reference refuses them")
+    del eng
+
+    # W4A8: a left-padded prefill and 4 decode steps over the int8 cache,
+    # embedding inputs; then a scoring forward through the dh-256 kernel
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = quantize_lm(cfg, raw, PrecisionPlan(default="w4a8", use_kernel=True))
+    torch.cuda.synchronize()
+    print(f"paligemma: W4A8 tree in {time.perf_counter() - t0:.1f}s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, ZOO_PROMPT + 4, cfg.d_model), generator=gen, device=dev)
+    toks, steps = x[:, :ZOO_PROMPT], x[:, ZOO_PROMPT:]
+    pad = torch.tensor([0, ZOO_PROMPT // 4], device=dev)
+    with probe.tracking() as log, _CallLaunches() as cl:
+        got = _teacher_forced(torch, cfg, params, toks, pad, steps, ZOO_PROMPT + 4)
+        torch.cuda.synchronize()
+    ncalls = cl.hold("paligemma prefill+decode", {"quant_matmul": 7 * n})
+    add(log.by_name())
+    with _PlainKernels():
+        plain = _teacher_forced(torch, cfg, params, toks, pad, steps, ZOO_PROMPT + 4)
+    _check(all(torch.isfinite(g).all() for g in got), "paligemma: non-finite logits")
+    rels = [_rel(torch, g, w) for g, w in zip(got, plain)]
+
+    def moved():
+        with _PlainKernels():
+            again = _teacher_forced(torch, cfg, params, _last_bit(torch, toks, 7), pad,
+                                    _last_bit(torch, steps, 8), ZOO_PROMPT + 4)
+        return [_rel(torch, a, w) for a, w in zip(again, plain)]
+
+    print(f"paligemma W4A8: calls {ncalls}, launches {log.by_name()}; teacher-forced logits vs "
+          f"plain rel L2 (prefill, 4 decode steps) {[f'{r:.3g}' for r in rels]}")
+    _hold_lm(torch, "paligemma W4A8 teacher-forced", rels, moved)
+    del got, plain
+    _lm_branches(torch, cfg, params, toks, "paligemma W4A8", pad=pad, steps=steps)
+    state = {}
+
+    def prefill():
+        state["cache"] = lm.init_cache(cfg, 2, ZOO_PROMPT + 4, device=dev)
+        with torch.inference_mode():
+            _, state["cache"] = lm.forward(cfg, params, toks, cache=state["cache"],
+                                           mode="prefill", pad_lens=pad)
+
+    def step():  # the prefilled cache's dict keeps its clock: each call writes slot ZOO_PROMPT
+        with torch.inference_mode():
+            lm.decode_step(cfg, params, steps[:, :1], state["cache"], pad_lens=pad)
+
+    pre_ms = _wall_ms(torch, prefill)
+    dec_ms = _wall_ms(torch, step)
+    print(f"paligemma W4A8: prefill {pre_ms:.2f}ms (2 x {ZOO_PROMPT} embeddings), decode "
+          f"{dec_ms:.3f}ms a step (batch 2), {2e3 / dec_ms:.1f} decode tok/s (host clock)")
+    del state
+    score = _lm_score(torch, dev, params, cfg)
+    _check(score == {"quant_matmul": 7 * n, "two_stage_attention": n},
+           f"paligemma scoring forward launches {score}")
+    add(score)
+    del params
+
+    # the compiled w4a8:fused schedule: wqkv (2048 x 2560, a 2.6 MB W4 panel)
+    # and wo on fused_matmul, the FFN (panels over the budget) on quant_matmul
+    gc.collect()
+    torch.cuda.empty_cache()
+    sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, fuse=True,
+                                                name="w4a8"))
+    served_want = sched.launches_per_forward(two_stage_attention=False)
+    score_want = sched.launches_per_forward(two_stage_attention=True)
+    print(f"paligemma schedule w4a8:fused: {sched.summary()}, groups "
+          f"{[g.name for g in sched.groups][:2]}... ({len(sched.groups)}); predicted per served "
+          f"call {served_want}, per scoring forward {score_want}")
+    for st in sched.sites[:8]:
+        if st.fallback:
+            print(f"  fallback {st.site}: {st.fallback}")
+    _check(served_want == {"fused_matmul": 2 * n, "quant_matmul": 3 * n}
+           and score_want == {**served_want, "two_stage_attention": n},
+           f"paligemma schedule predicts {served_want} / {score_want}")
+    scfg = cfg.with_(attn_tiles=sched.attention_targets() or None)
+    with torch.inference_mode():
+        fparams = quantize_lm(scfg, raw, sched)
+    del raw
+    sx = x[:1]
+    with torch.inference_mode(), probe.tracking() as flog:
+        fout, _ = lm.forward(scfg, fparams, sx)
+        torch.cuda.synchronize()
+    _check(flog.by_name() == score_want,
+           f"paligemma schedule forward launches {flog.by_name()}, expected {score_want}")
+    add(flog.by_name())
+    with probe.tracking() as tlog, _CallLaunches() as fcl:
+        fgot = _teacher_forced(torch, scfg, fparams, toks, pad, steps[:, :2], ZOO_PROMPT + 4)
+    add(tlog.by_name())
+    fcl.hold("paligemma schedule prefill+decode", served_want)
+    with torch.inference_mode(), _PlainKernels():
+        fplain, _ = lm.forward(scfg, fparams, sx)
+        fgot_plain = _teacher_forced(torch, scfg, fparams, toks, pad, steps[:, :2],
+                                     ZOO_PROMPT + 4)
+    rels = [_rel(torch, fout, fplain)] + [_rel(torch, g, w) for g, w in zip(fgot, fgot_plain)]
+    print(f"paligemma schedule: full forward ([1, {ZOO_PROMPT + 4}]) launches {flog.by_name()}; "
+          f"logits vs plain rel L2 (full, prefill, 2 decode steps) {[f'{r:.3g}' for r in rels]}")
+
+    def fmoved():
+        with torch.inference_mode(), _PlainKernels():
+            again, _ = lm.forward(scfg, fparams, _last_bit(torch, sx, 7))
+            forced = _teacher_forced(torch, scfg, fparams, _last_bit(torch, toks, 7), pad,
+                                     _last_bit(torch, steps[:, :2], 8), ZOO_PROMPT + 4)
+        return [_rel(torch, again, fplain)] + [_rel(torch, a, w)
+                                               for a, w in zip(forced, fgot_plain)]
+
+    _hold_lm(torch, "paligemma schedule", rels, fmoved)
+    del fout, fplain, fgot, fgot_plain
+    _lm_branches(torch, scfg, fparams, sx, "paligemma schedule")
+    del fparams
+    print(f"paligemma: phase {time.perf_counter() - t_phase:.1f}s; launches {counts}")
     return {"counts": counts, "runs": 1, "inplace": {}}
 
 

@@ -60,7 +60,7 @@
 // reference's order bit for bit, which saves one multiply per score and ~5%
 // of the kernel's time on an H100 at the served shapes (PERF.md, the
 // two-stage attention findings); otherwise the three multiplies run in the
-// reference's order.  No multiply is contracted into an add
+// reference's order (dh 96 and 128).  No multiply is contracted into an add
 // (__fmul_rn/__fadd_rn), since m feeds every pq.
 //
 // The exponential is expf(s - m), the accurate one, as in the plain
@@ -72,6 +72,16 @@
 // two-stage attention findings), beyond the 3e-4 the card checks hold the
 // kernel to.
 
+// Head dims.  Instances exist at dh 32, 64, 96, 128 and 256.  The score
+// product runs over dh in k32 slices, two per ldmatrix.x4 and an odd last
+// one (dh 32, 96) from an ldmatrix.x2.  dh 96 and 128 take one block per
+// SM (122,880 and 160,768 B of shared memory).  dh 256 does not fit one
+// block at this tiling (312,320 B; 128 int32 P.V accumulators a thread), so
+// its output columns split in two halves across grid.z: each block computes
+// the full 256-wide scores, m and l, and runs P.V for its own 128 output
+// columns, loading only that half of V (226,304 B, the accumulators of dh
+// 128).  The cost is QK^T and the exponentials twice per score.
+//
 // The P fragment is built from the score accumulators without going
 // through shared memory.  The s32 accumulator layout does not match the s8
 // A-fragment layout, so the K tile is staged with its rows permuted
@@ -106,15 +116,22 @@ __host__ __device__ constexpr int key_off(int ni) {
   return (ni & ~3) * 8 + key_of((ni * 8) & 31);
 }
 
-// Shared-memory layout of one ring slot and of the transposed V tiles.
+// Shared-memory layout of one ring slot and of the transposed V tiles.  A
+// block produces DV of the DH output columns (all of them up to dh 128).
+// Both row strides are an odd multiple of 16 bytes (LDK / 16 = DH / 16 + 1
+// with DH a multiple of 32; LDV = 80), so the 8 rows of 16 bytes an
+// ldmatrix phase reads start in 8 different 4-bank groups: no bank
+// conflicts at any instance (dh 96: LDK 112, rows at words 0, 28, 24, ...).
 template <int DH>
 struct Layout {
+  static constexpr int DV = DH > 128 ? 128 : DH;
+  static constexpr int SPLIT = DH / DV;  // blocks (grid.z) sharing a query tile
   static constexpr int LDK = DH + 16;   // K / natural V row stride (bytes)
   static constexpr int LDV = BKT + 16;  // V^T row stride (bytes)
   static constexpr int K_BYTES = BKT * LDK;
   static constexpr int SLOT = 2 * K_BYTES + 4 * BKT;  // K, V, key scales
-  static constexpr int VT_BYTES = DH * LDV;
-  static constexpr int O_FLOATS = DH / 2;  // per thread: 4 per 8-wide dh block
+  static constexpr int VT_BYTES = DV * LDV;
+  static constexpr int O_FLOATS = DV / 2;  // per thread: 4 per 8-wide dh block
   static constexpr int BYTES = NSTAGE * SLOT + 2 * VT_BYTES + 4 * O_FLOATS * THREADS;
 };
 
@@ -159,7 +176,7 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
 // tid + i * THREADS).
 template <int DH>
 struct Plan {
-  static constexpr int CHUNKS = BKT * DH / 16, BLOCKS = (BKT / 4) * (DH / 4);
+  static constexpr int CHUNKS = BKT * DH / 16, BLOCKS = (BKT / 4) * (Layout<DH>::DV / 4);
   static constexpr int NC = (CHUNKS + THREADS - 1) / THREADS;
   static constexpr int NB = (BLOCKS + THREADS - 1) / THREADS;
   int key_k[NC];  // key (within the tile) of its K row; rows are permuted by key_of
@@ -169,7 +186,7 @@ struct Plan {
 
   __device__ __forceinline__ explicit Plan(int tid) {
     using L = Layout<DH>;
-    constexpr int CH = DH / 16, DQ = DH / 4;
+    constexpr int CH = DH / 16, DQ = L::DV / 4;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = tid + i * THREADS, n = c / CH, ch = c % CH;
@@ -187,14 +204,16 @@ struct Plan {
 };
 
 // Queue one tile into a ring slot: K rows permuted by key_of, the key
-// scales in natural order and (stage 2) V in natural order.  Keys past Lk
-// are zero-filled (their address is clamped to a valid one and not read).
+// scales in natural order and (stage 2) V in natural order, only its
+// columns vcol..vcol + DV - 1 when the block owns part of the output.
+// Keys past Lk are zero-filled (their address is clamped to a valid one
+// and not read).
 template <int DH, bool WITH_V>
 __device__ __forceinline__ void load_tile(uint8_t* slot, const Plan<DH>& pl,
                                           const int8_t* __restrict__ kp,
                                           const int8_t* __restrict__ vp,
                                           const float* __restrict__ ksp, int k0, int Lk,
-                                          int tid) {
+                                          int tid, int vcol) {
   using L = Layout<DH>;
   const int left = Lk - k0;  // keys of this tile that exist
   const size_t base = (size_t)k0 * DH;
@@ -205,6 +224,7 @@ __device__ __forceinline__ void load_tile(uint8_t* slot, const Plan<DH>& pl,
     const bool ok = pl.key_k[i] < left;
     cp_async16(slot + pl.dst[i], kp + (ok ? base + pl.src_k[i] : 0), ok);
     if (WITH_V) {  // natural order: chunk c holds key c / (DH / 16)
+      if (L::SPLIT > 1 && static_cast<unsigned>(16 * (c % (DH / 16)) - vcol) >= L::DV) continue;
       const bool okv = c / (DH / 16) < left;
       cp_async16(slot + L::K_BYTES + pl.dst[i], vp + (okv ? base + 16 * c : 0), okv);
     }
@@ -215,7 +235,8 @@ __device__ __forceinline__ void load_tile(uint8_t* slot, const Plan<DH>& pl,
   }
 }
 
-// Natural V tile of a slot -> [dh][key] tile (4x4-byte blocks).
+// Natural V tile of a slot -> [dh][key] tile (4x4-byte blocks); `slot`
+// points at the block's first V column.
 template <int DH>
 __device__ __forceinline__ void transpose_v(int8_t* vt, const uint8_t* slot, const Plan<DH>& pl,
                                             int tid) {
@@ -256,19 +277,19 @@ __device__ __forceinline__ void chunk_scores(float (&s)[4][4], const uint8_t* sl
     const int ni = 4 * c + j;
     int acc[4] = {0, 0, 0, 0};
     const uint8_t* fr = frag + ni * 8 * L::LDK;
-    if constexpr (DH >= 64) {  // k32 slices 2h and 2h + 1 from one ldmatrix.x4 each
 #pragma unroll
-      for (int h = 0; h < DH / 64; ++h) {
-        uint32_t b[4];
-        ldsm_x4(b, fr + 64 * h);
-        vq::mma_s8_16832(acc, qa[2 * h][0], qa[2 * h][1], qa[2 * h][2], qa[2 * h][3], b[0], b[1]);
-        vq::mma_s8_16832(acc, qa[2 * h + 1][0], qa[2 * h + 1][1], qa[2 * h + 1][2],
-                         qa[2 * h + 1][3], b[2], b[3]);
-      }
-    } else {
+    for (int h = 0; h < DH / 64; ++h) {  // k32 slices 2h and 2h + 1 from one ldmatrix.x4
+      uint32_t b[4];
+      ldsm_x4(b, fr + 64 * h);
+      vq::mma_s8_16832(acc, qa[2 * h][0], qa[2 * h][1], qa[2 * h][2], qa[2 * h][3], b[0], b[1]);
+      vq::mma_s8_16832(acc, qa[2 * h + 1][0], qa[2 * h + 1][1], qa[2 * h + 1][2],
+                       qa[2 * h + 1][3], b[2], b[3]);
+    }
+    if constexpr (DH % 64 != 0) {  // the odd last k32 slice (dh 32, 96)
+      constexpr int kk = DH / 32 - 1;
       uint32_t b[2];
-      ldsm_x2(b, fr);
-      vq::mma_s8_16832(acc, qa[0][0], qa[0][1], qa[0][2], qa[0][3], b[0], b[1]);
+      ldsm_x2(b, fr + 32 * kk);
+      vq::mma_s8_16832(acc, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[0], b[1]);
     }
     const float2 kv = *reinterpret_cast<const float2*>(ks + key_off(ni) + 4 * t);
 #pragma unroll
@@ -316,7 +337,7 @@ __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint3
 
 // `vfrag` is this lane's ldmatrix row address in the V^T tile.
 template <int DH, bool POW2, bool MASK>
-__device__ __forceinline__ void stage2_tile(int (&oi)[DH / 8][4], float (&lsum)[2],
+__device__ __forceinline__ void stage2_tile(int (&oi)[Layout<DH>::DV / 8][4], float (&lsum)[2],
                                             const uint8_t* slot, const uint8_t* frag,
                                             const int8_t* vfrag,
                                             const uint32_t (&qa)[DH / 32][4], const Rows& r,
@@ -344,7 +365,7 @@ __device__ __forceinline__ void stage2_tile(int (&oi)[DH / 8][4], float (&lsum)[
     const uint32_t a2 = pack_low_bytes(x[2][0], x[2][1], x[3][0], x[3][1]);
     const uint32_t a3 = pack_low_bytes(x[2][2], x[2][3], x[3][2], x[3][3]);
 #pragma unroll
-    for (int nd = 0; nd < DH / 8; nd += 2) {  // B fragments of dh rows nd*8.. and (nd+1)*8..
+    for (int nd = 0; nd < L::DV / 8; nd += 2) {  // B fragments of dh rows nd*8.. and (nd+1)*8..
       uint32_t b[4];
       ldsm_x4(b, vfrag + nd * 8 * L::LDV + c * 32);
       vq::mma_s8_16832(oi[nd], a0, a1, a2, a3, b[0], b[1]);
@@ -364,11 +385,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Blocks per SM the launch bounds ask for: two at dh 32 and 64 (128
-// registers a thread); one at dh 128, whose 160,768 B of shared memory
-// allow no second block anyway, so its 64 int32 P.V accumulators and 16 Q
-// fragment registers a thread may use up to 255 registers without spilling.
+// registers a thread); one from dh 96 on, whose 122,880 B (dh 96), 160,768 B
+// (128) and 226,304 B (256) of shared memory allow no second block anyway,
+// so their int32 P.V accumulators (48 or 64) and Q fragments (12, 16 or 32
+// registers) a thread may use up to 255 registers without spilling.
 template <int DH>
-constexpr int min_blocks() { return DH >= 128 ? 1 : 2; }
+constexpr int min_blocks() { return DH >= 96 ? 1 : 2; }
 
 template <int DH, bool POW2>
 __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
@@ -387,6 +409,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
+  const int vcol = L::SPLIT > 1 ? blockIdx.z * L::DV : 0;  // this block's first output column
   const int kvb = (b / q_heads) * kv_heads + (b % q_heads) / (q_heads / kv_heads);
   const int8_t* kp = kv + (size_t)kvb * Lk * DH;
   const int8_t* vp = vv + (size_t)kvb * Lk * DH;
@@ -429,14 +452,14 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
   float m[2] = {NEG_INF, NEG_INF};
 #pragma unroll
   for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < n_tiles) load_tile<DH, false>(slot(s), pl, kp, vp, ksp, s * BKT, Lk, tid);
+    if (s < n_tiles) load_tile<DH, false>(slot(s), pl, kp, vp, ksp, s * BKT, Lk, tid, vcol);
     cp_async_commit();
   }
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<NSTAGE - 2>();
     __syncthreads();  // tile kt visible; every warp is done with tile kt - 1
     const int nt = kt + NSTAGE - 1;
-    if (nt < n_tiles) load_tile<DH, false>(slot(nt), pl, kp, vp, ksp, nt * BKT, Lk, tid);
+    if (nt < n_tiles) load_tile<DH, false>(slot(nt), pl, kp, vp, ksp, nt * BKT, Lk, tid, vcol);
     cp_async_commit();
     const int k0 = kt * BKT;
     if (masked(k0))
@@ -450,7 +473,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
   __syncthreads();  // the ring is free for stage 2
 
   // ---- stage 2: p = exp(s - m) once per score, l, int8 P.V (Eq. 10) ----
-  constexpr int ND = DH / 8;
+  constexpr int ND = L::DV / 8;
   int oi[ND][4];
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd)
@@ -460,17 +483,17 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
 
 #pragma unroll
   for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < n_tiles) load_tile<DH, true>(slot(s), pl, kp, vp, ksp, s * BKT, Lk, tid);
+    if (s < n_tiles) load_tile<DH, true>(slot(s), pl, kp, vp, ksp, s * BKT, Lk, tid, vcol);
     cp_async_commit();
   }
   cp_async_wait<NSTAGE - 2>();
   __syncthreads();
-  transpose_v<DH>(vts, slot(0), pl, tid);
+  transpose_v<DH>(vts, slot(0) + vcol, pl, tid);
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<NSTAGE - 3>();
     __syncthreads();  // tile kt + 1 and V^T of tile kt visible; tile kt - 1 done
     const int nt = kt + NSTAGE - 1;
-    if (nt < n_tiles) load_tile<DH, true>(slot(nt), pl, kp, vp, ksp, nt * BKT, Lk, tid);
+    if (nt < n_tiles) load_tile<DH, true>(slot(nt), pl, kp, vp, ksp, nt * BKT, Lk, tid, vcol);
     cp_async_commit();
     const int k0 = kt * BKT;
     const int8_t* vt = vts + (kt & 1) * L::VT_BYTES;
@@ -481,7 +504,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
       stage2_tile<DH, POW2, false>(oi, lsum, slot(kt), slot(kt) + kfrag, vt + vfrag, qa, r, m,
                                    k0, Lk, causal, t);
     if (kt + 1 < n_tiles)
-      transpose_v<DH>(vts + ((kt + 1) & 1) * L::VT_BYTES, slot(kt + 1), pl, tid);
+      transpose_v<DH>(vts + ((kt + 1) & 1) * L::VT_BYTES, slot(kt + 1) + vcol, pl, tid);
     if ((kt + 1) % TV_TILES == 0 || kt + 1 == n_tiles) {  // f32 carry across T_V tiles
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
@@ -496,7 +519,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
   for (int h = 0; h < 2; ++h) {
     const float l = fmaxf(quad_sum(lsum[h]), 1e-30f);
     if (r.row[h] >= Lq) continue;
-    float* orow = out + ((size_t)b * Lq + r.row[h]) * DH;
+    float* orow = out + ((size_t)b * Lq + r.row[h]) * DH + vcol;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
       float2 v;
@@ -520,7 +543,7 @@ int launch(const void* qv, const void* qs, const void* kv, const void* ks, const
   const cudaError_t e = cudaFuncSetAttribute(
       two_stage_attention_kernel<DH, POW2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Lq + BQ - 1) / BQ, BH);
+  const dim3 grid((Lq + BQ - 1) / BQ, BH, Layout<DH>::SPLIT);
   two_stage_attention_kernel<DH, POW2><<<grid, THREADS, smem, s>>>(
       static_cast<const int8_t*>(qv), static_cast<const float*>(qs),
       static_cast<const int8_t*>(kv), static_cast<const float*>(ks),
@@ -547,12 +570,14 @@ int attrs(int* out) {
 
 }  // namespace
 
-// C entry point (ctypes).  dh must be 64 (vggt-1b), 32 (its smoke width)
-// or 128 (qwen3-14b); q_heads % kv_heads == 0 and BH % q_heads == 0 — the
+// C entry point (ctypes).  dh must be 64 (vggt-1b), 32 (its smoke width),
+// 96 (phi3-mini-3.8b), 128 (qwen3-14b, deepseek-moe-16b) or 256
+// (paligemma-3b); q_heads % kv_heads == 0 and BH % q_heads == 0 — the
 // Python wrapper checks these.  Returns a cudaError_t
-// (cudaErrorInvalidValue for an unsupported dh).  dh 128 has only the
-// instance that multiplies in the reference's order (POW2 false): its scale
-// 1/sqrt(128) is no power of two, and that instance is exact for any scale.
+// (cudaErrorInvalidValue for an unsupported dh).  dh 96 and 128 have only
+// the instance that multiplies in the reference's order (POW2 false): their
+// scales 1/sqrt(dh) are no powers of two, and that instance is exact for
+// any scale.  dh 256 has only the POW2 instance: its scale is 1/16.
 extern "C" int vq_two_stage_attention(const void* qv, const void* qs, const void* kv,
                                       const void* ks, const void* vv, const void* vscale,
                                       void* out, int BH, int Lq, int Lk, int dh, int q_heads,
@@ -566,8 +591,12 @@ extern "C" int vq_two_stage_attention(const void* qv, const void* qs, const void
       return p2 ? VQ_LAUNCH(32, true) : VQ_LAUNCH(32, false);
     case 64:
       return p2 ? VQ_LAUNCH(64, true) : VQ_LAUNCH(64, false);
+    case 96:
+      return VQ_LAUNCH(96, false);
     case 128:
       return VQ_LAUNCH(128, false);
+    case 256:
+      return p2 ? VQ_LAUNCH(256, true) : static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -585,8 +614,12 @@ extern "C" int vq_two_stage_attention_attrs(int dh, float scale, int* out) {
       return p2 ? attrs<32, true>(out) : attrs<32, false>(out);
     case 64:
       return p2 ? attrs<64, true>(out) : attrs<64, false>(out);
+    case 96:
+      return attrs<96, false>(out);
     case 128:
       return attrs<128, false>(out);
+    case 256:
+      return p2 ? attrs<256, true>(out) : static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

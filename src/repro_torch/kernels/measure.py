@@ -64,13 +64,16 @@ def kernel_attrs(lib: ctypes.CDLL, kernel: str, *args) -> dict:
             "spill_bytes": out[3]}
 
 
-def attention_inputs(randn, b: int, hq: int, hkv: int, length: int, dh: int):
-    """Quantized inputs of one two-stage attention call with Lq = Lk =
-    ``length``, drawn from ``randn(*shape)``: per-token int8 Q and K, V in
-    int8 with one scale per K/V head.  Returns ``(args, gqa, vscale)``:
-    the kernel's positional arguments, its GQA keywords (empty when
-    ``hq == hkv``) and the per-K/V-head scale of V, shaped [B*hkv, 1, 1]."""
-    q, k, v = randn(b * hq, length, dh), randn(b * hkv, length, dh), randn(b * hkv, length, dh)
+def attention_inputs(randn, b: int, hq: int, hkv: int, length: int, dh: int,
+                     lk: int | None = None):
+    """Quantized inputs of one two-stage attention call with Lq =
+    ``length`` and Lk = ``lk`` (default: ``length``), drawn from
+    ``randn(*shape)``: per-token int8 Q and K, V in int8 with one scale per
+    K/V head.  Returns ``(args, gqa, vscale)``: the kernel's positional
+    arguments, its GQA keywords (empty when ``hq == hkv``) and the
+    per-K/V-head scale of V, shaped [B*hkv, 1, 1]."""
+    lk = length if lk is None else lk
+    q, k, v = randn(b * hq, length, dh), randn(b * hkv, lk, dh), randn(b * hkv, lk, dh)
     qq, kq = quantize_per_token(q, 8), quantize_per_token(k, 8)
     vscale = torch.clamp_min(v.abs().amax(dim=(1, 2), keepdim=True), 1e-8) / 127.0
     vv = torch.round(v / vscale).clamp(-127, 127).to(torch.int8)

@@ -45,8 +45,9 @@ T_V = 2048  # keys per int32 P·V partial before the float32 carry (as in the ke
 # (``BKT``) and the 2048-key int32 carry period (``TV_TILES`` tiles).
 LAUNCH_TILES = {"bq": 128, "bk": 64, "bkv": T_V}
 # The head dims the kernel has instances for: vggt-1b's 64, its smoke
-# width's 32, and qwen3-14b's 128.
-HEAD_DIMS = (32, 64, 128)
+# width's 32, phi3-mini-3.8b's 96, qwen3-14b's 128 and paligemma-3b's 256
+# (whose launch splits the output columns in two halves across the grid).
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 _fn = None
 

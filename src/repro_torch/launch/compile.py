@@ -88,7 +88,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-14b-smoke",
                     help="a ported config: vggt-1b, qwen3-14b, rwkv6-1.6b, deepseek-moe-16b, "
-                         "each also as -smoke")
+                         "phi3-mini-3.8b, paligemma-3b, each also as -smoke")
     ap.add_argument("--spec", default="w4a8:fused",
                     help=f"precision spec: {SERVE_SPEC_GRAMMAR}")
     ap.add_argument("--method", default="versaq", help="versaq|quarot|rtn")

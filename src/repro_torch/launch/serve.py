@@ -12,6 +12,9 @@ VGGT scenes through ``VGGTEngine``, LM prompts through the LM ``Engine``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b-smoke \\
       --tiers quality=fp,balanced=w4a8 --requests 4 --prompt-len 8 --gen 8 --batch 2
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b-smoke \\
+      --tiers quality=fp,balanced=w4a8 --requests 4 --prompt-len 8 --gen 8 --batch 2
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
       --tiers quality=fp,balanced=w4a8,planned=plan:fused,fast=w4a8:fused \\
       --attn-impl two_stage --requests 8 --scenes 1 --frames 8 --patches 1024 \\
@@ -246,7 +249,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="vggt-1b-smoke",
                     help="a ported config: vggt-1b, vggt-1b-smoke, qwen3-14b, qwen3-14b-smoke, "
                          "rwkv6-1.6b, rwkv6-1.6b-smoke, deepseek-moe-16b, "
-                         "deepseek-moe-16b-smoke")
+                         "deepseek-moe-16b-smoke, phi3-mini-3.8b, phi3-mini-3.8b-smoke "
+                         "(paligemma-3b takes embedding inputs, which the LM engine does not serve)")
     ap.add_argument("--device", default="cuda",
                     help="where to serve (default: the CUDA device; no fallback)")
     ap.add_argument("--policy", default="w4a8",

@@ -919,7 +919,11 @@ class Engine:
 
     ``mode``: "continuous" | "bucket" | "auto" (default).  Auto serves the
     continuous scheduler whenever the config supports it (attention-only
-    patterns, or position-free recurrent ones) and bucket mode otherwise.
+    patterns, or position-free recurrent ones, and token inputs) and bucket
+    mode otherwise.  An ``embed_inputs`` config (a stub frontend, as
+    paligemma-3b's) constructs in bucket mode, as the reference's does, and
+    ``enqueue``/``generate`` refuse its embeddings: decode feeds generated
+    ids back, not embeddings.
     Scheduling controls (continuous mode): ``enqueue(..., priority=2)``
     admits before lower-priority traffic; ``deadline_s=0.5`` evicts with
     ``DeadlineExceeded`` if unserved in time; ``tier="auto"`` with
@@ -958,11 +962,10 @@ class Engine:
             raise ValueError(f"attn_impl={attn_impl!r}: expected flash | two_stage | vanilla")
         if mode not in ("auto", "continuous", "bucket"):
             raise ValueError(f"mode={mode!r}: expected auto | continuous | bucket")
-        if "mamba" in cfg.pattern or cfg.mla or cfg.embed_inputs:
+        if "mamba" in cfg.pattern or cfg.mla:
             raise NotImplementedError(
-                f"{cfg.name}: only GQA (dense or MoE FFN) and rwkv token LMs are ported "
-                "(ROADMAP.md, queue 1: MLA item 7b, Mamba item 9, embedding inputs with the "
-                "rest of the zoo)")
+                f"{cfg.name}: only GQA (dense or MoE FFN) and rwkv LMs are ported "
+                "(ROADMAP.md, queue 1: MLA item 7b, Mamba item 9)")
         self.device = batching.resolve_device(device, "Engine")
         if self.device.type == "cuda":
             # the float parts of the forward (fp tiers, the IDCT blocks, the
@@ -1007,7 +1010,10 @@ class Engine:
         reason = ""
         if mode == "auto":
             mode = "continuous" if self._continuous_ok() else "bucket"
-            if mode == "bucket":
+            if mode == "bucket" and cfg.embed_inputs:
+                reason = (" (mode='auto': decode feeds generated ids back; embed_inputs "
+                          "stub frontends can't serve)")
+            elif mode == "bucket":
                 reason = (f" (mode='auto': pattern {cfg.pattern} with pos={cfg.pos!r} is "
                           "neither attention-only nor position-free recurrent)")
         self.mode = mode  # the mode that serves
@@ -1034,6 +1040,8 @@ class Engine:
         return self.mode == "continuous"
 
     def _continuous_ok(self) -> bool:
+        if self.cfg.embed_inputs:
+            return False  # decode feeds ids back; stub frontends can't serve
         if _attention_only(self.cfg):
             return True
         # recurrent rows are independent, but the decode position is a
@@ -1221,7 +1229,10 @@ class Engine:
         if squeeze:
             prompts = prompts[None, :]
         if prompts.ndim != 2:
-            raise ValueError(f"prompts must be [l] or [b, l] token ids, got {tuple(prompts.shape)}")
+            raise ValueError(
+                f"prompts must be [l] or [b, l] token ids, got {tuple(prompts.shape)}"
+                + (" (embed_inputs stub frontends are not servable: decode feeds generated "
+                   "ids back, not embeddings)" if self.cfg.embed_inputs else ""))
         L = self._bucket_len(prompts.shape[1], n_steps)
         self._check_fits(prompts.shape[1], L, n_steps)
         req = LMRequest(prompts=prompts, n_steps=n_steps, squeeze=squeeze, tier=tier, L=L,

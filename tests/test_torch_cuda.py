@@ -143,6 +143,20 @@ def test_quant_matmul_rejects_bad_k(dev):
         (1, 2, 2, 1029, 1029, 128, False, None),
         (1, 40, 8, 1029, 1029, 128, True, None),
         (1, 2, 2, 130, 2100, 128, False, 5),
+        # head dim 96 (phi3-mini-3.8b, MHA): causal at Lq == Lk, ragged L
+        # 129 and 1029, Lq != Lk non-causal, a zero row past a T_V flush
+        (1, 4, 4, 129, 129, 96, True, None),
+        (1, 4, 4, 1029, 1029, 96, True, None),
+        (1, 2, 2, 1000, 1500, 96, False, None),
+        (1, 2, 2, 130, 2100, 96, False, 5),
+        (2, 32, 32, 129, 129, 96, False, None),
+        # head dim 256 (paligemma-3b, MQA 8/1; its output columns split in
+        # two blocks): causal, ragged L, Lq != Lk non-causal, MHA, a zero row
+        (1, 8, 1, 129, 129, 256, True, None),
+        (2, 8, 1, 1029, 1029, 256, True, None),
+        (1, 8, 1, 1000, 1500, 256, False, None),
+        (1, 2, 2, 33, 4097, 256, False, 0),
+        (1, 4, 4, 200, 200, 256, True, None),
     ],
 )
 def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal, zero_row):
@@ -174,13 +188,30 @@ def test_two_stage_matches_plain(dev, b, h, hkv, lq, lk, dh, causal, zero_row):
 
 
 def test_two_stage_refuses_other_head_dims(dev):
-    """Only dh 32, 64 and 128 have kernel instances; dh 96 raises in the
-    wrapper before any launch."""
-    qv = torch.zeros((2, 16, 96), dtype=torch.int8, device=dev)
+    """Only dh 32, 64, 96, 128 and 256 have kernel instances; dh 80 raises
+    in the wrapper before any launch."""
+    qv = torch.zeros((2, 16, 80), dtype=torch.int8, device=dev)
     s = torch.ones((2, 16, 1), device=dev)
-    with probe.tracking() as log, pytest.raises(ValueError, match="head dim 96"):
+    with probe.tracking() as log, pytest.raises(ValueError, match="head dim 80"):
         tsa.two_stage_attention(qv, s, qv, s, qv, torch.ones((2, 1, 1), device=dev))
     assert log.count == 0
+
+
+@pytest.mark.parametrize("dh", [32, 64, 96, 128, 256])
+def test_two_stage_instances_do_not_spill(dev, dh):
+    """Every instance fits its registers (``vq_two_stage_attention_attrs``
+    out[3], local memory a thread, is 0) and its shared memory: dh 96, 128
+    and 256 one block per SM, dh 32 and 64 two."""
+    import math
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.measure import kernel_attrs
+
+    a = kernel_attrs(_build.load("two_stage_attention"), "two_stage_attention", dh,
+                     1.0 / math.sqrt(dh))
+    assert a["spill_bytes"] == 0, a
+    assert a["blocks_per_sm"] == (1 if dh >= 96 else 2), a
+    assert a["smem_per_block"] <= 232448, a
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 4])
@@ -1050,3 +1081,70 @@ def test_lm_schedule_launches_what_it_predicts(dev, tmp_path, arch):
                  device="cuda")
     for g, r in zip(got, _lm_serving_script(ref, prompts, 12)):
         np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "paligemma-3b"])
+def test_full_width_two_layer_forward_matches_plain(dev, monkeypatch, arch):
+    """phi3-mini-3.8b (MHA 32/32, dh 96) and paligemma-3b (MQA 8/1, dh 256,
+    GeGLU, embedding inputs) at full width, cut to 2 layers, seed-0
+    weights: a W4A8 ``mode="full"`` forward with two-stage attention
+    launches 7 ``quant_matmul`` and one two-stage kernel a layer, and every
+    layer's attention and FFN branch, fed the same input, is within rel L2
+    3e-4 of the plain versions' (the kernel's bound against its plain
+    version); the logits within the quantized flip bound 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_lm
+    from repro_torch.core.precision.plan import PrecisionPlan
+    from repro_torch.models import attention as A
+    from repro_torch.models import ffn as Fm
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).with_(n_layers=2, attn_impl="two_stage")
+    with torch.inference_mode():
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        qp = quantize_lm(cfg, params, PrecisionPlan(default="w4a8", use_kernel=True))
+    del params
+    rng = np.random.default_rng(9)
+    x = (torch.as_tensor(rng.normal(size=(1, 300, cfg.d_model)).astype(np.float32), device=dev)
+         if cfg.embed_inputs else
+         torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 300)), device=dev))
+    kernels = [(qm, "quant_matmul"), (tsa, "two_stage_attention")]
+    saved = [getattr(m, n) for m, n in kernels]
+
+    def plain(on):
+        for (m, n), fn in zip(kernels, saved):
+            setattr(m, n, getattr(m, f"{n}_plain") if on else fn)
+
+    rels = {0: [], 1: []}
+
+    def checked(j, fn):
+        def run(*a, **kw):
+            r = fn(*a, **kw)
+            plain(True)
+            try:
+                w = fn(*a, **kw)
+            finally:
+                plain(False)
+            got, want = (r[0], w[0]) if j == 0 else (r, w)
+            rels[j].append(_rel(got, want))
+            return r
+        return run
+
+    with torch.inference_mode(), probe.tracking() as log:
+        got, _ = lm.forward(cfg, qp, x)
+    torch.cuda.synchronize()
+    assert log.by_name() == {"quant_matmul": 7 * 2, "two_stage_attention": 2}
+    monkeypatch.setattr(A, "gqa_attention", checked(0, A.gqa_attention))
+    monkeypatch.setattr(Fm, "dense_ffn", checked(1, Fm.dense_ffn))
+    with torch.inference_mode():
+        lm.forward(cfg, qp, x)
+    monkeypatch.undo()
+    assert len(rels[0]) == len(rels[1]) == 2
+    assert max(rels[0] + rels[1]) < 3e-4, rels
+    plain(True)
+    try:
+        with torch.inference_mode():
+            want, _ = lm.forward(cfg, qp, x)
+    finally:
+        plain(False)
+    assert torch.isfinite(got).all() and _rel(got, want) < 2e-2, _rel(got, want)

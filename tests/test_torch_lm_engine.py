@@ -360,6 +360,15 @@ def test_modes_and_schedule():
     with pytest.raises(ValueError, match="mode"):
         _engine(mode="slots")
     for kw in (dict(pattern=("attn", "mamba")), dict(mla=True), dict(embed_inputs=True)):
+        if "embed_inputs" in kw:
+            # as the reference: a stub frontend constructs in bucket mode (its
+            # decode would need embeddings), and continuous mode is refused
+            eng = Engine(cfg.with_(**kw), params, max_len=MAX_LEN, device="cpu")
+            assert not eng.continuous and eng.stats.mode.startswith("bucket (mode='auto'")
+            with pytest.raises(ValueError, match="mode='continuous' needs"):
+                Engine(cfg.with_(**kw), params, max_len=MAX_LEN, mode="continuous",
+                       device="cpu")
+            continue
         with pytest.raises(NotImplementedError, match="queue 1"):
             Engine(cfg.with_(**kw), params, max_len=MAX_LEN, device="cpu")
 

@@ -31,6 +31,22 @@ def test_attention_inputs_shapes_and_gqa():
     assert _inputs(1, 2, 2, 5, 32)[1] == {}
 
 
+def test_attention_inputs_take_another_key_length():
+    """Lq != Lk (the card's ragged non-causal rows, dh 96 and MQA at dh 256):
+    K/V and their scales follow ``lk``; the plain version runs and
+    ``pq_flips`` counts Lq x Lk probabilities."""
+    gen = torch.Generator().manual_seed(2)
+    for hq, hkv, dh in ((2, 2, 96), (8, 1, 256)):
+        args, gqa, _ = attention_inputs(lambda *s: torch.randn(s, generator=gen), 1, hq, hkv,
+                                        20, dh, lk=45)
+        qv, qs, kv, ks, vv, _ = args
+        assert qv.shape == (hq, 20, dh) and kv.shape == vv.shape == (hkv, 45, dh)
+        assert qs.numel() == hq * 20 and ks.numel() == hkv * 45
+        out = tsa.two_stage_attention(*args, **gqa)
+        assert out.shape == (hq, 20, dh) and torch.isfinite(out).all()
+        assert pq_flips(args) == (0, 20 * 45)
+
+
 def test_pq_flips_counts_changed_probabilities():
     args, _, _ = _inputs(1, 2, 2, 70, 32, seed=1)
     assert pq_flips(args) == (0, 70 * 70)

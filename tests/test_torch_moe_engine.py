@@ -10,8 +10,9 @@ one loses it, and a prefill's capacity follows the wave's token count.  The
 reference's own bucket and continuous modes therefore disagree on these
 requests (``test_modes_differ_in_the_reference_too``), and each of the
 port's modes is held against the reference's same mode on the same
-requests in the same order.  Also: the launcher serves the config, and
-MLA, Mamba and embedding inputs are still refused.
+requests in the same order.  Also: the launcher serves the config, MLA
+and Mamba are still refused, and an embedding-input config constructs in
+bucket mode as the reference's does.
 """
 import functools
 
@@ -133,6 +134,17 @@ def test_launcher_serves_deepseek_moe_without_jax():
                                      (dict(pattern=("attn", "mamba"), n_layers=4), "item 9"),
                                      (dict(embed_inputs=True), "embedding inputs")])
 def test_other_unported_kinds_still_raise(kw, item):
-    _, cfg, _, tp = _setup()
+    jcfg, cfg, jp, tp = _setup()
+    if item == "embedding inputs":
+        # ported: the engine constructs in bucket mode and refuses continuous
+        # mode, as the reference's does
+        engines = (JEngine(jcfg.with_(**kw), jp, max_len=32),
+                   Engine(cfg.with_(**kw), tp, max_len=32, device="cpu"))
+        assert not any(e.continuous for e in engines)
+        with pytest.raises(ValueError, match="mode='continuous' needs"):
+            JEngine(jcfg.with_(**kw), jp, max_len=32, mode="continuous")
+        with pytest.raises(ValueError, match="mode='continuous' needs"):
+            Engine(cfg.with_(**kw), tp, max_len=32, mode="continuous", device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         Engine(cfg.with_(**kw), tp, max_len=32, device="cpu")

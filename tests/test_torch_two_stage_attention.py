@@ -44,6 +44,9 @@ def _quant_both(q, k, v):
         (4, 1, 64, 64, True, 64, 64, 64),  # GQA (4, 1), causal
         (2, 2, 64, 128, False, 32, 32, 64),  # head dim 128 (qwen3-14b)
         (5, 1, 64, 128, True, 32, 32, 64),  # dh 128, GQA (5, 1) as 40/8, causal
+        (2, 2, 72, 96, False, 24, 24, 72),  # head dim 96 (phi3-mini-3.8b), MHA, ragged L
+        (2, 2, 72, 96, True, 24, 24, 72),  # dh 96, causal at Lq == Lk, ragged L
+        (8, 1, 64, 256, True, 32, 32, 64),  # head dim 256 (paligemma-3b), MQA (8, 1), causal
     ],
 )
 def test_plain_matches_pallas_kernel(bh, bhkv, l, dh, causal, bq, bk, bkv):
