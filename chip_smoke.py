@@ -17,7 +17,9 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    FFNs with A4 input and an A8 or A4 hidden), plus small cases (W8, A4, a requant
    epilogue, a pre-quantized input, a gated SiLU FFN, ragged M, causal and
    GQA attention), ``quant_matmul`` at the LM paths' shapes (qwen3-14b
-   decode and prefill, rwkv6-1.6b decode at 4 slots), and its batched launch
+   decode and prefill, rwkv6-1.6b decode at 4 slots, deepseek-v2-lite-16b's
+   MLA sites ``wq``, ``w_kv_down`` with its ragged N 576 and
+   ``w_k_up``/``w_v_up`` with K 512 at M 1, 4 and 1024), and its batched launch
    at deepseek-moe-16b's routed experts (E 64, W4: M 120, a 2 x 512
    prefill's capacity, and M 1, decode's, through gate/up K 2048 x N 1408
    and down K 1408 x N 2048), ``fused_matmul`` at deepseek-moe-16b's fused
@@ -213,9 +215,30 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    compiled ``w4a8:fused`` schedule (``wqkv`` and ``wo`` on
    ``fused_matmul``, the FFN on ``quant_matmul``): a full forward and a
    prefill with 2 decode steps launching what the schedule predicts,
-   logits and branches held.  Each prints its seconds.
+   logits and branches held.  Each prints its seconds;
+15. serves deepseek-v2-lite-16b (MLA with kv_lora_rank 512, q/k head dim
+   192, v 128; the MoE FFN of 12) at full width, cut to ``MLA_LAYERS``
+   layers (the dense layer 0 and 7 MoE layers, seed-0 weights;
+   ``phase_mla``), tiers ``quality=fp,balanced=w4a8``: compiles the
+   ``w4a8`` schedule (5 ``quant_matmul`` an MLA layer a prefill wave, 3 a
+   decode step, whose absorbed decode reads ``w_k_up``/``w_v_up``
+   dequantized; one batched launch a routed projection), serves 6
+   ``mixed_len_prompts`` requests (``MLA_PROMPT`` and 3/4 of that tokens,
+   ``MLA_GEN`` new tokens) through the continuous scheduler behind
+   ``AsyncServer`` (slot widths 1, 2, 4, four joining mid-decode) and in
+   bucket mode (``max_batch=2``), each with the launches the schedule
+   predicts per balanced prefill wave and decode step and none on
+   ``quality``; holds the balanced tier's teacher-forced logits (prefill
+   and 4 absorbed decode steps) equal to the plain versions' (only the
+   exact ``quant_matmul`` launches differ) and every layer's branches
+   (< 1e-3); times one layer's absorbed decode over a full compressed
+   cache; serves ``Engine(schedule=path)`` with every prefill wave and
+   decode step launching what the schedule predicts; and runs a [2,
+   ``LM_SCORE_LEN``] scoring forward (float attention, no two-stage
+   launch) held as in 9c.  Prints TTFT, decode ms per step, tok/s,
+   occupancy and peak memory per mode.
 
-Each of the paths 4-14 runs with the launch counts set to 0 just before it
+Each of the paths 4-15 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -272,6 +295,12 @@ MOE_LAYERS = 8
 # 15.7 and 12.2 GB); served prompts of ZOO_PROMPT tokens (and 3/4 of that),
 # ZOO_GEN new tokens each
 ZOO_PROMPT, ZOO_GEN = 256, 16
+# phase 15: deepseek-v2-lite-16b at full width, cut to MLA_LAYERS of its 27
+# layers (f32 weights: the full model 62.8 GB, beside which its W4 tier does
+# not fit in 80 GB; 8 layers ~18.4 GB, 1.7 GB of them the embedding and
+# lm_head); served prompts of MLA_PROMPT tokens (and 3/4 of that), MLA_GEN
+# new tokens each
+MLA_LAYERS, MLA_PROMPT, MLA_GEN = 8, 256, 16
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
@@ -339,6 +368,7 @@ def main() -> int:
     paths["moe"] = phase_moe(torch, dev)
     paths["phi3"] = phase_phi3(torch, dev)
     paths["paligemma"] = phase_paligemma(torch, dev)
+    paths["mla"] = phase_mla(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -514,9 +544,13 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
     17,408) and ``w_down`` (K 17,408), and a 1024-row prefill ``w_down``;
     rwkv6-1.6b decode's M = 4 slots through the time-mix projections
     (2048 x 2048), the channel-mix ``w_up`` (2048 x 7168) and ``w_down``
-    (7168 x 2048); each against its plain version, timed beside its bound
-    and, where ``torch._int_mm`` takes the shape (M > 16), the library
-    call.  These rows are not weighted into the record's vggt-1b totals."""
+    (7168 x 2048); deepseek-v2-lite-16b's MLA sites at decode's M 1 and 4
+    and a 1024-row prefill: ``wq`` (K 2048, N 3072), ``w_kv_down`` (K
+    2048, N 576: its last 256-column tile holds 64 columns) and
+    ``w_k_up``/``w_v_up`` (K 512, N 2048); each against its plain version,
+    timed beside its bound and, where ``torch._int_mm`` takes the shape (M >
+    16), the library call.  These rows are not weighted into the record's
+    vggt-1b totals."""
     from repro_torch.core.quantize import quantize_per_token, quantize_weight, unpack_int4
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels.measure import time_ms
@@ -527,7 +561,10 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
                            ("qwen3 prefill w_down", 1024, 17408, 5120),
                            ("rwkv6 decode wr..wo", 4, 2048, 2048),
                            ("rwkv6 decode w_up", 4, 2048, 7168),
-                           ("rwkv6 decode w_down", 4, 7168, 2048)):
+                           ("rwkv6 decode w_down", 4, 7168, 2048),
+                           *((f"mla {site} M{m}", m, k, n) for site, k, n in
+                             (("wq", 2048, 3072), ("w_kv_down", 2048, 576),
+                              ("w_k_up/w_v_up", 512, 2048)) for m in (1, 4, 1024))):
         xq = quantize_per_token(randn(m, k), 8)
         wq = quantize_weight(randn(k, n), 4)
         ws = wq.scale.reshape(1, -1).contiguous()
@@ -548,7 +585,7 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
             note = None
         rows[label] = dict(m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=bound, bound_by=by, library_ms=lib, library_note=note)
-        print(f"quant_matmul {label:20s} M={m} K={k} N={n} W4: err={err:.3g} "
+        print(f"quant_matmul {label:24s} M={m} K={k} N={n} W4: err={err:.3g} "
               f"kernel={ms:.4f}ms plain={plain:.4f}ms "
               f"int_mm={'n/a (' + note + ')' if lib is None else f'{lib:.4f}ms'} "
               f"bound={bound:.4f}ms ({by}), {ms / bound:.2f}x bound")
@@ -1731,7 +1768,8 @@ def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
     sums = [[0.0, 0.0], [0.0, 0.0], [0.0, 0.0]]  # per kind: squared difference, reference
     worst = [0.0, 0.0, 0.0]
     sites = ([(R, "rwkv_time_mix"), (R, "rwkv_channel_mix")] if "rwkv" in cfg.pattern
-             else [(A, "gqa_attention"), (F, "dense_ffn")] + ([(F, "moe_ffn")] if cfg.moe else []))
+             else [(A, "mla_attention" if cfg.mla else "gqa_attention"), (F, "dense_ffn")]
+            + ([(F, "moe_ffn")] if cfg.moe else []))
     saved = [getattr(mod, name) for mod, name in sites]
 
     inside = [False]  # a MoE layer's shared experts are held within its branch
@@ -2010,8 +2048,10 @@ def _lm_score(torch, dev, params, cfg, want=None) -> dict:
     with torch.inference_mode(), _PlainKernels():
         want, _ = lm.forward(cfg, params, toks)
     rel = _rel(torch, got, want)
-    print(f"lm scoring forward ({cfg.name} W4A8, [2, {LM_SCORE_LEN}], causal, dh "
-          f"{cfg.head_dim}, heads {cfg.n_heads}/{cfg.n_kv_heads}): launches "
+    dims = (f"MLA q/k dh {cfg.qk_nope_dim + cfg.qk_rope_dim}, v dh {cfg.v_head_dim}" if cfg.mla
+            else f"dh {cfg.head_dim}")
+    print(f"lm scoring forward ({cfg.name} W4A8, [2, {LM_SCORE_LEN}], causal, {dims}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}): launches "
           f"{log.by_name()}, {dt * 1e3:.1f}ms (first call), peak memory {peak:.2f} GiB; "
           f"vs plain rel L2 {rel:.3g}")
     _check(bool(torch.isfinite(got).all()), "lm scoring forward: non-finite logits")
@@ -3302,6 +3342,245 @@ def phase_paligemma(torch, dev) -> dict:
     print(f"paligemma: phase {time.perf_counter() - t_phase:.1f}s; launches {counts}")
     return {"counts": counts, "runs": 1, "inplace": {}}
 
+
+
+# ---------------------------------------------------------------------------
+# phase 15: deepseek-v2-lite-16b (MLA: its compressed cache, absorbed decode)
+# ---------------------------------------------------------------------------
+
+
+def _mla_per_call(eng) -> dict:
+    """(prefill waves, decode steps) of each tier of an engine's run."""
+    return {t: [sum(s.calls for b, s in eng.stats.buckets.items()
+                    if b.tier == t and type(b).__name__ == k)
+                for k in ("PrefillBucket", "DecodeBucket")] for t in eng.tiers}
+
+
+def _mla_want(pre: dict, dec: dict, waves: int, steps: int) -> dict:
+    """Launches of ``waves`` prefill waves and ``steps`` decode steps."""
+    out = {k: pre.get(k, 0) * waves + dec.get(k, 0) * steps for k in {*pre, *dec}}
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_mla(torch, dev) -> dict:
+    """See the module docstring (15)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPlan, compile_schedule
+    from repro_torch.data.pipeline import mixed_len_prompts
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.server import AsyncServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("deepseek-v2-lite-16b").with_(n_layers=MLA_LAYERS)
+    n, moe = cfg.n_layers, cfg.n_layers - cfg.first_dense
+    rank, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    # the compressed cache a token and layer: k [1, rank + dr] int8, its f32
+    # scale, and the [1, 1] int8 and f32 placeholders of v and v_scale
+    kv_bytes = (rank + dr) + 4 + 1 + 4
+    print(f"mla: deepseek-v2-lite-16b depth {n} of 27 layers (d_model {cfg.d_model}, MLA "
+          f"{cfg.n_heads} heads, kv_lora_rank {rank}, qk_nope {cfg.qk_nope_dim} / qk_rope {dr} / "
+          f"v_head {cfg.v_head_dim}, {cfg.n_experts} routed experts of {cfg.moe_d_ff} at "
+          f"top-{cfg.top_k}, {cfg.n_shared_experts} shared, dense layer 0 at {cfg.dense_d_ff}, "
+          f"vocab {cfg.vocab_size}); compressed cache {kv_bytes} B a token and layer")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    counts = {}
+
+    def add(log):
+        for k, v in log.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # the compiled w4a8 schedule: 5 quant_matmul an MLA layer a prefill
+    # wave, 3 a decode step (the absorbed decode reads w_k_up and w_v_up
+    # dequantized), one batched launch a routed projection
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, name="w4a8"))
+    spath = work / "deepseek-v2-lite.w4a8.schedule.json"
+    sched.save(spath)
+    pre = sched.launches_per_forward(two_stage_attention=False)
+    dec = sched.launches_per_forward(two_stage_attention=False, decode=True)
+    print(f"mla: w4a8 schedule {sched.summary()}; predicted per prefill wave {pre}, per decode "
+          f"step {dec}")
+    _check(pre == {"quant_matmul": 5 * n + 3 * cfg.first_dense + 3 * moe,
+                   "quant_matmul_batched": 3 * moe}
+           and dec == {**pre, "quant_matmul": pre["quant_matmul"] - 2 * n},
+           f"mla schedule predicts {pre} / {dec}")
+
+    tiers = {k: v.materialize() for k, v in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8").items()}
+    names = list(tiers)
+    kw = dict(tiers=tiers, max_len=CONT_MAX_LEN, batch_buckets=(1, 2, 4), device="cuda")
+    eng = Engine(cfg, raw, mode="auto", max_batch=4, decode_steps_per_poll=8, **kw)
+    _check(eng.mode == "continuous" and eng.pad_prompts,
+           f"mla: mode='auto' resolved to {eng.stats.mode}")
+    for t in tiers:
+        eng.tier_params(t)
+    torch.cuda.synchronize()
+    print(f"mla: weights and tiers quantized in {time.perf_counter() - t0:.1f}s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n_req = 6
+    prompts = mixed_len_prompts(cfg.vocab_size, n_req, MLA_PROMPT)
+    assign = [names[((i + 1) // 2) % 2] for i in range(n_req)]  # q b b q q b
+
+    # continuous, behind AsyncServer: two requests first, four joining
+    tracer = obs_trace.Tracer(capacity=4096)
+    prev = obs_trace.install(tracer)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with probe.tracking() as log, AsyncServer(eng) as srv:  # counts start at 0 here
+            reqs = [srv.submit(prompts[i], MLA_GEN, tier=assign[i]) for i in (0, 1)]
+            t_wait = time.perf_counter() + 300
+            while eng.active < 2 and time.perf_counter() < t_wait:
+                time.sleep(0.002)
+            _check(eng.active >= 2, "mla: the first two requests never ran")
+            reqs += [srv.submit(prompts[i], MLA_GEN, tier=assign[i]) for i in range(2, n_req)]
+            outs = [srv.result(r, timeout=600) for r in reqs]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        obs_trace.install(prev)
+    _serve_report(torch, eng, "mla continuous", _ttft_ms(tracer, reqs), wall, peak)
+    _check(all(o.shape == (MLA_GEN,) for o in outs), "mla continuous: every request delivered")
+    _check(eng.stats.scheduler.admitted_mid_decode >= 1, "mla: nothing joined mid-decode")
+    calls = _mla_per_call(eng)
+    for tier in names:
+        ss = [s for b, s in eng.stats.buckets.items()
+              if b.tier == tier and type(b).__name__ == "PrefillBucket"]
+        print(f"mla continuous {tier}: prefill {1e3 * sum(s.total_s for s in ss) / max(sum(s.calls for s in ss), 1):.2f}"
+              f"ms a wave over {sum(s.calls for s in ss)} waves")
+    want = _mla_want(pre, dec, *calls["balanced"])
+    print(f"mla continuous: launches {log.by_name()}; (prefill waves, decode steps) per tier "
+          f"{calls}; per balanced wave {pre}, per balanced step {dec}")
+    _check(log.by_name() == want, f"mla continuous: launches {log.by_name()}, expected {want}")
+    add(log.by_name())
+
+    # bucket mode, max_batch 2, the same requests
+    beng = Engine(cfg, raw, mode="bucket", max_batch=2, max_wait_s=60.0, **kw)
+    for t in tiers:
+        beng.tier_params(t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with probe.tracking() as blog:
+        breqs = [beng.enqueue(p, MLA_GEN, tier=assign[i]) for i, p in enumerate(prompts)]
+        beng.flush()
+        torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    bpeak = torch.cuda.max_memory_allocated() / 2**30
+    bouts = [r.result() for r in breqs]
+    _check(all(o.shape == (MLA_GEN,) for o in bouts), "mla bucket: every request delivered")
+    bcalls = _mla_per_call(beng)
+    bwant = _mla_want(pre, dec, *bcalls["balanced"])
+    _check(blog.by_name() == bwant, f"mla bucket: launches {blog.by_name()}, expected {bwant}")
+    add(blog.by_name())
+    print(beng.stats.format())
+    for tier in names:
+        for kind in ("PrefillBucket", "DecodeBucket"):
+            ss = [st for b, st in beng.stats.buckets.items()
+                  if b.tier == tier and type(b).__name__ == kind]
+            c, tot, tk = (sum(x.calls for x in ss), sum(x.total_s for x in ss),
+                          sum(x.tokens for x in ss))
+            print(f"mla bucket {tier}: {kind[:-6].lower()} {1e3 * tot / max(c, 1):.3f}ms a call "
+                  f"over {c} calls, {tk / max(tot, 1e-9):.1f} tok/s")
+    print(f"mla bucket: served {n_req} requests in {bwall:.2f}s, peak memory {bpeak:.2f} GiB; "
+          f"(prefill waves, decode steps) per tier {bcalls}; launches {blog.by_name()}")
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(outs, bouts))
+    print(f"mla: greedy ids equal between modes for {same} of {n_req} requests (MoE capacity "
+          "couples co-batched rows: not held)")
+    del beng
+
+    # the balanced tier against the plain versions at the same rows and
+    # pads: a prefill and 4 absorbed decode steps, teacher-forced on served
+    # tokens.  Only quant_matmul and its batched launch differ from the
+    # plain versions here, and both are exact: the logits must be equal.
+    params_b = eng.tier_params("balanced")
+    idx = [i for i in range(n_req) if assign[i] == "balanced"][:2]
+    toks, pad = _padded(torch, dev, prompts, idx,
+                        eng.prompt_bucket(max(len(prompts[i]) for i in idx)))
+    served = torch.stack([torch.as_tensor(outs[i]) for i in idx]).to(dev).long()[:, :4]
+    with probe.tracking() as tlog, _CallLaunches() as tcl:
+        got = _teacher_forced(torch, eng.cfg, params_b, toks, pad, served, CONT_MAX_LEN)
+        torch.cuda.synchronize()
+    for mode, got_log in tcl.calls:
+        _check(got_log == (pre if mode == "prefill" else dec),
+               f"mla teacher-forced: a {mode} call launched {got_log}")
+    add(tlog.by_name())
+    with _PlainKernels():
+        plain = _teacher_forced(torch, eng.cfg, params_b, toks, pad, served, CONT_MAX_LEN)
+    _check(all(torch.isfinite(g).all() for g in got), "mla balanced: non-finite logits")
+    diffs = [(g - w).abs().max().item() for g, w in zip(got, plain)]
+    print(f"mla balanced: teacher-forced logits vs plain, max |diff| (prefill, 4 absorbed decode "
+          f"steps) {diffs}")
+    _check(max(diffs) == 0.0, f"mla balanced: logits differ from the plain versions' {diffs}")
+    del got, plain
+    _lm_branches(torch, eng.cfg, params_b, toks, "mla balanced", pad=pad, steps=served)
+
+    # the absorbed decode's own cost: one layer's mla_attention decode call
+    # at 4 slots over a CONT_MAX_LEN-slot compressed cache (it dequantizes
+    # the whole cache each step), against a whole decode step
+    from repro_torch.tree import tree_index
+
+    mixer = tree_index(params_b["blocks"]["l0"], 0)["mixer"]
+    cache = A.init_kv_cache(cfg, 4, CONT_MAX_LEN, 1, device=dev)
+    cache = cache._replace(k=cache.k[0], v=cache.v[0], k_scale=cache.k_scale[0],
+                           v_scale=cache.v_scale[0], length=CONT_MAX_LEN - 1)
+    xs = torch.randn((4, 1, cfg.d_model), device=dev)
+    pos = torch.full((4, 1), CONT_MAX_LEN - 1, device=dev)
+
+    def absorbed():
+        with torch.inference_mode():
+            A.mla_attention(mixer, cfg, xs, positions=pos, cache=cache, mode="decode")
+
+    att_ms = _wall_ms(torch, absorbed)
+    with probe.tracking() as alog:
+        absorbed()
+    print(f"mla: one layer's absorbed decode (4 slots, {CONT_MAX_LEN}-slot cache, W4A8) "
+          f"{att_ms:.3f}ms host clock, launches {alog.by_name()}; x {n} layers = "
+          f"{att_ms * n:.2f}ms of a decode step")
+    del cache, xs
+
+    # Engine(schedule=path): every prefill wave and decode step launches what
+    # the schedule predicts
+    del eng
+    seng = Engine(cfg, raw, schedule=str(spath), mode="auto", max_len=CONT_MAX_LEN,
+                  batch_buckets=(1, 2, 4), max_batch=4, device="cuda")
+    seng.params
+    with probe.tracking() as slog, _CallLaunches() as scl:
+        sreqs = [seng.enqueue(p, 5) for p in prompts[:2]]
+        seng.flush()
+        torch.cuda.synchronize()
+    add(slog.by_name())
+    ncalls = {}
+    for mode, got_log in scl.calls:
+        _check(got_log == (pre if mode == "prefill" else dec),
+               f"mla schedule: a {mode} call launched {got_log}, the schedule predicts "
+               f"{pre if mode == 'prefill' else dec}")
+        ncalls[mode] = ncalls.get(mode, 0) + 1
+    _check(ncalls.get("prefill", 0) >= 1 and ncalls.get("decode", 0) >= 1
+           and all(r.result().shape == (5,) for r in sreqs), f"mla schedule: calls {ncalls}")
+    print(f"mla schedule: Engine(schedule=path) served {ncalls} calls, each launching what the "
+          f"schedule predicts; launches {slog.by_name()}")
+    del seng, raw
+
+    # a [2, LM_SCORE_LEN] scoring forward: the materialized branch (float
+    # attention at q/k head dim 192, v 128; no two-stage launch)
+    score = _lm_score(torch, dev, params_b, cfg, want=pre)
+    add(score)
+    del params_b
+    print(f"mla: phase {time.perf_counter() - t_phase:.1f}s; launches {counts}")
+    return {"counts": counts, "runs": 1, "inplace": {}}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -158,7 +158,7 @@ def get_config(name: str) -> ModelConfig:
     key = name.replace("_", "-")
     if key not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}; the reference's "
-                       "other configs wait for ROADMAP.md queue 1 (items 7b, 7c and 9)")
+                       "other configs wait for ROADMAP.md queue 1 (items 7c and 9)")
     return _REGISTRY[key]()
 
 

@@ -1,6 +1,6 @@
 """Whole-model VersaQ quantization (the paper's offline pipeline, Fig. 6)
 — port of ``repro/core/model_quant.py``: ``quantize_vggt`` and, for
-dense GQA, MoE and RWKV-6 LMs, ``quantize_lm``.
+dense GQA, MLA, MoE and RWKV-6 LMs, ``quantize_lm``.
 
 * The **residual stream is rotated once** (VGGT: H fused on the patch
   projection's output side, special tokens rotated; LM: E ← E·H on the
@@ -423,13 +423,11 @@ def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
     """Quantize an ``models/lm.py`` parameter tree with a uniform
     ``QuantPolicy``, a per-site ``PrecisionPlan`` or a compiled
     ``KernelSchedule``.  Returns a new tree; the forward code is unchanged
-    (dispatch happens on leaf types).  GQA layers with dense or MoE FFNs,
-    and rwkv layers; the Mamba and MLA branches of the reference raise.  An
+    (dispatch happens on leaf types).  GQA and MLA layers with dense or MoE
+    FFNs, and rwkv layers; the Mamba branch of the reference raises.  An
     rwkv stack keeps an unrotated stream (its token shift and decay LoRA
     read the stream in the clear), so every rwkv projection takes the
     online WHT."""
-    if cfg.mla:
-        raise NotImplementedError("quantize_lm: MLA is not ported yet (ROADMAP queue 1 item 7b)")
     if "mamba" in cfg.pattern:
         raise NotImplementedError(
             f"quantize_lm: the Mamba mixer is not ported yet (pattern {cfg.pattern}; "
@@ -505,20 +503,24 @@ def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, pol: _Resolv
     ls1, ls2 = lp.get("ls1"), lp.get("ls2")
     common = dict(rotate_in_offline=rotated, rotate_input_online=not rotated)
 
-    mx = dict(lp["mixer"])  # qk-norm stays a full-precision island
-    dh = cfg.head_dim
-    for name in ("wq", "wk"):
-        mx[name] = _prep(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", lead,
-                         gamma=g1, beta=b1, bias=lp["mixer"][name].get("b"), **common)
-    mx["wv"] = _prep(lp["mixer"]["wv"]["w"], pol, f"{pfx}.mixer.wv", lead,
-                     gamma=g1, beta=b1, bias=lp["mixer"]["wv"].get("b"),
-                     head_rot_out=(cfg.n_kv_heads, dh), **common)
-    mx["wo"] = _prep(lp["mixer"]["wo"]["w"], pol, f"{pfx}.mixer.wo", lead,
-                     bias=lp["mixer"]["wo"].get("b"), out_scale=ls1,
-                     head_rot_in=(cfg.n_heads, dh), rotate_out_offline=rotated)
-    if pol.fuse:
-        mx = _fuse_qkv(mx, mn.kind, cfg.d_model, groups, rotated, dev,
-                       decision=pol.fuse_decision(f"{pfx}.mixer.wqkv"))
+    if cfg.mla:
+        mx = _quantize_mla(cfg, lp["mixer"], pol, rotated, g1, b1, ls1, common, groups, dev,
+                           lead=lead, pfx=pfx)
+    else:
+        mx = dict(lp["mixer"])  # qk-norm stays a full-precision island
+        dh = cfg.head_dim
+        for name in ("wq", "wk"):
+            mx[name] = _prep(lp["mixer"][name]["w"], pol, f"{pfx}.mixer.{name}", lead,
+                             gamma=g1, beta=b1, bias=lp["mixer"][name].get("b"), **common)
+        mx["wv"] = _prep(lp["mixer"]["wv"]["w"], pol, f"{pfx}.mixer.wv", lead,
+                         gamma=g1, beta=b1, bias=lp["mixer"]["wv"].get("b"),
+                         head_rot_out=(cfg.n_kv_heads, dh), **common)
+        mx["wo"] = _prep(lp["mixer"]["wo"]["w"], pol, f"{pfx}.mixer.wo", lead,
+                         bias=lp["mixer"]["wo"].get("b"), out_scale=ls1,
+                         head_rot_in=(cfg.n_heads, dh), rotate_out_offline=rotated)
+        if pol.fuse:
+            mx = _fuse_qkv(mx, mn.kind, cfg.d_model, groups, rotated, dev,
+                           decision=pol.fuse_decision(f"{pfx}.mixer.wqkv"))
     out["mixer"] = mx
     out.pop("ls1", None)
 
@@ -540,6 +542,51 @@ def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, pol: _Resolv
     out["ffn"] = f
     out.pop("ls2", None)
     return out
+
+
+def _quantize_mla(cfg: ModelConfig, mixer: dict, pol: _Resolver, rotated: bool, g1, b1, ls1,
+                  common: dict, groups, dev, *, lead: int, pfx: str) -> dict:
+    """The reference's MLA branch: ``wq`` takes the pre-norm fold;
+    ``w_kv_down`` rotates only its ``rank`` LoRA columns (so the compressed
+    cache lives in the rotated basis) and keeps the rope columns as they
+    are, under its own site policy; with the WHT, ``kv_norm`` becomes a
+    folded RMS norm whose γ folds into ``w_k_up`` and ``w_v_up``, which take
+    their input rotated (offline, never online); ``w_v_up``/``wo`` carry the
+    per-head Hadamard pair and ``wo`` the LayerScale fold.  The MLA sites
+    are never fused (the reference calls no ``_fuse_qkv`` here)."""
+    mx = dict(mixer)
+    mx["wq"] = _prep(mixer["wq"]["w"], pol, f"{pfx}.mixer.wq", lead, gamma=g1, beta=b1,
+                     bias=mixer["wq"].get("b"), **common)
+    rank = cfg.kv_lora_rank
+    site = f"{pfx}.mixer.w_kv_down"
+    kvdown_policy, tiles = pol.at(site), pol.tiles_at(site)
+    norm_keys = [k for k, v in (("gamma", g1), ("beta", b1)) if v is not None]
+
+    def prep_kvdown(w_, *arrs):
+        d = dict(zip(norm_keys, arrs))
+        lora, rope = w_[:, :rank], w_[:, rank:]
+        if pol.use_wht:
+            lora = rotate_cols(lora)
+        w2 = torch.cat([lora, rope.to(lora.dtype)], dim=1)
+        if kvdown_policy is None:
+            return prepare_linear_fp(w2, use_wht=pol.use_wht, bias=None, **common, **d)
+        # no site= here: the reference's w_kv_down carries no site name
+        return prepare_linear(w2, kvdown_policy, bias=None, use_kernel=pol.use_kernel,
+                              tiles=tiles, **common, **d)
+
+    mx["w_kv_down"] = _vmapped(prep_kvdown, lead)(mixer["w_kv_down"]["w"],
+                                                  *[a for a in (g1, b1) if a is not None])
+    gkv = mixer["kv_norm"].g if pol.use_wht else None
+    if pol.use_wht:
+        mx["kv_norm"] = _folded("rms", rank, groups, dev)
+    up = dict(gamma=gkv, rotate_in_offline=pol.use_wht, rotate_input_online=False)
+    mx["w_k_up"] = _prep(mixer["w_k_up"]["w"], pol, f"{pfx}.mixer.w_k_up", lead, **up)
+    mx["w_v_up"] = _prep(mixer["w_v_up"]["w"], pol, f"{pfx}.mixer.w_v_up", lead, **up,
+                         head_rot_out=(cfg.n_heads, cfg.v_head_dim))
+    mx["wo"] = _prep(mixer["wo"]["w"], pol, f"{pfx}.mixer.wo", lead,
+                     bias=mixer["wo"].get("b"), out_scale=ls1,
+                     head_rot_in=(cfg.n_heads, cfg.v_head_dim), rotate_out_offline=rotated)
+    return mx
 
 
 def _quantize_moe(cfg: ModelConfig, ffn: dict, pol: _Resolver, rotated: bool, g2, b2,

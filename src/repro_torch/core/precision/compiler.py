@@ -232,7 +232,8 @@ class KernelSchedule:
                 "python -m repro_torch.launch.compile"
             )
 
-    def launches_per_forward(self, *, two_stage_attention: bool) -> dict[str, int]:
+    def launches_per_forward(self, *, two_stage_attention: bool,
+                             decode: bool = False) -> dict[str, int]:
         """Kernel launches one forward makes under this schedule — for an
         LM, one prefill wave or one decode step.
 
@@ -248,8 +249,14 @@ class KernelSchedule:
         padding mask, or an LM scoring forward (``lm.forward(mode=
         "full")``).  The served LM prefill and decode attend over the int8
         KV cache with the masked emulation and never reach the two-stage
-        kernel: count them with ``two_stage_attention=False``."""
+        kernel: count them with ``two_stage_attention=False``.  MLA layers
+        never reach it (their full and prefill modes attend in float, as
+        the reference's), and their absorbed decode reads ``w_k_up`` and
+        ``w_v_up`` as dequantized weights: with ``decode`` those two sites
+        launch nothing (a served MLA decode step; also a one-token
+        prefill, which the reference absorbs too)."""
         out: dict[str, int] = {}
+        mla = {s.site.rsplit(".", 1)[0] for s in self.sites if s.site.endswith(".w_kv_down")}
 
         def add(kernel: str, n: int) -> None:
             out[kernel] = out.get(kernel, 0) + n
@@ -260,6 +267,9 @@ class KernelSchedule:
                 add("fused_matmul" if g.kind == "qkv" else "fused_ffn", members[0].count)
         for s in self.sites:
             if s.fused_group is None and s.kernel == "matmul" and _kernel_level(s.level):
+                layer, name = s.site.rsplit(".", 1)
+                if decode and layer in mla and name in ("w_k_up", "w_v_up"):
+                    continue
                 if _EXPERTS in s.site:
                     add("quant_matmul_batched", self._layer_count(s.site))
                     continue
@@ -267,7 +277,8 @@ class KernelSchedule:
                 add("fused_matmul" if fused else "quant_matmul", s.count)
         if two_stage_attention:
             for s in self.sites:
-                if s.site.rsplit(".", 1)[-1] == "wq" and s.kernel != "fp":
+                layer, name = s.site.rsplit(".", 1)
+                if name == "wq" and s.kernel != "fp" and layer not in mla:
                     add("two_stage_attention", s.count)
         return out
 
@@ -567,7 +578,8 @@ def _ffn_fallback(f: dict, groups) -> Optional[str]:
 
 def _lower_lm(low: _Lowering, q: dict) -> None:
     """The reference's LM walk over the prefix layers and the stacked
-    pattern positions: attention through :meth:`_Lowering.attn`, dense
+    pattern positions: GQA attention through :meth:`_Lowering.attn`, MLA's
+    five sites plain, dense
     FFNs through :meth:`_Lowering.ffn_dense`, a MoE layer's routed and
     shared experts site by site, rwkv sites plain (never fused)."""
     from repro_torch.models import lm
@@ -581,7 +593,9 @@ def _lower_lm(low: _Lowering, q: dict) -> None:
                        lm.ffn_kind(cfg, gi)))
     for pfx, lp, kind, fk in layers:
         mx = lp["mixer"]
-        if kind == "attn":
+        if kind == "attn" and cfg.mla:  # never fused, as in the reference
+            low.plain(f"{pfx}.mixer", mx, ("wq", "w_kv_down", "w_k_up", "w_v_up", "wo"))
+        elif kind == "attn":
             low.attn(f"{pfx}.mixer", mx)
         elif kind == "rwkv":
             low.plain(f"{pfx}.mixer", mx, ("wr", "wk", "wv", "wg", "wo"))

@@ -63,7 +63,6 @@ LADDER = ("w4a4", "w4a8", "w8a8", "bf16")
 
 # what each unported layer kind waits for (ROADMAP.md, queue 1)
 _UNPORTED = {
-    "mla": "MLA attention is not ported yet (ROADMAP queue 1 item 7b)",
     "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9)",
 }
 
@@ -133,7 +132,9 @@ def enumerate_sites(cfg: ModelConfig, params: dict) -> list[SiteInfo]:
     def layer(pfx: str, lp: dict, kind: str, fk: str) -> None:
         mx = lp["mixer"]
         if kind == "attn":
-            for n in ("wq", "wk", "wv", "wo"):
+            names = (("wq", "w_kv_down", "w_k_up", "w_v_up", "wo") if cfg.mla
+                     else ("wq", "wk", "wv", "wo"))
+            for n in names:
                 add(f"{pfx}.mixer.{n}", mx[n]["w"])
         elif kind == "rwkv":
             for n in ("wr", "wk", "wv", "wg", "wo"):
@@ -164,10 +165,8 @@ def enumerate_sites(cfg: ModelConfig, params: dict) -> list[SiteInfo]:
 
 
 def _check_lm_ported(cfg: ModelConfig) -> None:
-    """The LM walk covers GQA attention and rwkv mixers with dense, MoE
-    and rwkv channel-mix FFNs; MLA and Mamba layers raise."""
-    if cfg.mla:
-        raise NotImplementedError(f"{cfg.name}: {_UNPORTED['mla']}")
+    """The LM walk covers GQA and MLA attention and rwkv mixers with dense,
+    MoE and rwkv channel-mix FFNs; Mamba layers raise."""
     if "mamba" in cfg.pattern:
         raise NotImplementedError(f"{cfg.name} (pattern {cfg.pattern}): {_UNPORTED['mamba']}")
 

@@ -1,5 +1,6 @@
-"""Attention mixers: GQA (with qk-norm and RoPE) and its int8 KV cache
-(port of ``repro/models/attention.py``; MLA is not ported).
+"""Attention mixers: GQA (with qk-norm and RoPE) and MLA (DeepSeek-V2's
+multi-head latent attention), with their int8 KV caches (port of
+``repro/models/attention.py``).
 
 Three entry modes:
 
@@ -11,6 +12,13 @@ Three entry modes:
 Per the paper's Stage-2 flow: Q/K get an online per-head WHT after
 RoPE/qk-norm when the layer is quantized (scores invariant, distributions
 smoothed); V carries an offline per-head Hadamard folded into W_v/W_o.
+
+MLA caches the compressed ``[c_kv, k_rope]`` (``kv_lora_rank +
+qk_rope_dim`` int8 a token and layer, one scale) in the cache's ``k`` slot;
+its full and prefill modes up-project K/V from the fresh ``c_kv`` and
+attend in float, and its decode is absorbed: the query moves into the
+compressed domain (``q_nope · W_k_upᵀ``), attends over the dequantized
+cache, and the result goes back through ``W_v_up``.
 
 A fused tree (``PrecisionPlan(fuse=True)``) carries one ``wqkv`` site
 whose kernel launch absorbs the pre-norm and quantizes the input once for
@@ -42,6 +50,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import transforms
 from repro_torch.core.quantize import quantize_per_token
 from repro_torch.core.versaq import QuantLinear, head_wht
 from repro_torch.kernels import ops as kernel_ops
@@ -53,6 +62,8 @@ __all__ = [
     "roll_kv",
     "init_gqa",
     "gqa_attention",
+    "init_mla",
+    "mla_attention",
     "sdpa_dispatch",
     "CHUNK",
 ]
@@ -67,7 +78,9 @@ class KVCache(NamedTuple):
     k/v: [B, S, Hkv, dh] int8 (stacked scan groups: [G, B, S, Hkv, dh]);
     k_scale/v_scale: the same with a trailing 1, float32.  ``length``: the
     current fill, a host ``int`` shared by every row and, for a stacked
-    cache, every group (see the module docstring)."""
+    cache, every group (see the module docstring).  For MLA the ``k`` slot
+    holds the compressed ``[c_kv, k_rope]`` as [B, S, 1, rank + dr] and
+    ``v``/``v_scale`` are unused [..., 1, 1] placeholders."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -114,13 +127,17 @@ def _quant_tokens_like(x: torch.Tensor, dtype) -> tuple[torch.Tensor, torch.Tens
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_groups: int,
                   kv_dtype=torch.int8, device=None) -> KVCache:
-    """Stacked cache for ``n_groups`` scan groups (GQA layout)."""
+    """Stacked cache for ``n_groups`` scan groups: the GQA layout, or MLA's
+    compressed one (one ``rank + dr`` row a token, see :class:`KVCache`)."""
     if cfg.mla:
-        raise NotImplementedError("the MLA cache is not ported yet (ROADMAP queue 1 item 7b)")
-    shape = (n_groups, batch, max_len, cfg.n_kv_heads)
+        shape = (n_groups, batch, max_len, 1)
+        kd, vd = cfg.kv_lora_rank + cfg.qk_rope_dim, 1
+    else:
+        shape = (n_groups, batch, max_len, cfg.n_kv_heads)
+        kd = vd = cfg.head_dim
     return KVCache(
-        k=torch.zeros(shape + (cfg.head_dim,), dtype=kv_dtype, device=device),
-        v=torch.zeros(shape + (cfg.head_dim,), dtype=kv_dtype, device=device),
+        k=torch.zeros(shape + (kd,), dtype=kv_dtype, device=device),
+        v=torch.zeros(shape + (vd,), dtype=kv_dtype, device=device),
         k_scale=torch.zeros(shape + (1,), dtype=torch.float32, device=device),
         v_scale=torch.zeros(shape + (1,), dtype=torch.float32, device=device),
         length=0,
@@ -369,4 +386,125 @@ def gqa_attention(
             mask = _pad_mask(pad_lens, cache.k.shape[1]) if pad_lens is not None else None
             o = _sdpa(q, kf, vf, causal=causal, q_offset=pos0, kv_len=new_len, kv_mask=mask)
     o = o.reshape(b, lq, h * dh).to(x.dtype)
+    return L.dense(p["wo"], o), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV cache, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+             device=None) -> dict:
+    h, rank = cfg.n_heads, cfg.kv_lora_rank
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wq": L.init_linear(generator, cfg.d_model, h * (cfg.qk_nope_dim + cfg.qk_rope_dim), **kw),
+        "w_kv_down": L.init_linear(generator, cfg.d_model, rank + cfg.qk_rope_dim, **kw),
+        "kv_norm": L.init_norm(rank, kind="rms", **kw),
+        "w_k_up": L.init_linear(generator, rank, h * cfg.qk_nope_dim, **kw),
+        "w_v_up": L.init_linear(generator, rank, h * cfg.v_head_dim, **kw),
+        "wo": L.init_linear(generator, h * cfg.v_head_dim, cfg.d_model, **kw),
+    }
+
+
+def _absorbed_weight(p) -> torch.Tensor:
+    """An up-projection's [rank, H·d] weight in float32 for absorption: a
+    full-precision site's ``w``, or a ``QuantLinear`` dequantized (its W4
+    nibbles unpacked) with its output-side block IDCT applied, as the
+    reference does."""
+    if isinstance(p, dict):
+        return p["w"].to(torch.float32)
+    w = p.qw.dequantize(torch.float32)
+    if p.idct:
+        w = transforms.apply_blocked(w, transforms.dct_matrix(p.dct_block, device=w.device),
+                                     p.dct_block)
+    return w
+
+
+def _write_compressed(cache: KVCache, ck: torch.Tensor, pos0: int) -> tuple[KVCache, int]:
+    """Quantize [c_kv, k_rope] ([B, L, 1, rank + dr]) per token and write it
+    at ``pos0``, in place; returns the cache at its new length."""
+    new_len = pos0 + ck.shape[1]
+    if new_len > cache.k.shape[1]:
+        raise ValueError(f"KV cache overflow: writing slots {pos0}..{new_len - 1} of "
+                         f"{cache.k.shape[1]}")
+    ckq, cks = _quant_tokens_like(ck, cache.k.dtype)
+    cache.k[:, pos0:new_len] = ckq
+    cache.k_scale[:, pos0:new_len] = cks
+    return cache._replace(length=new_len), new_len
+
+
+def mla_attention(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[KVCache] = None,
+    mode: str = "full",
+    pad_lens: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """MLA of x [B, L, d] -> ([B, L, d], new cache or None).
+
+    ``mode="full"``, a call without a cache, and a prefill of more than one
+    token materialize per-head K/V from the fresh ``c_kv`` and run
+    :func:`sdpa_dispatch` (q/k head dim ``dn + dr``, v head dim ``dv``; the
+    two-stage kernel is never reached, as in the reference); a prefill also
+    writes the quantized ``[c_kv, k_rope]`` at ``cache.length``.  Decode
+    (and a one-token prefill) is absorbed: the new token is written, the
+    whole compressed cache is dequantized, and the scores are
+    ``q_nope·W_k_upᵀ·c + q_rope·k_rope`` over it.  ``pad_lens`` masks
+    left-pad slots in both branches."""
+    b, lq, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv, rank = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(lq, device=x.device)[None, :]
+
+    q = L.dense(p["wq"], x).reshape(b, lq, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv = L.dense(p["w_kv_down"], x)
+    c_kv, k_rope = kv[..., :rank], kv[..., rank:]
+    c_kv = L.norm(p["kv_norm"], c_kv)
+    cos, sin = L.rope_freqs(dr, cfg.rope_theta, positions)
+    q_rope = L.apply_rope(q_rope, cos, sin)
+    k_rope = L.apply_rope(k_rope[..., None, :], cos, sin)[..., 0, :]  # shared across heads
+
+    if mode == "full" or cache is None or (mode == "prefill" and lq > 1):
+        # materialize per-token K/V from the fresh c_kv and attend in float
+        k_nope = L.dense(p["w_k_up"], c_kv).reshape(b, lq, h, dn)
+        v = L.dense(p["w_v_up"], c_kv).reshape(b, lq, h, dv)
+        q_eff = torch.cat([q_nope, q_rope], dim=-1)
+        k_eff = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, lq, h, dr)], dim=-1)
+        mask = _pad_mask(pad_lens, lq) if pad_lens is not None else None
+        o = sdpa_dispatch(cfg, q_eff, k_eff, v, causal=causal, kv_mask=mask)
+        new_cache = None
+        if mode == "prefill" and cache is not None:
+            ck = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
+            new_cache, _ = _write_compressed(cache, ck, int(cache.length))
+    else:
+        # absorbed decode: score in the compressed domain over the cache
+        pos0 = int(cache.length)
+        ck = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]  # [B, L, 1, rank + dr]
+        new_cache, new_len = _write_compressed(cache, ck, pos0)
+        ckf = (cache.k.to(torch.float32) * cache.k_scale)[:, :, 0, :]  # [B, S, rank + dr]
+        c_all, krope_all = ckf[..., :rank], ckf[..., rank:]
+        wku = _absorbed_weight(p["w_k_up"]).reshape(rank, h, dn)
+        q_lora = torch.einsum("bqhd,rhd->bqhr", q_nope.to(torch.float32), wku)
+        scale = 1.0 / _sqrt_f32(dn + dr, x.device)
+        s = (torch.einsum("bqhr,bkr->bhqk", q_lora, c_all)
+             + torch.einsum("bqhd,bkd->bhqk", q_rope.to(torch.float32), krope_all)) * scale
+        neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
+        rows = pos0 + torch.arange(lq, device=x.device)[:, None]
+        cols = torch.arange(c_all.shape[1], device=x.device)[None, :]
+        s = torch.where((rows >= cols) & (cols < new_len), s, neg)
+        if pad_lens is not None:  # left-pad slots from a bucketed prefill
+            s = torch.where(_pad_mask(pad_lens, c_all.shape[1])[:, None, None, :], s, neg)
+        att = torch.softmax(s, dim=-1)
+        o_lora = torch.einsum("bhqk,bkr->bqhr", att, c_all)
+        wvu = _absorbed_weight(p["w_v_up"]).reshape(rank, h, dv)
+        o = torch.einsum("bqhr,rhd->bqhd", o_lora, wvu)
+    o = o.reshape(b, lq, h * dv).to(x.dtype)
     return L.dense(p["wo"], o), new_cache

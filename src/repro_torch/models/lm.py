@@ -1,5 +1,6 @@
 """Config-driven LM composition: init / forward / prefill / decode (port of
-``repro/models/lm.py``: dense GQA stacks, MoE stacks and RWKV-6 stacks).
+``repro/models/lm.py``: dense GQA stacks, MoE stacks, MLA stacks and RWKV-6
+stacks).
 
 The reference groups the layer stack by the config's ``pattern`` period
 and scans the groups with ``jax.lax.scan``; here the scan is a Python loop
@@ -9,7 +10,7 @@ non-uniform first layers as the list ``params["prefix"]``.
 
 The same forward runs full precision (plain dict leaves) and
 VersaQ-quantized (``QuantLinear``/``FoldedNorm`` leaves, see
-``core/model_quant.py::quantize_lm``).  Mamba and MLA layers raise
+``core/model_quant.py::quantize_lm``).  Mamba layers raise
 ``NotImplementedError``.  With ``pad_lens`` the forward also masks the pad
 slots out of MoE routing (``token_mask``), as the reference does.
 
@@ -48,7 +49,6 @@ __all__ = [
 _UNPORTED = {
     "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9; it comes with "
              "jamba)",
-    "mla": "MLA attention is not ported yet (ROADMAP queue 1 item 7b)",
 }
 
 
@@ -83,8 +83,6 @@ def _check_ported(cfg: ModelConfig) -> None:
     for kind in set(cfg.pattern):
         if kind not in ("attn", "rwkv"):
             _unported(kind)
-    if cfg.mla:
-        _unported("mla")
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +110,7 @@ def _init_layer(generator: torch.Generator, cfg: ModelConfig, global_idx: int, d
             ffn = F.init_dense_ffn(generator, cfg.d_model, dff, cfg.act, **kw)
         p = {
             "mixer_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
-            "mixer": A.init_gqa(generator, cfg, **kw),
+            "mixer": (A.init_mla if cfg.mla else A.init_gqa)(generator, cfg, **kw),
             "ffn_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
             "ffn": ffn,
         }
@@ -158,7 +156,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float3
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype=torch.int8,
                device=None) -> dict:
     """Decode cache matching the prefix/blocks structure: per pattern
-    position a stacked ``KVCache`` [G, B, max_len, Hkv, dh] (attention) or
+    position a stacked ``KVCache`` [G, B, max_len, Hkv, dh] (attention; MLA's
+    compressed [G, B, max_len, 1, rank + dr]) or
     ``RWKVState`` [G, B, ...] (rwkv); per prefix layer an unstacked
     [B, max_len, Hkv, dh] cache (None for a recurrent one, as in the
     reference); and ``pos`` 0."""
@@ -314,8 +313,9 @@ def _apply_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, x: torch.Tensor
     if kind == "rwkv":
         out, wkv, tshift = R.rwkv_time_mix(lp["mixer"], cfg, h, state=cache, mode=mode)
     else:
-        out, kv_new = A.gqa_attention(lp["mixer"], cfg, h, causal=True, positions=positions,
-                                      cache=cache, mode=mode, pad_lens=pad_lens)
+        attend = A.mla_attention if cfg.mla else A.gqa_attention
+        out, kv_new = attend(lp["mixer"], cfg, h, causal=True, positions=positions, cache=cache,
+                             mode=mode, pad_lens=pad_lens)
         new_cache = kv_new if cache is not None else None
     if "ls1" in lp:
         out = out * lp["ls1"].to(out.dtype)

@@ -962,10 +962,10 @@ class Engine:
             raise ValueError(f"attn_impl={attn_impl!r}: expected flash | two_stage | vanilla")
         if mode not in ("auto", "continuous", "bucket"):
             raise ValueError(f"mode={mode!r}: expected auto | continuous | bucket")
-        if "mamba" in cfg.pattern or cfg.mla:
+        if "mamba" in cfg.pattern:
             raise NotImplementedError(
-                f"{cfg.name}: only GQA (dense or MoE FFN) and rwkv LMs are ported "
-                "(ROADMAP.md, queue 1: MLA item 7b, Mamba item 9)")
+                f"{cfg.name}: only GQA and MLA (dense or MoE FFN) and rwkv LMs are ported "
+                "(ROADMAP.md, queue 1: Mamba item 9)")
         self.device = batching.resolve_device(device, "Engine")
         if self.device.type == "cuda":
             # the float parts of the forward (fp tiers, the IDCT blocks, the

@@ -201,10 +201,21 @@ def test_schedule_quantizes_as_the_plan(name):
                                      (dict(pattern=("attn", "mamba"), n_layers=4), "item 9")],
                          ids=["gqa", "mla", "mamba"])
 def test_lm_configs_wait_for_the_lm_slice(kw, item):
-    """The LM lowering has landed for GQA stacks (and rwkv and MoE ones,
-    held against the reference in ``tests/test_torch_lm_planner.py``); MLA
-    and Mamba layers wait for their ROADMAP items."""
+    """The LM lowering has landed for GQA stacks (and rwkv, MoE and MLA
+    ones, held against the reference in ``tests/test_torch_lm_planner.py``):
+    an MLA stack lowers its five sites per-site, never fused; Mamba layers
+    wait for their ROADMAP item."""
     cfg = get_config("qwen3-14b-smoke").with_(**kw)
+    if item == "item 7b":  # ported: deepseek-v2-lite-16b-smoke's MLA
+        cfg = get_config("deepseek-v2-lite-16b-smoke")
+        assert cfg.mla
+        sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, fuse=True))
+        mixer = [s for s in sched.sites if s.site.startswith("blocks.l0.mixer.")]
+        assert [s.site.rsplit(".", 1)[1] for s in mixer] == ["wq", "w_kv_down", "w_k_up",
+                                                              "w_v_up", "wo"]
+        assert all(s.kernel == "matmul" and s.fused_group is None for s in mixer)
+        assert not any(g.kind == "qkv" for g in sched.groups)
+        return
     if item is None:
         sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, fuse=True))
         assert [g.name for g in sched.groups] == ["blocks.l0.mixer.wqkv", "blocks.l0.ffn"]

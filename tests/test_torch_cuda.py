@@ -1148,3 +1148,68 @@ def test_full_width_two_layer_forward_matches_plain(dev, monkeypatch, arch):
     finally:
         plain(False)
     assert torch.isfinite(got).all() and _rel(got, want) < 2e-2, _rel(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 4, 1024])
+@pytest.mark.parametrize("site,k,n", [("wq", 2048, 3072), ("w_kv_down", 2048, 576),
+                                      ("w_k_up", 512, 2048), ("w_v_up", 512, 2048)])
+def test_quant_matmul_mla_sites(dev, site, k, n, m):
+    """deepseek-v2-lite-16b's W4 MLA sites at decode's M 1 and 4 and a
+    1024-row prefill: ``w_kv_down``'s N 576 ends in a 64-column part of a
+    256-column tile, the up-projections run K 512 (8 K steps)."""
+    rng = np.random.default_rng(m * 11 + k + n + len(site))
+    xq = quantize_per_token(_normal(rng, (m, k), dev), 8)
+    wq = quantize_weight(_normal(rng, (k, n), dev), 4)
+    ws = wq.scale.reshape(1, -1)
+    with probe.tracking() as log:
+        got = qm.quant_matmul(xq.values, xq.scale, wq.values, ws, packed=True)
+    torch.cuda.synchronize()
+    want = qm.quant_matmul_plain(xq.values, xq.scale, wq.values, ws, packed=True)
+    assert log.by_name() == {"quant_matmul": 1} and tuple(got.shape) == (m, n)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("policy", ["fp", "w4a8"])
+def test_mla_absorbed_decode_on_the_card_matches_cpu(dev, policy):
+    """One MLA layer of ``deepseek-v2-lite-16b-smoke`` (seed-0 weights; W4A8
+    on ``quant_matmul``): a left-padded prefill on the CPU, then one
+    absorbed decode step from that cache on the CPU (the plain versions)
+    and on the card (the kernel at wq, w_kv_down and wo; the
+    up-projections read dequantized): outputs within 1e-5, the written
+    compressed row within one step on at most one entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_lm
+    from repro_torch.core.precision.plan import PrecisionPlan
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    from repro_torch.tree import to_device, tree_index
+
+    cfg = get_config("deepseek-v2-lite-16b-smoke")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    if policy == "w4a8":
+        params = quantize_lm(cfg, params, PrecisionPlan(default="w4a8", use_kernel=True))
+    mixer = tree_index(params["blocks"]["l0"], 0)["mixer"]
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(2, 9, cfg.d_model)).astype(np.float32))
+    pad = torch.tensor([0, 3])
+    pos = torch.clamp_min(torch.arange(9)[None, :] - pad[:, None], 0)
+    cache = A.init_kv_cache(cfg, 2, 16, 1)
+    cache = cache._replace(k=cache.k[0], v=cache.v[0], k_scale=cache.k_scale[0],
+                           v_scale=cache.v_scale[0])
+    with torch.inference_mode():
+        _, cache = A.mla_attention(mixer, cfg, x[:, :8], positions=pos[:, :8], cache=cache,
+                                   mode="prefill", pad_lens=pad)
+        card = cache._replace(**{f: getattr(cache, f).to(dev)
+                                 for f in ("k", "v", "k_scale", "v_scale")})
+        want, cpu_c = A.mla_attention(mixer, cfg, x[:, 8:], positions=pos[:, 8:], cache=cache,
+                                      mode="decode", pad_lens=pad)
+        with probe.tracking() as log:
+            got, card_c = A.mla_attention(to_device(mixer, dev), cfg, x[:, 8:].to(dev),
+                                          positions=pos[:, 8:].to(dev), cache=card,
+                                          mode="decode", pad_lens=pad.to(dev))
+        torch.cuda.synchronize()
+    assert log.by_name() == ({"quant_matmul": 3} if policy == "w4a8" else {})
+    assert card_c.length == cpu_c.length == 9
+    assert _rel(got.cpu(), want) < 1e-5, _rel(got.cpu(), want)
+    d = (card_c.k.cpu().to(torch.int32) - cpu_c.k.to(torch.int32)).abs()
+    assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1

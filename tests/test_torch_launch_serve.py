@@ -164,8 +164,9 @@ def test_launcher_refuses_other_archs_and_unported_specs():
     recompiled; a missing schedule file is reported, not a traceback."""
     out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke", "--mode", "slots")
     assert out.returncode != 0 and "mode='slots'" in out.stderr
-    out = _launch("--device", "cpu", "--arch", "deepseek-v2-lite-16b-smoke")
+    out = _launch("--device", "cpu", "--arch", "internlm2-20b")
     assert out.returncode != 0 and "unknown arch" in out.stderr
+    assert "items 7c and 9" in out.stderr
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=tests/goldens/schedule_vggt_smoke.json")
     assert out.returncode != 0 and "recompile it with" in out.stderr
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=x.json")

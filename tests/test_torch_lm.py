@@ -562,7 +562,12 @@ def test_fused_matches_unfused():
 
 
 def test_unported_layers_raise():
+    """Mamba layers wait for ROADMAP item 9; MLA (item 7b) is ported and
+    builds ``init_mla``'s tree (held in ``tests/test_torch_mla.py``)."""
     cfg = get_config("qwen3-14b-smoke")
-    for kw, what in ((dict(pattern=("attn", "mamba")), "item 9"), (dict(mla=True), "item 7")):
-        with pytest.raises(NotImplementedError, match=what):
-            lm.init_params(cfg.with_(**kw), torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        lm.init_params(cfg.with_(pattern=("attn", "mamba")), torch.Generator().manual_seed(0))
+    mla = get_config("deepseek-v2-lite-16b-smoke")
+    p = lm.init_params(mla, torch.Generator().manual_seed(0))
+    assert set(p["prefix"][0]["mixer"]) == {"wq", "w_kv_down", "kv_norm", "w_k_up", "w_v_up",
+                                            "wo"}

@@ -360,6 +360,14 @@ def test_modes_and_schedule():
     with pytest.raises(ValueError, match="mode"):
         _engine(mode="slots")
     for kw in (dict(pattern=("attn", "mamba")), dict(mla=True), dict(embed_inputs=True)):
+        if "mla" in kw:
+            # ported: an MLA stack (deepseek-v2-lite-16b-smoke) constructs in
+            # continuous mode, its prompts padded (held in test_torch_mla_engine)
+            mcfg = get_config("deepseek-v2-lite-16b-smoke")
+            meng = Engine(mcfg, lm.init_params(mcfg, torch.Generator().manual_seed(0)),
+                          max_len=MAX_LEN, device="cpu")
+            assert meng.continuous and meng.pad_prompts and meng.stats.mode == "continuous"
+            continue
         if "embed_inputs" in kw:
             # as the reference: a stub frontend constructs in bucket mode (its
             # decode would need embeddings), and continuous mode is refused

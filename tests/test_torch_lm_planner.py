@@ -1,6 +1,7 @@
 """The port's planner, compiler and tuner on the LM configs it serves
 (``qwen3-14b-smoke``, ``rwkv6-1.6b-smoke``, ``deepseek-moe-16b-smoke``,
-``phi3-mini-3.8b-smoke``, ``paligemma-3b-smoke``) against the JAX package's, on the reference's seed-0 weights carried across
+``phi3-mini-3.8b-smoke``, ``paligemma-3b-smoke``, ``deepseek-v2-lite-16b-smoke``)
+against the JAX package's, on the reference's seed-0 weights carried across
 by ``convert.py``: the site walk (names, dims, counts, representative
 slices), the per-site scores, the greedy plan and its report, the proxy
 logits error on the reference's own tokens; the compiled schedules, equal to
@@ -9,8 +10,8 @@ golden and the reference's compile under uniform, fused, mixed and
 split-``wk`` plans, fallback reasons included); the quantized tree a
 schedule gives against its plan's; the launches a schedule predicts
 against what a prefill wave, a decode step and a scoring forward launch;
-the tuner's routed-expert signature; the launcher's refusals.  The MLA and
-Mamba refusals of the planner and the compiler are cases of
+the tuner's routed-expert signature; the launcher's refusals.  The Mamba
+refusals of the planner and the compiler are cases of
 ``test_lm_branches_wait_for_the_lm_slice`` and
 ``test_lm_configs_wait_for_the_lm_slice``."""
 import functools
@@ -50,7 +51,7 @@ from test_torch_schedule_serving import _recording
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "goldens" / "schedule_qwen3_smoke.json"
 ARCHS = ("qwen3-14b-smoke", "rwkv6-1.6b-smoke", "deepseek-moe-16b-smoke",
-         "phi3-mini-3.8b-smoke", "paligemma-3b-smoke")
+         "phi3-mini-3.8b-smoke", "paligemma-3b-smoke", "deepseek-v2-lite-16b-smoke")
 # Relative tolerance of a site's error (and of the proxy logits error)
 # against the reference's: the same float32 values quantized alike, the
 # matmuls summed in another order.
@@ -68,9 +69,11 @@ REL_ERR = 1e-5
 # by the recurrence; W4A4 3.7e-7): the dense flip bound.  paligemma-3b-smoke
 # (embedding inputs, the reference's jax.random.normal floats) W4A8 parts
 # from both by 4.4e-4 (one flip): the dense flip bound too.
+# deepseek-v2-lite-16b-smoke (MLA) reads ~1e-7 at W4A8 and W4A4; W8A8
+# parts from both runs by 2.4e-3 (one flip): the dense flip bound.
 GAP_BOUND = {"qwen3-14b-smoke": REL_ERR, "rwkv6-1.6b-smoke": REL_L2_FLIP,
              "deepseek-moe-16b-smoke": REL_ERR, "phi3-mini-3.8b-smoke": REL_ERR,
-             "paligemma-3b-smoke": REL_L2_FLIP}
+             "paligemma-3b-smoke": REL_L2_FLIP, "deepseek-v2-lite-16b-smoke": REL_L2_FLIP}
 PLANS = {
     "w4a8": dict(default="w4a8", use_kernel=True, fuse=False, name="w4a8"),
     "fused": dict(default="w4a8", use_kernel=True, fuse=True, name="w4a8"),
@@ -273,10 +276,11 @@ def test_schedule_quantizes_as_the_plan(arch, plan):
 @pytest.mark.parametrize("plan", ["w4a8", "fused", "mixed"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launches_per_forward_counts_prefill_decode_and_scoring(monkeypatch, arch, plan):
-    """A left-padded prefill wave and each decode step launch what
+    """A left-padded prefill wave launches what
     ``launches_per_forward(two_stage_attention=False)`` says (batched expert
-    launches included); a scoring forward with two-stage attention what
-    ``two_stage_attention=True`` says."""
+    launches included), each decode step what it says with ``decode`` (the
+    same but for MLA's absorbed up-projections); a scoring forward with
+    two-stage attention what ``two_stage_attention=True`` says."""
     _, cfg, _, tp = _setup(arch)
     cfg = cfg.with_(attn_impl="two_stage")
     sched = compile_schedule(cfg, PrecisionPlan(**PLANS[plan]))
@@ -293,11 +297,13 @@ def test_launches_per_forward_counts_prefill_decode_and_scoring(monkeypatch, arc
         with probe.tracking() as log:
             _, cache = lm.forward(cfg, params, toks, cache=cache, mode="prefill", pad_lens=pad)
         assert log.by_name() == served
+        step = sched.launches_per_forward(two_stage_attention=False, decode=True)
+        assert (step == served) == (not cfg.mla)
         for t in range(2):
             with probe.tracking() as log:
                 lm.decode_step(cfg, params, toks[:, t:t + 1] if cfg.embed_inputs else toks[:, t],
                                cache, pad_lens=pad)
-            assert log.by_name() == served, t
+            assert log.by_name() == step, t
         with probe.tracking() as log:
             lm.forward(cfg, params, toks)
     assert log.by_name() == sched.launches_per_forward(two_stage_attention=True)
@@ -336,16 +342,15 @@ def test_expert_sites_tune_the_batched_launch(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b-smoke", "jamba-v0.1-52b",
-                                  "starcoder2-7b"])
+@pytest.mark.parametrize("arch", ["internlm2-20b", "jamba-v0.1-52b", "starcoder2-7b"])
 def test_launcher_refuses_unported_arches(capsys, arch):
     """The reference's other configs are not in the port's registry: exit 2
-    with its error, which points to ROADMAP.md queue 1 (MLA and Mamba
-    configs are refused by kind in the planner and the compiler,
+    with its error, which points to ROADMAP.md queue 1 (Mamba configs are
+    refused by kind in the planner and the compiler,
     ``test_lm_branches_wait_for_the_lm_slice`` and
     ``test_lm_configs_wait_for_the_lm_slice``)."""
     with pytest.raises(SystemExit) as e:
         tcompile.main(["--device", "cpu", "--arch", arch])
     err = capsys.readouterr().err
     assert e.value.code == 2 and f"unknown arch {arch!r}" in err
-    assert "ROADMAP.md queue 1 (items 7b, 7c and 9)" in err
+    assert "ROADMAP.md queue 1 (items 7c and 9)" in err

@@ -1,6 +1,7 @@
 """Serving an LM from a compiled KernelSchedule in the port, on the CPU at
-``qwen3-14b-smoke``, ``rwkv6-1.6b-smoke``, ``deepseek-moe-16b-smoke`` and
-``phi3-mini-3.8b-smoke`` (the planner's configs that take token ids: the
+``qwen3-14b-smoke``, ``rwkv6-1.6b-smoke``, ``deepseek-moe-16b-smoke``,
+``phi3-mini-3.8b-smoke`` and ``deepseek-v2-lite-16b-smoke`` (the planner's
+configs that take token ids: the
 engine serves no embedding inputs, as the reference's does not):
 ``Engine(schedule=path)`` token for token against ``Engine(policy=plan)``
 and against the JAX package's ``Engine(schedule=...)`` on carried-across
@@ -98,7 +99,8 @@ def test_serve_spec_plan_materializes_on_an_lm(monkeypatch):
 
 @pytest.mark.parametrize("arch,spec", [("qwen3-14b-smoke", "plan:fused"),
                                        ("rwkv6-1.6b-smoke", "w4a8"),
-                                       ("deepseek-moe-16b-smoke", "w4a8:fused")])
+                                       ("deepseek-moe-16b-smoke", "w4a8:fused"),
+                                       ("deepseek-v2-lite-16b-smoke", "w4a8")])
 def test_compile_and_serve_an_lm_schedule_without_jax(tmp_path, arch, spec):
     """The launcher's schedule is the in-process compile of the same plan
     (``plan`` on the seed-0 weights), and its printed counts say so."""

@@ -10,9 +10,10 @@ one loses it, and a prefill's capacity follows the wave's token count.  The
 reference's own bucket and continuous modes therefore disagree on these
 requests (``test_modes_differ_in_the_reference_too``), and each of the
 port's modes is held against the reference's same mode on the same
-requests in the same order.  Also: the launcher serves the config, MLA
-and Mamba are still refused, and an embedding-input config constructs in
-bucket mode as the reference's does.
+requests in the same order.  Also: the launcher serves the config, Mamba
+is still refused, an MLA stack on the MoE FFN serves as the reference's
+does, and an embedding-input config constructs in bucket mode as the
+reference's does.
 """
 import functools
 
@@ -135,6 +136,20 @@ def test_launcher_serves_deepseek_moe_without_jax():
                                      (dict(embed_inputs=True), "embedding inputs")])
 def test_other_unported_kinds_still_raise(kw, item):
     jcfg, cfg, jp, tp = _setup()
+    if item == "item 7b":
+        # ported: MLA on the MoE FFN (deepseek-v2-lite-16b-smoke, its own
+        # weights) serves in continuous mode, the reference's ids
+        name = "deepseek-v2-lite-16b-smoke"
+        jcfg, cfg = j_get_config(name), get_config(name)
+        assert cfg.mla and jcfg.mla
+        jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+        engines = (JEngine(jcfg, jp, max_len=32),
+                   Engine(cfg, params_from_numpy(flatten_jax(jp)), max_len=32, device="cpu"))
+        assert all(e.continuous for e in engines)
+        prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+        want, got = (np.asarray(e.generate(prompts, 6)) for e in engines)
+        np.testing.assert_array_equal(got, want)
+        return
     if item == "embedding inputs":
         # ported: the engine constructs in bucket mode and refuses continuous
         # mode, as the reference's does

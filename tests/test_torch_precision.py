@@ -189,11 +189,20 @@ def test_proxy_recon_error_orders_the_levels():
                                      (dict(pattern=("attn", "mamba"), n_layers=4), "item 9")],
                          ids=["gqa", "mla", "mamba"])
 def test_lm_branches_wait_for_the_lm_slice(kw, item):
-    """The LM slice has landed for GQA stacks (and rwkv and MoE ones, held
-    against the reference in ``tests/test_torch_lm_planner.py``): the site
-    walk and the proxy error run; MLA and Mamba layers wait for their
-    ROADMAP items."""
+    """The LM slice has landed for GQA stacks (and rwkv, MoE and MLA ones,
+    held against the reference in ``tests/test_torch_lm_planner.py``): the
+    site walk and the proxy error run; Mamba layers wait for their ROADMAP
+    item."""
     cfg = get_config("qwen3-14b-smoke").with_(**kw)
+    if item == "item 7b":  # ported: deepseek-v2-lite-16b-smoke's MLA
+        cfg = get_config("deepseek-v2-lite-16b-smoke")
+        params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+        sites = tpl.enumerate_sites(cfg, params)
+        assert [s.site for s in sites[:5]] == [f"prefix.0.mixer.{n}" for n in
+                                               ("wq", "w_kv_down", "w_k_up", "w_v_up", "wo")]
+        assert [(s.d_in, s.d_out) for s in sites[1:3]] == [(128, 80), (64, 128)]
+        assert 0.0 < tpl.proxy_recon_error(cfg, params, PrecisionPlan(default="w4a8")) < 1.0
+        return
     if item is None:
         params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
         sites = tpl.enumerate_sites(cfg, params)
