@@ -22,11 +22,17 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    ``w_k_up``/``w_v_up`` with K 512 at M 1, 4 and 1024), and its batched launch
    at deepseek-moe-16b's routed experts (E 64, W4: M 120, a 2 x 512
    prefill's capacity, and M 1, decode's, through gate/up K 2048 x N 1408
-   and down K 1408 x N 2048), ``fused_matmul`` at deepseek-moe-16b's fused
+   and down K 1408 x N 2048) and jamba-v0.1-52b's (E 16: M 160, a 2 x 512
+   prefill's capacity, and M 1, through gate/up K 4096 x N 14,336 and down K
+   14,336 x N 4096), ``quant_matmul`` at starcoder2-7b's ``w_up``/``w_down``
+   and jamba's Mamba ``w_in``/``w_out`` at M 2 and 1024, ``fused_matmul`` at
+   deepseek-moe-16b's fused
    ``wqkv`` (K 2048, N 6144, RMS prologue) and ``wo`` (N 2048) at M 1024, 1
    and 4 (the ``lm_cases`` of its record), and the two-stage kernel at the
    LM scoring shapes (qwen3-14b dh 128, phi3-mini-3.8b dh 96, paligemma-3b
-   dh 256 MQA, [2, 2048] causal) and a ragged non-causal case at dh 96 and
+   dh 256 MQA, starcoder2-7b 36/4 and internlm2-20b 48/8 at dh 128,
+   musicgen-large 32/32 at dh 64, [2, 2048] causal) and a ragged non-causal
+   case at dh 96 and
    256 (Lq 1000, Lk 1500), with every instance's registers and spills (none
    may spill); times kernel, plain version,
    the card's bound and, where one PyTorch call computes the same function,
@@ -236,9 +242,50 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    decode step launching what the schedule predicts; and runs a [2,
    ``LM_SCORE_LEN``] scoring forward (float attention, no two-stage
    launch) held as in 9c.  Prints TTFT, decode ms per step, tok/s,
-   occupancy and peak memory per mode.
+   occupancy and peak memory per mode;
+16. serves the last dense configs (``phase_dense_zoo``): starcoder2-7b (GQA
+   36/4 x 128, LayerNorm and attention biases, GELU) and musicgen-large (MHA
+   32 x 64, LayerNorm with bias, GELU, sinusoid positions) at full depth,
+   internlm2-20b (GQA 48/8 x 128) cut to ``DENSE_CUT`` of its 48 layers;
+   each through the continuous scheduler with the tiers
+   ``quality=fp,balanced=w4a8`` and two-stage attention (4
+   ``mixed_len_prompts`` requests of ``DENSE_PROMPT`` and 3/4 of that tokens,
+   ``DENSE_GEN`` new tokens, two joining mid-decode), the balanced tier's
+   launches equal to the compiled ``w4a8`` schedule's
+   ``launches_per_forward`` a prefill wave and decode step, its
+   teacher-forced logits held against the plain versions (``_hold_lm``), and
+   a [2, ``LM_SCORE_LEN``] scoring forward through the two-stage kernel
+   (GQA groups of 9 and 6 at dh 128, causal dh 64) held as in 9c; for
+   musicgen also the compiled ``w4a8:fused`` schedule served through
+   ``Engine(schedule=path)`` (``fused_matmul`` on ``wqkv`` with its
+   LayerNorm prologue and on ``wo``, the FFN on ``quant_matmul``), each call
+   launching what it predicts, logits held.  Prints each model's seconds;
+17. serves jamba-v0.1-52b (``phase_jamba``) cut to ``JAMBA_LAYERS``, one
+   period of its pattern (7 Mamba layers, 1 attention layer 32/8 x 128
+   without positions, 4 MoE FFNs of 16 experts x 14,336 at top-2, 4 dense),
+   in bucket mode (``mode="auto"`` resolves to it) with the tiers
+   ``quality=fp,balanced=w4a8``: 4 requests at exact prompt lengths
+   ``JAMBA_PROMPTS``, ``JAMBA_GEN`` new tokens, every balanced prefill wave
+   and decode step launching what the compiled ``w4a8`` schedule predicts (2
+   ``quant_matmul`` a Mamba layer, 4 for the attention layer, 3 a dense FFN,
+   3 ``quant_matmul_batched`` a MoE layer); the balanced tier's
+   teacher-forced logits and every layer's branches against the plain
+   versions, and its prefill + decode through the ``MambaState`` against a
+   full forward over the same tokens (dropless routing, within the
+   reference's own bound); the selective scan's share of a
+   ``max(JAMBA_PROMPTS)``-token prefill on the host clock;
+   ``Engine(schedule=path)`` launching what the schedule predicts; and a
+   [2, ``JAMBA_SCORE_LEN``] scoring forward through the dh-128 two-stage
+   kernel held as in 9c.  Prints its seconds.
 
-Each of the paths 4-15 runs with the launch counts set to 0 just before it
+The configs of 16-17 serve on the CPU at their smoke sizes through the
+launcher, e.g. ``PYTHONPATH=src python -m repro_torch.launch.serve --device
+cpu --arch jamba-v0.1-52b-smoke --tiers quality=fp,balanced=w4a8 --requests
+4 --prompt-len 8 --gen 8 --batch 2`` (bucket mode, with the ``mode='auto'``
+reason on its scheduler line; ``internlm2-20b-smoke``, ``starcoder2-7b-smoke``
+and ``musicgen-large-smoke`` serve continuous).
+
+Each of the paths 4-17 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -301,6 +348,18 @@ ZOO_PROMPT, ZOO_GEN = 256, 16
 # lm_head); served prompts of MLA_PROMPT tokens (and 3/4 of that), MLA_GEN
 # new tokens each
 MLA_LAYERS, MLA_PROMPT, MLA_GEN = 8, 256, 16
+# phase 16: starcoder2-7b and musicgen-large at full depth (f32 weights 29.6
+# and 9.7 GB), internlm2-20b cut to DENSE_CUT of its 48 layers (79.5 GB at
+# full depth does not fit 80 GB; 8 layers ~19 GB, 4.6 GB of them the
+# embedding and lm_head); served prompts of DENSE_PROMPT tokens (and 3/4 of
+# that), DENSE_GEN new tokens each
+DENSE_CUT, DENSE_PROMPT, DENSE_GEN = 8, 256, 16
+# phase 17: jamba-v0.1-52b cut to JAMBA_LAYERS of its 32 layers, one whole
+# period of its pattern (7 Mamba layers, 1 attention layer, 4 MoE FFNs of 16
+# experts x 14,336): f32 weights 205.6 GB at full depth, ~53 GB at 8 (one MoE
+# layer 11.27 GB); prompts of exact lengths JAMBA_PROMPTS, JAMBA_GEN new
+# tokens, a [2, JAMBA_SCORE_LEN] scoring forward
+JAMBA_LAYERS, JAMBA_PROMPTS, JAMBA_GEN, JAMBA_SCORE_LEN = 8, (256, 192, 224, 160), 16, 1024
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
@@ -308,7 +367,7 @@ MLA_LAYERS, MLA_PROMPT, MLA_GEN = 8, 256, 16
 IDCT_OPS = (64 // 2 * 6 + 3 * 64 // 2 * 6) / 64
 # the two-stage kernel phase's rows at the LM paths' shapes
 LM_ATTENTION_ROWS = ("qwen3 scoring", "phi3 scoring", "paligemma scoring", "dh96 ragged",
-                     "dh256 ragged")
+                     "dh256 ragged", "starcoder2 scoring", "musicgen scoring", "internlm2 scoring")
 KERNELS = ("quant_matmul", "two_stage_attention", "fused_matmul", "fused_ffn", "norm_quant",
            "wht", "quant_matmul_batched")
 
@@ -369,6 +428,8 @@ def main() -> int:
     paths["phi3"] = phase_phi3(torch, dev)
     paths["paligemma"] = phase_paligemma(torch, dev)
     paths["mla"] = phase_mla(torch, dev)
+    paths["dense_zoo"] = phase_dense_zoo(torch, dev)
+    paths["jamba"] = phase_jamba(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -499,6 +560,15 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
     return out
 
 
+def _own_randn(torch, seed: int):
+    """``randn`` from a generator of its own on the card: the rows added for
+    internlm2-20b, starcoder2-7b, musicgen-large and jamba-v0.1-52b draw
+    from it, so every earlier row of the kernel phase keeps the inputs it
+    had before them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+
+
 def _kernel_quant_matmul(torch, cfg, m, randn) -> dict:
     from repro_torch.core.quantize import quantize_per_token, quantize_weight, unpack_int4
     from repro_torch.kernels import quant_matmul as qm
@@ -547,7 +617,10 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
     (7168 x 2048); deepseek-v2-lite-16b's MLA sites at decode's M 1 and 4
     and a 1024-row prefill: ``wq`` (K 2048, N 3072), ``w_kv_down`` (K
     2048, N 576: its last 256-column tile holds 64 columns) and
-    ``w_k_up``/``w_v_up`` (K 512, N 2048); each against its plain version,
+    ``w_k_up``/``w_v_up`` (K 512, N 2048); starcoder2-7b's ``w_up`` (K 4608,
+    N 18,432) and ``w_down`` (K 18,432, N 4608) and jamba-v0.1-52b's Mamba
+    ``w_in`` (K 4096, N 16,384) and ``w_out`` (K 8192, N 4096) at M 2 and
+    1024; each against its plain version,
     timed beside its bound and, where ``torch._int_mm`` takes the shape (M >
     16), the library call.  These rows are not weighted into the record's
     vggt-1b totals."""
@@ -556,6 +629,7 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
     from repro_torch.kernels.measure import time_ms
 
     rows = {}
+    zoo_randn = _own_randn(torch, 29)
     for label, m, k, n in (("qwen3 decode w_up", 2, 5120, 17408),
                            ("qwen3 decode w_down", 2, 17408, 5120),
                            ("qwen3 prefill w_down", 1024, 17408, 5120),
@@ -564,9 +638,15 @@ def _quant_matmul_lm_rows(torch, randn) -> dict:
                            ("rwkv6 decode w_down", 4, 7168, 2048),
                            *((f"mla {site} M{m}", m, k, n) for site, k, n in
                              (("wq", 2048, 3072), ("w_kv_down", 2048, 576),
-                              ("w_k_up/w_v_up", 512, 2048)) for m in (1, 4, 1024))):
-        xq = quantize_per_token(randn(m, k), 8)
-        wq = quantize_weight(randn(k, n), 4)
+                              ("w_k_up/w_v_up", 512, 2048)) for m in (1, 4, 1024)),
+                           *((f"{site} M{m}", m, k, n) for site, k, n in
+                             (("starcoder2 w_up", 4608, 18432),
+                              ("starcoder2 w_down", 18432, 4608),
+                              ("jamba w_in", 4096, 16384), ("jamba w_out", 8192, 4096))
+                             for m in (2, 1024))):
+        rnd = zoo_randn if label.startswith(("starcoder2", "jamba")) else randn
+        xq = quantize_per_token(rnd(m, k), 8)
+        wq = quantize_weight(rnd(k, n), 4)
         ws = wq.scale.reshape(1, -1).contiguous()
         args = (xq.values, xq.scale, wq.values, ws)
         got = qm.quant_matmul(*args, packed=True)
@@ -659,7 +739,65 @@ def _kernel_quant_matmul_batched(torch, randn) -> dict:
         del xq, wv, ws, args
     out = ent.done()
     out["moe_cases"] = rows
+    out["moe_cases"].update(_jamba_expert_rows(torch, _own_randn(torch, 30)))
     return out
+
+
+def _jamba_expert_rows(torch, randn) -> dict:
+    """The batched launch at jamba-v0.1-52b's routed experts (E 16, W4):
+    gate/up (K 4096, N 14,336) and down (K 14,336, N 4096) at M 1,
+    decode's, and at a 2 x 512 prefill's capacity; each against its plain
+    version, timed beside its bound and, where M > 16, a per-expert
+    ``torch._int_mm`` loop.  Not weighted into the record's totals."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import quantize_per_token, quantize_weight, unpack_int4
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.measure import time_ms
+    from repro_torch.models.ffn import _cap
+
+    cfg = get_config("jamba-v0.1-52b")
+    e, d, dff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    cap = _cap(cfg, BATCH * 512)
+    rows = {}
+    for label, m, k, n in (("jamba prefill gate/up", cap, d, dff),
+                           ("jamba prefill down", cap, dff, d),
+                           ("jamba decode gate/up", 1, d, dff), ("jamba decode down", 1, dff, d)):
+        xq = quantize_per_token(randn(e, m, k), 8)
+        wqs = [quantize_weight(randn(k, n), 4) for _ in range(e)]
+        wv = torch.stack([w.values for w in wqs])
+        ws = torch.stack([w.scale.reshape(1, -1) for w in wqs])
+        del wqs
+        args = (xq.values, xq.scale, wv, ws)
+        got = qm.quant_matmul_batched(*args, packed=True)
+        want = qm.quant_matmul_batched_plain(*args, packed=True)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)  # integer part is exact
+        del got, want
+        ms = time_ms(lambda: qm.quant_matmul_batched(*args, packed=True))
+        plain = time_ms(lambda: qm.quant_matmul_batched_plain(*args, packed=True), reps=3)
+        bound, by = _bound_ms(qm.batched_function_bytes(e, e, m, k, n, packed=True),
+                              2.0 * e * m * k * n)
+        lib = None
+        if m > 16:
+            w_cm = [unpack_int4(wv[j], 0).t().contiguous().t() for j in range(e)]
+
+            def loop(w_cm=w_cm, args=args):
+                xv, xs, _, ws_ = args
+                return [torch._int_mm(xv[j], w_cm[j]).float() * xs[j] * ws_[j] for j in range(e)]
+
+            lib = time_ms(loop)
+            del w_cm
+        rows[label] = dict(e=e, m=m, k=k, n=n, max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by, library_ms=lib,
+                           library_note=None if lib is not None else
+                           "torch._int_mm needs M > 16 rows")
+        print(f"quant_matmul_batched {label:22s} E={e} M={m} K={k} N={n} W4: err={err:.3g} "
+              f"kernel={ms:.4f}ms plain={plain:.4f}ms "
+              f"int_mm loop={'n/a (M <= 16)' if lib is None else f'{lib:.4f}ms'} "
+              f"bound={bound:.4f}ms ({by}), {ms / bound:.2f}x bound")
+        del xq, wv, ws, args
+    return rows
 
 
 def _attrs(kernel: str, *args) -> tuple[dict, str]:
@@ -682,9 +820,10 @@ def _kernel_attention(torch, cfg, randn) -> dict:
     t = cfg.n_special_tokens + N_PATCHES
     # (label, B, H, Hkv, Lq, Lk, dh, causal, launches per forward of the fused
     # path); the LM rows (LM_ATTENTION_ROWS: one layer of a [2, 2048] scoring
-    # forward of qwen3-14b, phi3-mini-3.8b and paligemma-3b, and a ragged
-    # non-causal check at each new head dim) are recorded apart in
-    # ``lm_cases``
+    # forward of qwen3-14b, phi3-mini-3.8b, paligemma-3b, starcoder2-7b
+    # (GQA groups of 9), musicgen-large (causal dh 64) and internlm2-20b
+    # (groups of 6), and a ragged non-causal check at dh 96 and 256) are
+    # recorded apart in ``lm_cases``
     L = LM_SCORE_LEN
     cases = [("frame", BATCH * S_FRAMES, h, h, t, t, dh, False, cfg.n_layers),
              ("global", BATCH, h, h, S_FRAMES * t, S_FRAMES * t, dh, False, cfg.n_layers),
@@ -694,7 +833,10 @@ def _kernel_attention(torch, cfg, randn) -> dict:
              ("phi3 scoring", 2, 32, 32, L, L, 96, True, 0),
              ("paligemma scoring", 2, 8, 1, L, L, 256, True, 0),
              ("dh96 ragged", 1, 4, 4, 1000, 1500, 96, False, 0),
-             ("dh256 ragged", 1, 8, 1, 1000, 1500, 256, False, 0)]
+             ("dh256 ragged", 1, 8, 1, 1000, 1500, 256, False, 0),
+             ("starcoder2 scoring", 2, 36, 4, L, L, 128, True, 0),
+             ("musicgen scoring", 2, 32, 32, L, L, 64, True, 0),
+             ("internlm2 scoring", 2, 48, 8, L, L, 128, True, 0)]
     e = _Entry("two_stage_attention", "src/repro_torch/csrc/two_stage_attention.cu",
                "src/repro/kernels/two_stage_attention.py:210")
     res = {}
@@ -707,9 +849,11 @@ def _kernel_attention(torch, cfg, randn) -> dict:
         else:
             e.d[f"attrs_dh{d}"] = a
     e.d.update(pq_flips={}, lm_cases={})
+    zoo_randn = _own_randn(torch, 31)
     for label, b, hq, hkv, lq, lk, dh, causal, nper in cases:
         lm_row = label in LM_ATTENTION_ROWS
-        args, gqa, vscale = attention_inputs(randn, b, hq, hkv, lq, dh, lk=lk)
+        rnd = zoo_randn if label.startswith(("starcoder2", "musicgen", "internlm2")) else randn
+        args, gqa, vscale = attention_inputs(rnd, b, hq, hkv, lq, dh, lk=lk)
         got = tsa.two_stage_attention(*args, causal=causal, **gqa)
         want = tsa.two_stage_attention_plain(*args, causal=causal, **gqa)
         torch.cuda.synchronize()
@@ -1730,6 +1874,11 @@ def _noised(torch, params, seed=7):
 # the same model up to 1.3e-2 against the JAX package's
 # (tests/test_torch_lm.py, REL_L2_FLIP).
 LM_FLIP_BOUND = 2e-2
+# A quantized LM's prefill + decode steps against one full forward over the
+# same tokens: the decode attends over the int8 KV cache, the full forward
+# in float, and the W4 weights and A8 activations round on both paths; the
+# reference's own bound for it (tests/models/test_decode.py, W4A8).
+DECODE_VS_FULL_W4A8 = 0.35
 
 
 def _hold_lm(torch, tag, rels, moved_fn) -> None:
@@ -1751,8 +1900,9 @@ def _hold_lm(torch, tag, rels, moved_fn) -> None:
 
 
 def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
-    """Every layer's two branches (attention and FFN, dense or MoE; for rwkv, time-mix
-    and channel-mix) with the kernels against the same layer with the plain
+    """Every layer's two branches (the mixer, attention or Mamba, and the
+    FFN, dense or MoE; for rwkv, time-mix and channel-mix) with the kernels
+    against the same layer with the plain
     versions, fed the same input: over one full-mode forward, or
     (``steps``) over a (left-padded) prefill and decode steps, where the
     plain call writes the same cache slots again (an rwkv mixer returns its
@@ -1764,12 +1914,17 @@ def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
     from repro_torch.models import ffn as F
     from repro_torch.models import lm
     from repro_torch.models import rwkv as R
+    from repro_torch.models import ssm as S
 
-    sums = [[0.0, 0.0], [0.0, 0.0], [0.0, 0.0]]  # per kind: squared difference, reference
-    worst = [0.0, 0.0, 0.0]
-    sites = ([(R, "rwkv_time_mix"), (R, "rwkv_channel_mix")] if "rwkv" in cfg.pattern
-             else [(A, "mla_attention" if cfg.mla else "gqa_attention"), (F, "dense_ffn")]
-            + ([(F, "moe_ffn")] if cfg.moe else []))
+    if "rwkv" in cfg.pattern:
+        sites = [(R, "rwkv_time_mix"), (R, "rwkv_channel_mix")]
+    else:
+        sites = (([(S, "mamba_mixer")] if "mamba" in cfg.pattern else [])
+                 + ([(A, "mla_attention" if cfg.mla else "gqa_attention")]
+                    if "attn" in cfg.pattern else [])
+                 + [(F, "dense_ffn")] + ([(F, "moe_ffn")] if cfg.moe else []))
+    sums = [[0.0, 0.0] for _ in sites]  # per kind: squared difference, reference
+    worst = [0.0 for _ in sites]
     saved = [getattr(mod, name) for mod, name in sites]
 
     inside = [False]  # a MoE layer's shared experts are held within its branch
@@ -1803,8 +1958,7 @@ def _lm_branches(torch, cfg, params, toks, tag, pad=None, steps=None) -> None:
     finally:
         for (mod, name), fn in zip(sites, saved):
             setattr(mod, name, fn)
-    pooled = [math.sqrt(d / max(r, 1e-300)) for d, r in sums[:len(sites)]]
-    worst = worst[:len(sites)]
+    pooled = [math.sqrt(d / max(r, 1e-300)) for d, r in sums]
     print(f"  {tag}: per-layer branches vs plain ({'full' if steps is None else 'prefill+decode'}"
           f"), rel L2 over all calls ({' and '.join(n for _, n in sites)}) "
           f"{[f'{p:.3g}' for p in pooled]}, worst "
@@ -2017,9 +2171,10 @@ def _lm_serve(torch, dev) -> dict:
     return {"counts": counts, "params": params_b, "cfg": cfg, "raw": params}
 
 
-def _lm_score(torch, dev, params, cfg, want=None) -> dict:
-    """One W4A8 scoring forward over [2, ``LM_SCORE_LEN``] tokens (seeded
-    [2, ``LM_SCORE_LEN``, d] embeddings for an ``embed_inputs`` config):
+def _lm_score(torch, dev, params, cfg, want=None, length=None) -> dict:
+    """One W4A8 scoring forward over [2, ``length``] tokens (default
+    ``LM_SCORE_LEN``; seeded [2, length, d] embeddings for an
+    ``embed_inputs`` config):
     its launches (``want``, by default a dense GQA stack's 7
     ``quant_matmul`` and one two-stage launch a layer), the logits against
     the plain versions, every layer's branches."""
@@ -2027,11 +2182,12 @@ def _lm_score(torch, dev, params, cfg, want=None) -> dict:
     from repro_torch.models import lm
 
     cfg = cfg.with_(attn_impl="two_stage")
+    length = length or LM_SCORE_LEN
     gen = torch.Generator(device=dev).manual_seed(4)
     if cfg.embed_inputs:
-        toks = torch.randn((2, LM_SCORE_LEN, cfg.d_model), generator=gen, device=dev)
+        toks = torch.randn((2, length, cfg.d_model), generator=gen, device=dev)
     else:
-        toks = torch.randint(0, cfg.vocab_size, (2, LM_SCORE_LEN), generator=gen, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (2, length), generator=gen, device=dev)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2050,7 +2206,7 @@ def _lm_score(torch, dev, params, cfg, want=None) -> dict:
     rel = _rel(torch, got, want)
     dims = (f"MLA q/k dh {cfg.qk_nope_dim + cfg.qk_rope_dim}, v dh {cfg.v_head_dim}" if cfg.mla
             else f"dh {cfg.head_dim}")
-    print(f"lm scoring forward ({cfg.name} W4A8, [2, {LM_SCORE_LEN}], causal, {dims}, heads "
+    print(f"lm scoring forward ({cfg.name} W4A8, [2, {length}], causal, {dims}, heads "
           f"{cfg.n_heads}/{cfg.n_kv_heads}): launches "
           f"{log.by_name()}, {dt * 1e3:.1f}ms (first call), peak memory {peak:.2f} GiB; "
           f"vs plain rel L2 {rel:.3g}")
@@ -3581,6 +3737,375 @@ def phase_mla(torch, dev) -> dict:
     del params_b
     print(f"mla: phase {time.perf_counter() - t_phase:.1f}s; launches {counts}")
     return {"counts": counts, "runs": 1, "inplace": {}}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 16: internlm2-20b, starcoder2-7b and musicgen-large
+# ---------------------------------------------------------------------------
+
+
+def _serve_two_waves(torch, eng, prompts, assign, gen, tag):
+    """Two requests first, then the rest (joining mid-decode where the mode
+    allows), polled to the end; returns (requests, ids, wall s, peak GiB,
+    TTFT ms)."""
+    from repro_torch.obs import trace as obs_trace
+
+    tracer = obs_trace.Tracer(capacity=4096)
+    prev = obs_trace.install(tracer)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reqs = [eng.enqueue(prompts[i], gen, tier=assign[i]) for i in (0, 1)]
+        time.sleep(2 * eng.max_wait_s)
+        eng.poll()
+        reqs += [eng.enqueue(prompts[i], gen, tier=assign[i]) for i in range(2, len(prompts))]
+        while not all(q.ready for q in reqs):
+            eng.poll()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        obs_trace.install(prev)
+    outs = [q.result() for q in reqs]
+    _check(all(o.shape == (gen,) for o in outs), f"{tag}: every request delivered")
+    return reqs, outs, wall, peak, _ttft_ms(tracer, reqs)
+
+
+def _forced_hold(torch, dev, eng, tag, params, prompts, idx, outs, pad_prompts=True):
+    """Requests ``idx`` (one tier) teacher-forced on their served ids: a
+    prefill (left-padded to the prompt bucket, or at its exact length) and 4
+    decode steps with the kernels against the plain versions, held by
+    ``_hold_lm``."""
+    if pad_prompts:
+        toks, pad = _padded(torch, dev, prompts, idx,
+                            eng.prompt_bucket(max(len(prompts[i]) for i in idx)))
+    else:
+        toks, pad = torch.as_tensor(prompts[idx[0]][None], device=dev).long(), None
+        idx = idx[:1]
+    served = torch.stack([torch.as_tensor(outs[i]) for i in idx]).to(dev).long()[:, :4]
+    max_len = toks.shape[1] + 4
+    got = _teacher_forced(torch, eng.cfg, params, toks, pad, served, max_len)
+    with _PlainKernels():
+        plain = _teacher_forced(torch, eng.cfg, params, toks, pad, served, max_len)
+    _check(all(torch.isfinite(g).all() for g in got), f"{tag}: non-finite logits")
+    rels = [_rel(torch, g, w) for g, w in zip(got, plain)]
+    print(f"{tag}: teacher-forced logits vs plain rel L2 (prefill, 4 decode steps) "
+          f"{[f'{r:.3g}' for r in rels]}")
+
+    def moved():
+        with _PlainKernels():
+            again = _teacher_forced(torch, eng.cfg, _noised(torch, params), toks, pad, served,
+                                    max_len)
+        return [_rel(torch, a, w) for a, w in zip(again, plain)]
+
+    _hold_lm(torch, f"{tag} teacher-forced", rels, moved)
+    return toks, pad, served
+
+
+def _dense_one(torch, dev, arch: str, cut) -> dict:
+    """One dense config of phase 16 (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPlan, compile_schedule
+    from repro_torch.data.pipeline import mixed_len_prompts
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_arch = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.with_(n_layers=cut) if cut else full
+    n = cfg.n_layers
+    counts = {}
+
+    def add(log):
+        for k, v in log.items():
+            counts[k] = counts.get(k, 0) + v
+
+    print(f"dense_zoo: {arch} at {n} of {full.n_layers} layers (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.act}, "
+          f"{cfg.norm} norm{' + bias' if cfg.norm_bias else ''}"
+          f"{', attention bias' if cfg.attn_bias else ''}, pos {cfg.pos}, vocab "
+          f"{cfg.vocab_size}; f32 weights {4 * cfg.param_counts()[0] / 1e9:.1f} GB"
+          f"{f', {4 * full.param_counts()[0] / 1e9:.1f} GB at full depth' if cut else ''})")
+    torch.cuda.reset_peak_memory_stats()
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, name="w4a8"))
+    per = sched.launches_per_forward(two_stage_attention=False)
+    sites = 4 + (3 if cfg.act in ("swiglu", "geglu") else 2)
+    _check(per == {"quant_matmul": sites * n}, f"{arch}: the w4a8 schedule predicts {per}")
+    tiers = {k: v.materialize() for k, v in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8").items()}
+    names = list(tiers)
+    eng = Engine(cfg, raw, mode="auto", max_batch=4, decode_steps_per_poll=8, tiers=tiers,
+                 attn_impl="two_stage", max_len=CONT_MAX_LEN, batch_buckets=(1, 2, 4),
+                 device="cuda")
+    _check(eng.mode == "continuous" and eng.pad_prompts, f"{arch}: mode {eng.stats.mode}")
+    for t in tiers:
+        eng.tier_params(t)
+    torch.cuda.synchronize()
+    print(f"dense_zoo {arch}: weights and both tiers in {time.perf_counter() - t_arch:.1f}s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompts = mixed_len_prompts(cfg.vocab_size, 4, DENSE_PROMPT)
+    assign = [names[i % 2] for i in range(4)]
+    with probe.tracking() as log:  # counts start at 0 here
+        reqs, outs, wall, peak, ttft = _serve_two_waves(torch, eng, prompts, assign, DENSE_GEN,
+                                                        f"dense_zoo {arch}")
+    _serve_report(torch, eng, f"dense_zoo {arch}", ttft, wall, peak)
+    _check(eng.stats.scheduler.admitted_mid_decode >= 1, f"{arch}: nothing joined mid-decode")
+    calls = _mla_per_call(eng)
+    want = _mla_want(per, per, *calls["balanced"])
+    print(f"dense_zoo {arch}: launches {log.by_name()}; (prefill waves, decode steps) per tier "
+          f"{calls}; per balanced call {per}")
+    _check(log.by_name() == want, f"{arch}: launches {log.by_name()}, expected {want}")
+    add(log.by_name())
+    params_b = eng.tier_params("balanced")
+    _forced_hold(torch, dev, eng, f"dense_zoo {arch} balanced", params_b, prompts,
+                 [i for i in range(4) if assign[i] == "balanced"], outs)
+    del eng
+    score = _lm_score(torch, dev, params_b, cfg,
+                      want=sched.launches_per_forward(two_stage_attention=True))
+    add(score)
+    del params_b
+
+    if arch == "musicgen-large":
+        # the compiled w4a8:fused schedule: wqkv (2048 x 6144, a 6.3 MB W4
+        # panel) with its LayerNorm prologue and wo on fused_matmul, the FFN
+        # (16.8 MB of panels) on quant_matmul
+        fsched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, fuse=True,
+                                                     name="w4a8"))
+        fper = fsched.launches_per_forward(two_stage_attention=False)
+        _check(fper == {"fused_matmul": 2 * n, "quant_matmul": 2 * n}
+               and [g.name for g in fsched.groups] == ["blocks.l0.mixer.wqkv"],
+               f"musicgen w4a8:fused predicts {fper}, groups {[g.name for g in fsched.groups]}")
+        work = ROOT / "build" / "chip_smoke"
+        work.mkdir(parents=True, exist_ok=True)
+        spath = work / "musicgen-large.w4a8-fused.schedule.json"
+        fsched.save(spath)
+        seng = Engine(cfg, raw, schedule=str(spath), mode="auto", attn_impl="two_stage",
+                      max_len=CONT_MAX_LEN, batch_buckets=(1, 2, 4), max_batch=4, device="cuda")
+        sparams = seng.params
+        with probe.tracking() as slog, _CallLaunches() as scl:
+            sreqs = [seng.enqueue(p, 5) for p in prompts[:2]]
+            seng.flush()
+            torch.cuda.synchronize()
+        ncalls = scl.hold("musicgen schedule", fper)
+        _check(all(r.result().shape == (5,) for r in sreqs), "musicgen schedule: delivered")
+        add(slog.by_name())
+        print(f"dense_zoo musicgen-large: Engine(schedule=w4a8:fused) served {ncalls} calls, "
+              f"each launching {fper}; launches {slog.by_name()}")
+        _forced_hold(torch, dev, seng, "dense_zoo musicgen-large schedule", sparams, prompts,
+                     [0, 1], [r.result() for r in sreqs])
+        del seng, sparams
+    del raw
+    print(f"dense_zoo {arch}: {time.perf_counter() - t_arch:.1f}s; launches {counts}")
+    return counts
+
+
+def phase_dense_zoo(torch, dev) -> dict:
+    """See the module docstring (16)."""
+    t_phase = time.perf_counter()
+    counts = {}
+    for arch, cut in (("starcoder2-7b", None), ("musicgen-large", None),
+                      ("internlm2-20b", DENSE_CUT)):
+        for k, v in _dense_one(torch, dev, arch, cut).items():
+            counts[k] = counts.get(k, 0) + v
+    print(f"dense_zoo: phase {time.perf_counter() - t_phase:.1f}s; launches {counts}")
+    return {"counts": counts, "runs": 1, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: jamba-v0.1-52b (Mamba + attention + MoE)
+# ---------------------------------------------------------------------------
+
+
+def phase_jamba(torch, dev) -> dict:
+    """See the module docstring (17)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPlan, compile_schedule
+    from repro_torch.kernels import probe
+    from repro_torch.launch.specs import ServeSpec
+    from repro_torch.models import lm
+    from repro_torch.models import ssm as S
+    from repro_torch.serving.engine import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.with_(n_layers=JAMBA_LAYERS)
+    n = cfg.n_layers
+    kinds = [(lm.mixer_kind(cfg, i), lm.ffn_kind(cfg, i)) for i in range(n)]
+    n_mamba = sum(k == "mamba" for k, _ in kinds)
+    n_moe = sum(f == "moe" for _, f in kinds)
+    print(f"jamba: jamba-v0.1-52b at {n} of {full.n_layers} layers ({n_mamba} Mamba, "
+          f"{n - n_mamba} attention {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}; {n_moe} MoE "
+          f"FFNs of {cfg.n_experts} x {cfg.moe_d_ff} at top-{cfg.top_k}, {n - n_moe} dense; "
+          f"d_model {cfg.d_model}, d_inner {cfg.mamba_expand * cfg.d_model}, d_state "
+          f"{cfg.mamba_d_state}, vocab {cfg.vocab_size}); f32 weights "
+          f"{4 * cfg.param_counts()[0] / 1e9:.1f} GB, {4 * full.param_counts()[0] / 1e9:.1f} GB "
+          "at full depth")
+    counts = {}
+
+    def add(log):
+        for k, v in log.items():
+            counts[k] = counts.get(k, 0) + v
+
+    torch.cuda.reset_peak_memory_stats()
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, name="w4a8"))
+    spath = work / "jamba.w4a8.schedule.json"
+    sched.save(spath)
+    per = sched.launches_per_forward(two_stage_attention=False)
+    n_dense = n - n_moe
+    want_per = {"quant_matmul": 2 * n_mamba + 4 * (n - n_mamba) + 3 * n_dense,
+                "quant_matmul_batched": 3 * n_moe}
+    print(f"jamba: w4a8 schedule compiled in {time.perf_counter() - t0:.1f}s: {sched.summary()}; "
+          f"predicted per prefill wave and decode step {per}")
+    _check(per == want_per, f"jamba schedule predicts {per}, expected {want_per}")
+    tiers = {k: v.materialize() for k, v in
+             ServeSpec.parse_tiers("quality=fp,balanced=w4a8").items()}
+    names = list(tiers)
+    max_len = max(JAMBA_PROMPTS) + JAMBA_GEN
+    eng = Engine(cfg, raw, mode="auto", max_batch=2, max_wait_s=60.0, tiers=tiers,
+                 attn_impl="two_stage", max_len=max_len, batch_buckets=(1, 2), device="cuda")
+    _check(eng.mode == "bucket" and not eng.pad_prompts
+           and "neither attention-only nor position-free recurrent" in eng.stats.mode,
+           f"jamba: mode {eng.stats.mode}")
+    print(f"jamba: Engine mode {eng.stats.mode!r}")
+    t0 = time.perf_counter()
+    for t in tiers:
+        eng.tier_params(t)
+    torch.cuda.synchronize()
+    print(f"jamba: seed-0 weights and both tiers in {time.perf_counter() - t_phase:.1f}s (W4A8 "
+          f"tree {time.perf_counter() - t0:.1f}s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (m,)).astype(np.int32) for m in JAMBA_PROMPTS]
+    assign = [names[i % 2] for i in range(len(prompts))]
+
+    # bucket mode: each tier's pair prefills at its exact lengths and decodes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with probe.tracking() as log, _CallLaunches() as cl:  # counts start at 0 here
+        reqs = [eng.enqueue(p, JAMBA_GEN, tier=assign[i]) for i, p in enumerate(prompts)]
+        eng.flush()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    outs = [r.result() for r in reqs]
+    _check(all(o.shape == (JAMBA_GEN,) for o in outs), "jamba: every request delivered")
+    _check(all(got in ({}, per) for _, got in cl.calls),
+           f"jamba: a call launched {[g for _, g in cl.calls if g not in ({}, per)]}")
+    calls = _mla_per_call(eng)
+    want = _mla_want(per, per, *calls["balanced"])
+    _check(log.by_name() == want, f"jamba: launches {log.by_name()}, expected {want}")
+    add(log.by_name())
+    _check(all(any(type(b).__name__ == "PrefillBucket" and b.prompt_len == len(p)
+                   for b in eng.stats.buckets) for p in prompts), "jamba: exact-length buckets")
+    print(eng.stats.format())
+    for tier in names:
+        for kind in ("PrefillBucket", "DecodeBucket"):
+            ss = [st for b, st in eng.stats.buckets.items()
+                  if b.tier == tier and type(b).__name__ == kind]
+            c, tot, tk = (sum(x.calls for x in ss), sum(x.total_s for x in ss),
+                          sum(x.tokens for x in ss))
+            print(f"jamba bucket {tier}: {kind[:-6].lower()} {1e3 * tot / max(c, 1):.3f}ms a call "
+                  f"over {c} calls, {tk / max(tot, 1e-9):.1f} tok/s")
+    print(f"jamba: served {len(prompts)} requests in {wall:.2f}s, peak memory {peak:.2f} GiB; "
+          f"(prefill waves, decode steps) per tier {calls}; every balanced call launched {per}")
+
+    # the balanced tier: prefill + decode through the MambaState (and the
+    # attention layer's int8 KV cache) against the plain versions, and
+    # against a teacher-forced full forward over the same tokens, routed
+    # dropless (capacity_factor = n_experts, as the reference's decode test
+    # routes it: a prefill's and a full forward's expert capacities differ)
+    params_b = eng.tier_params("balanced")
+    bi = assign.index("balanced")
+    toks, _, served = _forced_hold(torch, dev, eng, "jamba balanced", params_b, prompts, [bi],
+                                   outs, pad_prompts=False)
+    seq = torch.cat([toks, served[:, :3]], dim=1)
+    dcfg = cfg.with_(capacity_factor=float(cfg.n_experts))
+    with torch.inference_mode():
+        full_lg, _ = lm.forward(dcfg, params_b, seq)
+        stepwise = _teacher_forced(torch, dcfg, params_b, toks, None, served[:, :3],
+                                   seq.shape[1])
+    rels = [_rel(torch, g, full_lg[:, toks.shape[1] - 1 + i]) for i, g in enumerate(stepwise)]
+    print(f"jamba balanced: prefill + 3 decode steps through the MambaState vs one full forward "
+          f"over the same tokens (dropless), rel L2 {[f'{r:.3g}' for r in rels]}")
+    _check(max(rels) < DECODE_VS_FULL_W4A8, f"jamba decode vs full: {rels}")
+    del full_lg, stepwise
+    _lm_branches(torch, cfg, params_b, toks, "jamba balanced", steps=served)
+
+    # the selective scan's share of a 256-token prefill (host clock): the
+    # whole forward, and the scan's own calls timed inside one more forward
+    L = max(JAMBA_PROMPTS)
+    longest = torch.as_tensor(prompts[int(np.argmax(JAMBA_PROMPTS))][None], device=dev).long()
+    scan, pre = S._selective_scan, {}
+    for t in names:
+        p_t = eng.tier_params(t)
+
+        def prefill(p_t=p_t):
+            lm.forward(cfg, p_t, longest, cache=lm.init_cache(cfg, 1, L, device=dev),
+                       mode="prefill")
+
+        with torch.inference_mode():
+            wall_ms = _wall_ms(torch, prefill)
+            spent = []
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = scan(*a)
+                torch.cuda.synchronize()
+                spent.append((time.perf_counter() - t1) * 1e3)
+                return out
+
+            S._selective_scan = timed
+            try:
+                prefill()
+            finally:
+                S._selective_scan = scan
+        pre[t] = (wall_ms, sum(spent))
+    print(f"jamba: [1, {L}] prefill forward (wall, median of 3) and its {n_mamba} selective "
+          "scans (one more forward, each scan synchronized): "
+          + "; ".join(f"{t} {w:.1f}ms, scans {s_:.1f}ms ({100 * s_ / w:.0f}%, "
+                      f"{s_ / n_mamba:.2f}ms a layer)" for t, (w, s_) in pre.items()))
+    del eng
+
+    # Engine(schedule=path): every prefill wave and decode step launches what
+    # the schedule predicts
+    seng = Engine(cfg, raw, schedule=str(spath), mode="auto", attn_impl="two_stage",
+                  max_len=max_len, max_batch=2, batch_buckets=(1, 2), device="cuda")
+    _check(seng.mode == "bucket", f"jamba schedule engine: {seng.stats.mode}")
+    seng.params
+    with probe.tracking() as slog, _CallLaunches() as scl:
+        sreqs = [seng.enqueue(p, 5) for p in prompts[:2]]
+        seng.flush()
+        torch.cuda.synchronize()
+    ncalls = scl.hold("jamba schedule", per)
+    _check(all(r.result().shape == (5,) for r in sreqs), "jamba schedule: delivered")
+    add(slog.by_name())
+    print(f"jamba schedule: Engine(schedule=path) served {ncalls} calls, each launching {per}")
+    del seng, raw
+
+    # a [2, JAMBA_SCORE_LEN] scoring forward: the attention layer through
+    # the dh-128 two-stage kernel (32/8 heads, no positions)
+    score = _lm_score(torch, dev, params_b, cfg, length=JAMBA_SCORE_LEN,
+                      want=sched.launches_per_forward(two_stage_attention=True))
+    add(score)
+    del params_b
+    print(f"jamba: phase {time.perf_counter() - t_phase:.1f}s; launches {counts}")
+    return {"counts": counts, "runs": 1, "inplace": {}}
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -157,8 +157,7 @@ def register(name: str):
 def get_config(name: str) -> ModelConfig:
     key = name.replace("_", "-")
     if key not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}; the reference's "
-                       "other configs wait for ROADMAP.md queue 1 (items 7c and 9)")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[key]()
 
 

@@ -12,8 +12,9 @@ the ``prefix`` list.
 
 :func:`kv_cache_from_numpy` and :func:`kv_cache_to_numpy` carry a decode
 cache (``models/lm.py::init_cache`` layout) across, each ``KVCache`` as a
-``{"k", "v", "k_scale", "v_scale", "length"}`` dict and each ``RWKVState``
-as a ``{"tshift", "cshift", "wkv"}`` dict.
+``{"k", "v", "k_scale", "v_scale", "length"}`` dict, each ``RWKVState``
+as a ``{"tshift", "cshift", "wkv"}`` dict and each ``MambaState`` as a
+``{"conv", "ssm"}`` dict.
 
 A quantized tree (``quantize_lm``'s output: ``QuantLinear`` with its
 ``QTensor``, ``FoldedNorm``, ``FusedFFN`` leaves; a MoE layer's
@@ -35,10 +36,12 @@ from repro_torch.core.quantize import QTensor
 from repro_torch.core.versaq import Epilogue, FoldedNorm, FusedFFN, Norm, Prologue, QuantLinear
 from repro_torch.models.attention import KVCache
 from repro_torch.models.rwkv import RWKVState
+from repro_torch.models.ssm import MambaState
 
 __all__ = ["params_from_numpy", "params_to_numpy", "kv_cache_from_numpy", "kv_cache_to_numpy"]
 
 _KV_FIELDS = ("k", "v", "k_scale", "v_scale")
+_STATES = (RWKVState, MambaState)  # recognised by their first field
 _CLASSES = {c.__name__: c for c in (QTensor, QuantLinear, FoldedNorm, FusedFFN, Norm, Prologue,
                                     Epilogue)}
 
@@ -101,17 +104,17 @@ def _kv_from(d: dict, device) -> KVCache:
 
 
 def _entry_from(d: dict, device):
-    if "wkv" in d:
-        return RWKVState(*[torch.tensor(np.asarray(d[f]), device=device)
-                           for f in RWKVState._fields])
+    for cls in _STATES:
+        if cls._fields[0] in d:
+            return cls(*[torch.tensor(np.asarray(d[f]), device=device) for f in cls._fields])
     return _kv_from(d, device)
 
 
 def kv_cache_from_numpy(cache: dict, device=None) -> dict:
     """A decode cache as numpy (``prefix`` list and ``blocks`` dict of
-    ``KVCache`` or ``RWKVState`` dicts, ``pos``) -> the port's cache.  The
-    reference keeps one length per scan group; the port's single host clock
-    must equal all of them."""
+    ``KVCache``, ``RWKVState`` or ``MambaState`` dicts, ``pos``) -> the
+    port's cache.  The reference keeps one length per scan group; the
+    port's single host clock must equal all of them."""
     return {
         "prefix": [None if c is None else _entry_from(c, device) for c in cache["prefix"]],
         "blocks": {n: _entry_from(c, device) for n, c in cache["blocks"].items()},
@@ -123,8 +126,8 @@ def kv_cache_to_numpy(cache: dict) -> dict:
     """Inverse of :func:`kv_cache_from_numpy`."""
 
     def one(c) -> dict:
-        if isinstance(c, RWKVState):
-            return {f: getattr(c, f).detach().cpu().numpy() for f in RWKVState._fields}
+        if isinstance(c, _STATES):
+            return {f: getattr(c, f).detach().cpu().numpy() for f in c._fields}
         d = {f: getattr(c, f).detach().cpu().numpy() for f in _KV_FIELDS}
         d["length"] = int(c.length)
         return d

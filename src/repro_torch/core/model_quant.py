@@ -1,6 +1,6 @@
 """Whole-model VersaQ quantization (the paper's offline pipeline, Fig. 6)
 — port of ``repro/core/model_quant.py``: ``quantize_vggt`` and, for
-dense GQA, MLA, MoE and RWKV-6 LMs, ``quantize_lm``.
+dense GQA, MLA, MoE, RWKV-6 and Mamba-hybrid LMs, ``quantize_lm``.
 
 * The **residual stream is rotated once** (VGGT: H fused on the patch
   projection's output side, special tokens rotated; LM: E ← E·H on the
@@ -126,13 +126,18 @@ class _Resolver:
 def _vmapped(fn, n_lead: int):
     """``fn`` over ``n_lead`` stacked leading axes (scan groups, experts) of
     its tensor arguments: the reference's ``vmap``, here one call per slice
-    with the results stacked."""
+    with the results stacked.  On the ``meta`` device (the compiler's
+    abstract walk) every slice gives the same shapes and static fields, so
+    one call stands for all."""
     if n_lead == 0:
         return fn
     inner = _vmapped(fn, n_lead - 1)
 
     def go(*arrs):
-        return tree_stack([inner(*(a[i] for a in arrs)) for i in range(arrs[0].shape[0])])
+        n = arrs[0].shape[0]
+        if arrs[0].device.type == "meta":
+            return tree_stack([inner(*(a[0] for a in arrs))] * n)
+        return tree_stack([inner(*(a[i] for a in arrs)) for i in range(n)])
 
     return go
 
@@ -423,15 +428,10 @@ def quantize_lm(cfg: ModelConfig, params: dict, policy) -> dict:
     """Quantize an ``models/lm.py`` parameter tree with a uniform
     ``QuantPolicy``, a per-site ``PrecisionPlan`` or a compiled
     ``KernelSchedule``.  Returns a new tree; the forward code is unchanged
-    (dispatch happens on leaf types).  GQA and MLA layers with dense or MoE
-    FFNs, and rwkv layers; the Mamba branch of the reference raises.  An
-    rwkv stack keeps an unrotated stream (its token shift and decay LoRA
-    read the stream in the clear), so every rwkv projection takes the
-    online WHT."""
-    if "mamba" in cfg.pattern:
-        raise NotImplementedError(
-            f"quantize_lm: the Mamba mixer is not ported yet (pattern {cfg.pattern}; "
-            "ROADMAP queue 1 item 9)")
+    (dispatch happens on leaf types).  GQA, MLA and Mamba layers with dense
+    or MoE FFNs, and rwkv layers.  An rwkv stack keeps an unrotated stream
+    (its token shift and decay LoRA read the stream in the clear), so every
+    rwkv projection takes the online WHT."""
     pol = _Resolver(policy)
     rotated = pol.use_wht and "rwkv" not in cfg.pattern
     q = dict(params)
@@ -485,9 +485,11 @@ def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, pol: _Resolv
                     rotated: bool, *, lead: int, pfx: str) -> dict:
     """One layer (``lead`` = 1: stacked over scan groups; 0: a prefix
     layer).  Attention: the GQA sites with the per-head V/O Hadamard pair
-    and the LayerScale fold, ``_fuse_qkv``.  A dense FFN: the one online WHT
-    before ``w_down``, ``_fuse_ffn``; a MoE FFN (``fk``): ``_quantize_moe``.
-    rwkv: ``_quantize_rwkv``."""
+    and the LayerScale fold, ``_fuse_qkv``.  Mamba: ``w_in`` absorbs the
+    mixer norm, ``w_out`` takes the online WHT on its input; Δ/B/C, the
+    conv, ``a_log`` and ``d_skip`` stay full precision.  A dense FFN: the
+    one online WHT before ``w_down``, ``_fuse_ffn``; a MoE FFN (``fk``):
+    ``_quantize_moe``.  rwkv: ``_quantize_rwkv``."""
     if kind == "rwkv":
         return _quantize_rwkv(lp, pol, lead=lead, pfx=pfx)
     out = dict(lp)
@@ -503,7 +505,13 @@ def _quantize_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, pol: _Resolv
     ls1, ls2 = lp.get("ls1"), lp.get("ls2")
     common = dict(rotate_in_offline=rotated, rotate_input_online=not rotated)
 
-    if cfg.mla:
+    if kind == "mamba":
+        mx = dict(lp["mixer"])
+        mx["w_in"] = _prep(lp["mixer"]["w_in"]["w"], pol, f"{pfx}.mixer.w_in", lead,
+                           gamma=g1, beta=b1, **common)
+        mx["w_out"] = _prep(lp["mixer"]["w_out"]["w"], pol, f"{pfx}.mixer.w_out", lead,
+                            rotate_input_online=True, rotate_out_offline=rotated)
+    elif cfg.mla:
         mx = _quantize_mla(cfg, lp["mixer"], pol, rotated, g1, b1, ls1, common, groups, dev,
                            lead=lead, pfx=pfx)
     else:

@@ -30,9 +30,9 @@ Dispatch lives in ``core/model_quant``: ``quantize_vggt`` and
 :class:`KernelSchedule` wherever they accept a uniform ``QuantPolicy``,
 and emit per-site ``QuantLinear`` leaves (the int8 kernel path, the
 packed-int4 path, or a transform-fused float passthrough).  The planner
-and the compiler walk VGGT and the ported LMs (GQA, MLA and rwkv mixers
-with dense, MoE and rwkv channel-mix FFNs); Mamba layers raise with their
-``ROADMAP.md`` queue-1 item (9).
+and the compiler walk VGGT and every LM of the registry (GQA and MLA
+attention, Mamba and rwkv mixers with dense, MoE and rwkv channel-mix
+FFNs).
 """
 from repro_torch.core.precision.plan import (
     LEVELS,

@@ -19,9 +19,8 @@ and reads the decisions off the abstract quantized tree: a merged
 and a site that *didn't* fuse gets its reason recomputed from the same
 eligibility predicates the walker used.  The schedule therefore cannot
 disagree with what ``quantize_vggt`` or ``quantize_lm`` would have done.
-The LM walk covers GQA attention and rwkv mixers with dense, MoE and rwkv
-channel-mix FFNs (qwen3-14b, deepseek-moe-16b, rwkv6-1.6b); MLA and Mamba
-layers raise, as ``quantize_lm`` does.
+The LM walk covers every LM of the registry: GQA and MLA attention, Mamba
+and rwkv mixers with dense, MoE and rwkv channel-mix FFNs.
 
 **Tiles** are the launch tiles of the kernel each site runs
 (``kernels.ops.launch_tiles``): ``quant_matmul``'s for a plain integer
@@ -579,9 +578,9 @@ def _ffn_fallback(f: dict, groups) -> Optional[str]:
 def _lower_lm(low: _Lowering, q: dict) -> None:
     """The reference's LM walk over the prefix layers and the stacked
     pattern positions: GQA attention through :meth:`_Lowering.attn`, MLA's
-    five sites plain, dense
-    FFNs through :meth:`_Lowering.ffn_dense`, a MoE layer's routed and
-    shared experts site by site, rwkv sites plain (never fused)."""
+    five sites, Mamba's ``w_in``/``w_out`` and the rwkv sites plain (never
+    fused), dense FFNs through :meth:`_Lowering.ffn_dense`, a MoE layer's
+    routed and shared experts site by site."""
     from repro_torch.models import lm
 
     cfg = low.cfg
@@ -597,6 +596,8 @@ def _lower_lm(low: _Lowering, q: dict) -> None:
             low.plain(f"{pfx}.mixer", mx, ("wq", "w_kv_down", "w_k_up", "w_v_up", "wo"))
         elif kind == "attn":
             low.attn(f"{pfx}.mixer", mx)
+        elif kind == "mamba":
+            low.plain(f"{pfx}.mixer", mx, ("w_in", "w_out"))
         elif kind == "rwkv":
             low.plain(f"{pfx}.mixer", mx, ("wr", "wk", "wv", "wg", "wo"))
         f = lp["ffn"]

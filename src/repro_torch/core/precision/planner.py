@@ -61,11 +61,6 @@ __all__ = [
 # cheapest-first upgrade ladder (stored-bytes then activation width)
 LADDER = ("w4a4", "w4a8", "w8a8", "bf16")
 
-# what each unported layer kind waits for (ROADMAP.md, queue 1)
-_UNPORTED = {
-    "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class SiteInfo:
@@ -127,14 +122,15 @@ def enumerate_sites(cfg: ModelConfig, params: dict) -> list[SiteInfo]:
 
     from repro_torch.models import lm  # local, as in the reference
 
-    _check_lm_ported(cfg)
-
     def layer(pfx: str, lp: dict, kind: str, fk: str) -> None:
         mx = lp["mixer"]
         if kind == "attn":
             names = (("wq", "w_kv_down", "w_k_up", "w_v_up", "wo") if cfg.mla
                      else ("wq", "wk", "wv", "wo"))
             for n in names:
+                add(f"{pfx}.mixer.{n}", mx[n]["w"])
+        elif kind == "mamba":
+            for n in ("w_in", "w_out"):
                 add(f"{pfx}.mixer.{n}", mx[n]["w"])
         elif kind == "rwkv":
             for n in ("wr", "wk", "wv", "wg", "wo"):
@@ -162,13 +158,6 @@ def enumerate_sites(cfg: ModelConfig, params: dict) -> list[SiteInfo]:
         layer(f"blocks.l{j}", params["blocks"][f"l{j}"], lm.mixer_kind(cfg, gi),
               lm.ffn_kind(cfg, gi))
     return sites
-
-
-def _check_lm_ported(cfg: ModelConfig) -> None:
-    """The LM walk covers GQA and MLA attention and rwkv mixers with dense,
-    MoE and rwkv channel-mix FFNs; Mamba layers raise."""
-    if "mamba" in cfg.pattern:
-        raise NotImplementedError(f"{cfg.name} (pattern {cfg.pattern}): {_UNPORTED['mamba']}")
 
 
 # ---------------------------------------------------------------------------
@@ -443,8 +432,6 @@ def proxy_recon_error(
     from repro_torch.core.model_quant import quantize_lm, quantize_vggt
     from repro_torch.models import lm, vggt
 
-    if not cfg.vggt:
-        _check_lm_ported(cfg)
     dev = (params["patch_proj"] if cfg.vggt else params["embed"])["w"].device
     gen = torch.Generator(device=dev).manual_seed(0) if generator is None else generator
     if inputs is not None:

@@ -31,11 +31,11 @@ timings, the schedule's ``backend``) unless ``--device cpu`` is given;
 without a CUDA device and without that flag it exits non-zero.  A
 schedule the JAX package compiled (backend ``interpret`` or ``tpu``)
 carries TPU tilings: recompile it here before serving it.  It lowers
-VGGT configs and the ported LMs (qwen3-14b, rwkv6-1.6b, deepseek-moe-16b,
-deepseek-v2-lite-16b, phi3-mini-3.8b, paligemma-3b and their smoke
-configs); the reference's other configs are not in the port's registry,
-whose error points to ``ROADMAP.md`` queue 1, and the planner and the
-compiler refuse a Mamba config naming item 9.  A uniform spec lowers on
+VGGT configs and every LM of the registry (qwen3-14b, rwkv6-1.6b,
+deepseek-moe-16b, deepseek-v2-lite-16b, phi3-mini-3.8b, paligemma-3b,
+internlm2-20b, starcoder2-7b, musicgen-large, jamba-v0.1-52b and their
+smoke configs); an unknown arch exits 2 with the registry's error.  A
+uniform spec lowers on
 the ``meta`` device and draws no weights, so a full-depth config compiles
 on any host; ``plan`` draws the seed-0 weights on ``--device``.
 """

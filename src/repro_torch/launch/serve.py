@@ -18,6 +18,10 @@ VGGT scenes through ``VGGTEngine``, LM prompts through the LM ``Engine``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b-smoke \\
       --tiers quality=fp,balanced=w4a8 --requests 4 --prompt-len 8 --gen 8 --batch 2
 
+  # jamba (Mamba + attention): bucket mode under --mode auto
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b-smoke \\
+      --tiers quality=fp,balanced=w4a8 --requests 4 --prompt-len 8 --gen 8 --batch 2
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vggt-1b \\
       --tiers quality=fp,balanced=w4a8,planned=plan:fused,fast=w4a8:fused \\
       --attn-impl two_stage --requests 8 --scenes 1 --frames 8 --patches 1024 \\
@@ -41,13 +45,15 @@ fuse.  ``--schedule`` serves one compiled schedule (its launch tiles, its
 hash in the bucket keys) and conflicts with ``--tiers``.
 
 The LM branch serves ``mixed_len_prompts`` traffic (full and 3/4-length
-prompts, so the masked length-padded buckets serve too; rwkv serves each
-at its exact length) with ``max_len = --prompt-len + --gen``.  ``--mode``
-picks the scheduler: ``continuous`` (slot-batched: requests join the
-running decode batch), ``bucket`` (drain-then-refill) or ``auto`` (the
-default: continuous wherever the config supports it, which every ported
-LM does), with ``--tiers`` (``plan[:fused]`` plans on the seed-0 weights)
-or one ``--schedule``.
+prompts, so the masked length-padded buckets serve too; rwkv and jamba
+serve each at its exact length) with ``max_len = --prompt-len + --gen``.
+``--mode`` picks the scheduler: ``continuous`` (slot-batched: requests
+join the running decode batch), ``bucket`` (drain-then-refill) or
+``auto`` (the default: continuous wherever the config supports it, which
+every LM but jamba does: its attention layers are mixed with Mamba layers
+under one shared decode position, so it serves in bucket mode, as in the
+reference), with ``--tiers`` (``plan[:fused]`` plans on the seed-0
+weights) or one ``--schedule``.
 
 The launcher runs on the CUDA device; ``--device cpu`` runs it on the
 CPU (each kernel wrapper then takes its plain PyTorch version).  Without
@@ -250,10 +256,9 @@ def serve_lm(cfg, args) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vggt-1b-smoke",
-                    help="a ported config: vggt-1b, vggt-1b-smoke, qwen3-14b, qwen3-14b-smoke, "
-                         "rwkv6-1.6b, rwkv6-1.6b-smoke, deepseek-moe-16b, "
-                         "deepseek-moe-16b-smoke, deepseek-v2-lite-16b, "
-                         "deepseek-v2-lite-16b-smoke, phi3-mini-3.8b, phi3-mini-3.8b-smoke "
+                    help="a registered config (each with its -smoke config): vggt-1b, qwen3-14b, "
+                         "rwkv6-1.6b, deepseek-moe-16b, deepseek-v2-lite-16b, phi3-mini-3.8b, "
+                         "internlm2-20b, starcoder2-7b, musicgen-large, jamba-v0.1-52b "
                          "(paligemma-3b takes embedding inputs, which the LM engine does not serve)")
     ap.add_argument("--device", default="cuda",
                     help="where to serve (default: the CUDA device; no fallback)")

@@ -1,6 +1,6 @@
 """Config-driven LM composition: init / forward / prefill / decode (port of
-``repro/models/lm.py``: dense GQA stacks, MoE stacks, MLA stacks and RWKV-6
-stacks).
+``repro/models/lm.py``: dense GQA stacks, MoE stacks, MLA stacks, RWKV-6
+stacks and Mamba/attention hybrids).
 
 The reference groups the layer stack by the config's ``pattern`` period
 and scans the groups with ``jax.lax.scan``; here the scan is a Python loop
@@ -10,14 +10,15 @@ non-uniform first layers as the list ``params["prefix"]``.
 
 The same forward runs full precision (plain dict leaves) and
 VersaQ-quantized (``QuantLinear``/``FoldedNorm`` leaves, see
-``core/model_quant.py::quantize_lm``).  Mamba layers raise
-``NotImplementedError``.  With ``pad_lens`` the forward also masks the pad
-slots out of MoE routing (``token_mask``), as the reference does.
+``core/model_quant.py::quantize_lm``).  With ``pad_lens`` the forward also
+masks the pad slots out of MoE routing (``token_mask``), as the reference
+does.
 
 The decode cache's ``pos`` and every ``KVCache.length`` are host ints: all
 rows of a served batch share one decode clock (see ``models/attention.py``).
-An rwkv pattern position holds an ``RWKVState`` instead; like the KV cache
-it is written in place, and it has no time axis.
+An rwkv pattern position holds an ``RWKVState`` instead, a Mamba one a
+``MambaState``; like the KV cache they are written in place, and they have no
+time axis.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 from repro_torch.tree import tree_index, tree_stack
 
 __all__ = [
@@ -44,17 +46,6 @@ __all__ = [
     "forward",
     "decode_step",
 ]
-
-# what each unported layer kind waits for (ROADMAP.md, queue 1)
-_UNPORTED = {
-    "mamba": "the Mamba mixer is not ported yet (ROADMAP queue 1 item 9; it comes with "
-             "jamba)",
-}
-
-
-def _unported(what: str):
-    raise NotImplementedError(_UNPORTED[what])
-
 
 # ---------------------------------------------------------------------------
 # structure helpers
@@ -79,12 +70,6 @@ def mixer_kind(cfg: ModelConfig, global_idx: int) -> str:
     return cfg.pattern[global_idx % len(cfg.pattern)]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    for kind in set(cfg.pattern):
-        if kind not in ("attn", "rwkv"):
-            _unported(kind)
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -93,7 +78,8 @@ def _check_ported(cfg: ModelConfig) -> None:
 def _init_layer(generator: torch.Generator, cfg: ModelConfig, global_idx: int, dtype,
                 device) -> dict:
     kw = dict(dtype=dtype, device=device)
-    if mixer_kind(cfg, global_idx) == "rwkv":
+    kind = mixer_kind(cfg, global_idx)
+    if kind == "rwkv":
         p: dict[str, Any] = {
             "mixer_norm": L.init_norm(cfg.d_model, kind="ln", bias=True, **kw),
             "mixer": R.init_rwkv_time(generator, cfg, **kw),
@@ -108,9 +94,13 @@ def _init_layer(generator: torch.Generator, cfg: ModelConfig, global_idx: int, d
             # dense_inner ones) take dense_d_ff, as in the reference
             dff = (cfg.dense_d_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
             ffn = F.init_dense_ffn(generator, cfg.d_model, dff, cfg.act, **kw)
+        if kind == "mamba":
+            mixer = S.init_mamba(generator, cfg, **kw)
+        else:
+            mixer = (A.init_mla if cfg.mla else A.init_gqa)(generator, cfg, **kw)
         p = {
             "mixer_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
-            "mixer": (A.init_mla if cfg.mla else A.init_gqa)(generator, cfg, **kw),
+            "mixer": mixer,
             "ffn_norm": L.init_norm(cfg.d_model, kind=cfg.norm, bias=cfg.norm_bias, **kw),
             "ffn": ffn,
         }
@@ -125,7 +115,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float3
     """Random weights drawn from ``generator``, on ``device`` (default: the
     generator's).  On the ``meta`` device nothing is drawn: the tree
     carries shapes and dtypes only."""
-    _check_ported(cfg)
     dev = generator.device if device is None else torch.device(device)
     params: dict[str, Any] = {
         "embed": {"w": (torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
@@ -157,16 +146,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype=torch.int8,
                device=None) -> dict:
     """Decode cache matching the prefix/blocks structure: per pattern
     position a stacked ``KVCache`` [G, B, max_len, Hkv, dh] (attention; MLA's
-    compressed [G, B, max_len, 1, rank + dr]) or
-    ``RWKVState`` [G, B, ...] (rwkv); per prefix layer an unstacked
-    [B, max_len, Hkv, dh] cache (None for a recurrent one, as in the
-    reference); and ``pos`` 0."""
-    _check_ported(cfg)
+    compressed [G, B, max_len, 1, rank + dr]), ``RWKVState`` [G, B, ...]
+    (rwkv) or ``MambaState`` [G, B, ...] (mamba); per prefix layer an
+    unstacked [B, max_len, Hkv, dh] cache (None for a recurrent one, as in
+    the reference); and ``pos`` 0."""
     groups = n_scan_groups(cfg)
     blocks: dict[str, Any] = {}
     for j, kind in enumerate(cfg.pattern):
         if kind == "attn":
             blocks[f"l{j}"] = A.init_kv_cache(cfg, batch, max_len, groups, kv_dtype, device)
+        elif kind == "mamba":
+            blocks[f"l{j}"] = S.init_mamba_state(cfg, batch, groups, device)
         else:
             blocks[f"l{j}"] = R.init_rwkv_state(cfg, batch, groups, device)
     prefix = []
@@ -303,15 +293,19 @@ def cache_set_clock(cfg: ModelConfig, cache: dict, clock: int) -> dict:
 
 def _apply_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, x: torch.Tensor, *,
                  positions, cache=None, mode: str = "full", pad_lens=None, token_mask=None):
-    """One layer: an attention mixer and a dense or MoE FFN (``fk``), or an
-    rwkv time-mix and channel-mix.  Returns (x, the new cache entry): the KV
-    cache written in place, or a new ``RWKVState`` (None without a cache)."""
+    """One layer: an attention or Mamba mixer and a dense or MoE FFN
+    (``fk``), or an rwkv time-mix and channel-mix.  Returns (x, the new cache
+    entry): the KV cache written in place, or a new ``RWKVState`` or
+    ``MambaState`` (None without a cache)."""
     # fused sites absorb their pre-norm (unified-datapath prologue): pass
     # the raw residual stream and let the kernel run the norm statistics
     h = x if F.carries_norm(lp["mixer"]) else L.norm(lp["mixer_norm"], x)
     new_cache = None
     if kind == "rwkv":
         out, wkv, tshift = R.rwkv_time_mix(lp["mixer"], cfg, h, state=cache, mode=mode)
+    elif kind == "mamba":
+        out, st = S.mamba_mixer(lp["mixer"], cfg, h, state=cache, mode=mode)
+        new_cache = st if cache is not None else None
     else:
         attend = A.mla_attention if cfg.mla else A.gqa_attention
         out, kv_new = attend(lp["mixer"], cfg, h, causal=True, positions=positions, cache=cache,
@@ -372,10 +366,9 @@ def forward(
     real-token outputs match the unpadded forward (attention-only patterns:
     a recurrent mixer would carry the pad tokens through its state).  With
     ``cache`` the cache is written in place (``models/attention.py``; rwkv
-    states too) and returned with its clock advanced.  Returns
+    and Mamba states too) and returned with its clock advanced.  Returns
     (logits [B, L, V], new_cache).
     """
-    _check_ported(cfg)
     if pad_lens is not None and any(k != "attn" for k in cfg.pattern):
         raise ValueError(f"pad_lens needs an attention-only layer pattern, got {cfg.pattern}")
     pos0 = int(cache["pos"]) if cache is not None else 0
@@ -410,11 +403,11 @@ def forward(
             c = full = None
             if cache is not None:
                 full = cache["blocks"][name]
-                if kind == "rwkv":
-                    c = R.RWKVState(full.tshift[g], full.cshift[g], full.wkv[g])
-                else:
+                if kind == "attn":
                     c = A.KVCache(full.k[g], full.v[g], full.k_scale[g], full.v_scale[g],
                                   full.length)
+                else:  # a recurrent state: the group's views of its [G, B, ...] leaves
+                    c = type(full)(*(leaf[g] for leaf in full))
             # the reference's scan body takes each pattern position's FFN
             # kind from the first group (``ffn_kind(first_dense + j)``)
             x, c2 = _apply_layer(cfg, gp[name], kind, ffn_kind(cfg, cfg.first_dense + j), x,
@@ -422,12 +415,12 @@ def forward(
                                  token_mask=token_mask)
             if c2 is None:
                 continue
-            if kind == "rwkv":  # write the group's state in place
+            if kind == "attn":  # the group's view was written in place
+                new_blocks[name] = full._replace(length=c2.length)
+            else:  # write the group's state in place
                 for view, new in zip(c, c2):
                     view.copy_(new)
                 new_blocks[name] = full
-            else:  # the group's view was written in place
-                new_blocks[name] = full._replace(length=c2.length)
 
     x = L.norm(params["final_norm"], x)
     if cfg.tie_embeddings:

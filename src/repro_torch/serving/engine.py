@@ -7,8 +7,8 @@ mode beside it (port of ``repro/serving/engine.py``).
   token in the last slot so one ``logits[:, -1]`` read works for every
   row; per-row RoPE positions and the attention length mask
   (``lm.forward(pad_lens=...)``) make real-token outputs match the
-  unpadded forward.  Recurrent patterns (rwkv) would carry pad tokens
-  through their state, so they prefill at the exact prompt length.
+  unpadded forward.  Recurrent patterns (rwkv, Mamba) would carry pad
+  tokens through their state, so they prefill at the exact prompt length.
 * **DecodeRunner** — slot-batched continuous decode.  The decode cache's
   batch rows are *slots* with a free list: finished requests release their
   slots and newly admitted prompts join the *running* batch.  All slots
@@ -22,17 +22,17 @@ mode beside it (port of ``repro/serving/engine.py``).
   runner drains idle.  A decode burst of N steps keeps its tokens,
   finiteness flags and sampling counters on the device and reads them back
   once, after the burst.  **StateDecodeRunner** serves position-free
-  recurrent stacks (rwkv with ``pos="none"``): states have no time axis,
-  rows install directly and any prompt length joins at any time.
+  recurrent stacks (rwkv or Mamba with ``pos="none"``): states have no
+  time axis, rows install directly and any prompt length joins at any time.
 * **Scheduler** — admission: priority first, then earliest deadline, then
   FIFO; a ``(tier, prompt bucket)`` wave is due when it fills
   ``max_batch`` rows, waits past ``max_wait_s``, carries a deadline, or its
   tier's runner is mid-decode; requests past their deadline are evicted,
   queued or mid-decode, with ``DeadlineExceeded``.
 * **Bucket mode** (``mode="bucket"``, and ``mode="auto"`` for patterns the
-  continuous scheduler cannot serve, e.g. attention mixed with rwkv): the
-  prefilled group decodes to completion before anything else is served
-  (``Engine._execute``).
+  continuous scheduler cannot serve, e.g. jamba's attention mixed with
+  Mamba): the prefilled group decodes to completion before anything else is
+  served (``Engine._execute``).
 * **Precision tiers** — ``tiers={"quality": None, "balanced": plan}``:
   one engine, several precisions; tier is part of every bucket identity,
   each tier has its own decode runner, and each tier's tree is quantized
@@ -703,8 +703,8 @@ class DecodeRunner:
 
 
 class StateDecodeRunner(DecodeRunner):
-    """Continuous decode for position-free recurrent stacks (rwkv with
-    ``pos="none"``).  Recurrent states have no time axis: prefilled rows
+    """Continuous decode for position-free recurrent stacks (rwkv or Mamba
+    with ``pos="none"``).  Recurrent states have no time axis: prefilled rows
     install directly, any prompt length joins a running batch at any time,
     and the shared clock and pads degenerate to plain row bookkeeping (the
     step runs without ``pad_lens``; rows are independent)."""
@@ -962,10 +962,6 @@ class Engine:
             raise ValueError(f"attn_impl={attn_impl!r}: expected flash | two_stage | vanilla")
         if mode not in ("auto", "continuous", "bucket"):
             raise ValueError(f"mode={mode!r}: expected auto | continuous | bucket")
-        if "mamba" in cfg.pattern:
-            raise NotImplementedError(
-                f"{cfg.name}: only GQA and MLA (dense or MoE FFN) and rwkv LMs are ported "
-                "(ROADMAP.md, queue 1: Mamba item 9)")
         self.device = batching.resolve_device(device, "Engine")
         if self.device.type == "cuda":
             # the float parts of the forward (fp tiers, the IDCT blocks, the
@@ -1000,7 +996,7 @@ class Engine:
         self.max_wait_s = max_wait_s
         # prompt-length padding rides on the attention length mask; a
         # recurrent mixer would carry pad tokens through its state, so rwkv
-        # patterns get exact-length buckets (batch bucketing only)
+        # and Mamba patterns get exact-length buckets (batch bucketing only)
         self.pad_prompts = _attention_only(cfg)
         self.decode_steps_per_poll = decode_steps_per_poll
         if mode == "continuous" and not self._continuous_ok():
@@ -1047,7 +1043,7 @@ class Engine:
         # recurrent rows are independent, but the decode position is a
         # shared scalar: only position-free stacks can mix generation depths
         # in one batch
-        return set(self.cfg.pattern) <= {"rwkv"} and self.cfg.pos == "none"
+        return set(self.cfg.pattern) <= {"mamba", "rwkv"} and self.cfg.pos == "none"
 
     def _quantize(self, policy) -> Any:
         with torch.no_grad():

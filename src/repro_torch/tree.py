@@ -41,7 +41,11 @@ def tree_leaves(tree: Any) -> list[torch.Tensor]:
 
 def tree_stack(trees: list) -> Any:
     """Stack same-structure trees along a new leading axis (the port of
-    ``vmap`` over scan groups: prepare per group, then stack)."""
+    ``vmap`` over scan groups: prepare per group, then stack).  One tree
+    gains the axis as a view, as the reference's ``x[None]`` does: a copy
+    would hold the tree twice (jamba's 8-layer group is 53 GB of f32)."""
+    if len(trees) == 1:
+        return tree_map(lambda x: x.unsqueeze(0), trees[0])
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 

@@ -201,10 +201,11 @@ def test_schedule_quantizes_as_the_plan(name):
                                      (dict(pattern=("attn", "mamba"), n_layers=4), "item 9")],
                          ids=["gqa", "mla", "mamba"])
 def test_lm_configs_wait_for_the_lm_slice(kw, item):
-    """The LM lowering has landed for GQA stacks (and rwkv, MoE and MLA
-    ones, held against the reference in ``tests/test_torch_lm_planner.py``):
-    an MLA stack lowers its five sites per-site, never fused; Mamba layers
-    wait for their ROADMAP item."""
+    """The LM lowering has landed for every layer kind (rwkv, MoE, MLA and
+    Mamba stacks held against the reference in
+    ``tests/test_torch_lm_planner.py`` and ``tests/test_torch_zoo_jamba.py``):
+    an MLA stack lowers its five sites per-site, never fused; a Mamba layer
+    its ``w_in``/``w_out`` plain, 2 ``quant_matmul`` a forward."""
     cfg = get_config("qwen3-14b-smoke").with_(**kw)
     if item == "item 7b":  # ported: deepseek-v2-lite-16b-smoke's MLA
         cfg = get_config("deepseek-v2-lite-16b-smoke")
@@ -221,8 +222,15 @@ def test_lm_configs_wait_for_the_lm_slice(kw, item):
         assert [g.name for g in sched.groups] == ["blocks.l0.mixer.wqkv", "blocks.l0.ffn"]
         assert dict(sched.attention.tiles) == tsa.LAUNCH_TILES
         return
-    with pytest.raises(NotImplementedError, match=item):
-        compile_schedule(cfg, PrecisionPlan())
+    # item 9, ported: the Mamba layer's two sites, never fused
+    sched = compile_schedule(cfg, PrecisionPlan(default="w4a8", use_kernel=True, fuse=True))
+    mixer = [s for s in sched.sites if s.site.startswith("blocks.l1.mixer.")]
+    assert [s.site.rsplit(".", 1)[1] for s in mixer] == ["w_in", "w_out"]
+    assert all(s.kernel == "matmul" and s.fused_group is None for s in mixer)
+    assert [g.name for g in sched.groups] == ["blocks.l0.mixer.wqkv", "blocks.l0.ffn",
+                                              "blocks.l1.ffn"]
+    assert sched.launches_per_forward(two_stage_attention=False) == {
+        "fused_matmul": 2 * 2, "fused_ffn": 2 * 2, "quant_matmul": 2 * 2}
 
 
 # ---------------------------------------------------------------------------

@@ -132,9 +132,13 @@ _NO_JAX = ("import runpy, sys; sys.modules.update(jax=None, jaxlib=None, repro=N
            "runpy.run_module('repro_torch.launch.serve', run_name='__main__')")
 
 
-def _launch(*argv):
+def _launch(*argv, threads=None):
+    """The launcher in a process where JAX cannot be imported; ``threads``
+    caps its intra-op threads (``OMP_NUM_THREADS``)."""
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")}
     env["PYTHONPATH"] = str(ROOT / "src")
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
     return subprocess.run([sys.executable, "-c", _NO_JAX, *argv], capture_output=True, text=True,
                           timeout=300, env=env, cwd=ROOT)
 
@@ -164,9 +168,9 @@ def test_launcher_refuses_other_archs_and_unported_specs():
     recompiled; a missing schedule file is reported, not a traceback."""
     out = _launch("--device", "cpu", "--arch", "qwen3-14b-smoke", "--mode", "slots")
     assert out.returncode != 0 and "mode='slots'" in out.stderr
-    out = _launch("--device", "cpu", "--arch", "internlm2-20b")
-    assert out.returncode != 0 and "unknown arch" in out.stderr
-    assert "items 7c and 9" in out.stderr
+    out = _launch("--device", "cpu", "--arch", "internlm2-20b-x")
+    assert out.returncode != 0 and "unknown arch 'internlm2-20b-x'" in out.stderr
+    assert "internlm2-20b-smoke" in out.stderr  # the registry lists every config
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=tests/goldens/schedule_vggt_smoke.json")
     assert out.returncode != 0 and "recompile it with" in out.stderr
     out = _launch("--device", "cpu", "--tiers", "fast=schedule=x.json")

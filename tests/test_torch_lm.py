@@ -562,11 +562,15 @@ def test_fused_matches_unfused():
 
 
 def test_unported_layers_raise():
-    """Mamba layers wait for ROADMAP item 9; MLA (item 7b) is ported and
-    builds ``init_mla``'s tree (held in ``tests/test_torch_mla.py``)."""
-    cfg = get_config("qwen3-14b-smoke")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lm.init_params(cfg.with_(pattern=("attn", "mamba")), torch.Generator().manual_seed(0))
+    """Every layer kind of the reference is ported: a Mamba layer builds
+    ``init_mamba``'s tree and its cache entry a ``MambaState`` (held in
+    ``tests/test_torch_zoo_mamba.py``), an MLA layer ``init_mla``'s (held in
+    ``tests/test_torch_mla.py``)."""
+    cfg = get_config("qwen3-14b-smoke").with_(pattern=("attn", "mamba"))
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    assert set(p["blocks"]["l1"]["mixer"]) == {"w_in", "conv_w", "conv_b", "w_xproj", "w_dt",
+                                               "a_log", "d_skip", "w_out"}
+    assert type(lm.init_cache(cfg, 2, 8)["blocks"]["l1"]).__name__ == "MambaState"
     mla = get_config("deepseek-v2-lite-16b-smoke")
     p = lm.init_params(mla, torch.Generator().manual_seed(0))
     assert set(p["prefix"][0]["mixer"]) == {"wq", "w_kv_down", "kv_norm", "w_k_up", "w_v_up",

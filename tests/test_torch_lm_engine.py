@@ -330,8 +330,8 @@ def test_modes_and_schedule():
     pattern that mixes them it serves bucket mode and says why, and
     ``continuous`` raises there, as in the reference.  ``schedule=``
     serves a compiled schedule in place of a policy or tiers (token parity
-    in ``tests/test_torch_lm_schedule_serving.py``); unported layer kinds
-    raise."""
+    in ``tests/test_torch_lm_schedule_serving.py``); every layer kind
+    constructs (a Mamba/attention hybrid in bucket mode, as jamba)."""
     eng = _engine()
     assert eng.mode == "continuous" and eng.continuous
     assert eng.stats.summary()["mode"] == "continuous"
@@ -377,8 +377,16 @@ def test_modes_and_schedule():
                 Engine(cfg.with_(**kw), params, max_len=MAX_LEN, mode="continuous",
                        device="cpu")
             continue
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            Engine(cfg.with_(**kw), params, max_len=MAX_LEN, device="cpu")
+        # ported: attention mixed with Mamba under one shared decode position
+        # serves in bucket mode (jamba; held in test_torch_zoo_jamba), and
+        # continuous mode is refused, as in the reference
+        mcfg = cfg.with_(**kw)
+        eng = Engine(mcfg, lm.init_params(mcfg, torch.Generator().manual_seed(0)),
+                     max_len=MAX_LEN, device="cpu")
+        assert not eng.continuous and not eng.pad_prompts
+        assert eng.stats.mode.startswith("bucket (mode='auto': pattern ('attn', 'mamba')")
+        with pytest.raises(ValueError, match="mode='continuous' needs"):
+            Engine(mcfg, params, max_len=MAX_LEN, mode="continuous", device="cpu")
 
 
 def test_recurrent_pattern_serves_exact_length_buckets():

@@ -10,10 +10,12 @@ golden and the reference's compile under uniform, fused, mixed and
 split-``wk`` plans, fallback reasons included); the quantized tree a
 schedule gives against its plan's; the launches a schedule predicts
 against what a prefill wave, a decode step and a scoring forward launch;
-the tuner's routed-expert signature; the launcher's refusals.  The Mamba
-refusals of the planner and the compiler are cases of
+the tuner's routed-expert signature; the launcher on the reference's last
+full-size configs (internlm2-20b, jamba-v0.1-52b, starcoder2-7b) and on an
+unknown arch.  Mamba sites in the planner and the compiler are cases of
 ``test_lm_branches_wait_for_the_lm_slice`` and
-``test_lm_configs_wait_for_the_lm_slice``."""
+``test_lm_configs_wait_for_the_lm_slice``, and jamba's walk is held against
+the reference in ``tests/test_torch_zoo_jamba.py``."""
 import functools
 import json
 import pathlib
@@ -343,14 +345,23 @@ def test_expert_sites_tune_the_batched_launch(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-20b", "jamba-v0.1-52b", "starcoder2-7b"])
-def test_launcher_refuses_unported_arches(capsys, arch):
-    """The reference's other configs are not in the port's registry: exit 2
-    with its error, which points to ROADMAP.md queue 1 (Mamba configs are
-    refused by kind in the planner and the compiler,
-    ``test_lm_branches_wait_for_the_lm_slice`` and
-    ``test_lm_configs_wait_for_the_lm_slice``)."""
+def test_launcher_refuses_unported_arches(capsys, tmp_path, arch):
+    """The reference's last configs are in the port's registry: the launcher
+    compiles each at full depth under a uniform spec on the ``meta`` device
+    (no weights drawn, no proxy error), with one site per quantized
+    projection and no fused group (every panel is over the budget); a
+    made-up arch exits 2 with the registry's error."""
+    out = tmp_path / "s.json"
+    assert tcompile.main(["--device", "cpu", "--arch", arch, "--spec", "w4a8:fused",
+                          "--out", str(out)]) == 0
+    assert f"compiled {arch} x w4a8:fused" in capsys.readouterr().out
+    sched = KernelSchedule.load(out)
+    cfg = get_config(arch)
+    assert sched.arch == arch and not sched.groups
+    mixer = {s.site.rsplit(".", 1)[1] for s in sched.sites if ".mixer." in s.site}
+    assert mixer == ({"wq", "wk", "wv", "wo", "w_in", "w_out"} if "mamba" in cfg.pattern
+                     else {"wq", "wk", "wv", "wo"})
     with pytest.raises(SystemExit) as e:
-        tcompile.main(["--device", "cpu", "--arch", arch])
+        tcompile.main(["--device", "cpu", "--arch", arch + "-x"])
     err = capsys.readouterr().err
-    assert e.value.code == 2 and f"unknown arch {arch!r}" in err
-    assert "ROADMAP.md queue 1 (items 7c and 9)" in err
+    assert e.value.code == 2 and f"unknown arch {arch + '-x'!r}" in err

@@ -97,7 +97,10 @@ def _rel(got, want):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["phi3-mini-3.8b", PHI3, "paligemma-3b", PALI])
+@pytest.mark.parametrize("name", ["phi3-mini-3.8b", PHI3, "paligemma-3b", PALI,
+                                  *(a + s for a in ("internlm2-20b", "starcoder2-7b",
+                                                    "musicgen-large", "jamba-v0.1-52b")
+                                    for s in ("", "-smoke"))])
 def test_configs_match_reference(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
 

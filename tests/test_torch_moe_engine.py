@@ -10,10 +10,10 @@ one loses it, and a prefill's capacity follows the wave's token count.  The
 reference's own bucket and continuous modes therefore disagree on these
 requests (``test_modes_differ_in_the_reference_too``), and each of the
 port's modes is held against the reference's same mode on the same
-requests in the same order.  Also: the launcher serves the config, Mamba
-is still refused, an MLA stack on the MoE FFN serves as the reference's
-does, and an embedding-input config constructs in bucket mode as the
-reference's does.
+requests in the same order.  Also: the launcher serves the config, a
+Mamba stack on the MoE FFN (jamba's layout) and an MLA one serve as the
+reference's do, and an embedding-input config constructs in bucket mode as
+the reference's does.
 """
 import functools
 
@@ -132,7 +132,8 @@ def test_launcher_serves_deepseek_moe_without_jax():
 
 
 @pytest.mark.parametrize("kw,item", [(dict(mla=True), "item 7b"),
-                                     (dict(pattern=("attn", "mamba"), n_layers=4), "item 9"),
+                                     (dict(pattern=("attn", "mamba"), n_layers=4,
+                                           first_dense=0), "item 9"),
                                      (dict(embed_inputs=True), "embedding inputs")])
 def test_other_unported_kinds_still_raise(kw, item):
     jcfg, cfg, jp, tp = _setup()
@@ -161,5 +162,15 @@ def test_other_unported_kinds_still_raise(kw, item):
         with pytest.raises(ValueError, match="mode='continuous' needs"):
             Engine(cfg.with_(**kw), tp, max_len=32, mode="continuous", device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(cfg.with_(**kw), tp, max_len=32, device="cpu")
+    # item 9, ported: Mamba beside attention on the MoE FFN constructs in
+    # bucket mode on both sides, for the same reason, and the port serves
+    # it (jamba's ids against the reference's: tests/test_torch_zoo_jamba.py)
+    jcfg, cfg = jcfg.with_(**kw), cfg.with_(**kw)
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    jeng = JEngine(jcfg, jp, max_len=32)
+    teng = Engine(cfg, params_from_numpy(flatten_jax(jp)), max_len=32, device="cpu")
+    assert not jeng.continuous and not teng.continuous
+    assert teng.stats.mode.startswith("bucket (mode='auto': pattern ('attn', 'mamba')")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    got = np.asarray(teng.generate(prompts, 4))
+    assert got.shape == (2, 4) and ((got >= 0) & (got < cfg.vocab_size)).all()

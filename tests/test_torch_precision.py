@@ -189,10 +189,11 @@ def test_proxy_recon_error_orders_the_levels():
                                      (dict(pattern=("attn", "mamba"), n_layers=4), "item 9")],
                          ids=["gqa", "mla", "mamba"])
 def test_lm_branches_wait_for_the_lm_slice(kw, item):
-    """The LM slice has landed for GQA stacks (and rwkv, MoE and MLA ones,
-    held against the reference in ``tests/test_torch_lm_planner.py``): the
-    site walk and the proxy error run; Mamba layers wait for their ROADMAP
-    item."""
+    """The LM slice has landed for every layer kind (rwkv, MoE, MLA and
+    Mamba stacks held against the reference in
+    ``tests/test_torch_lm_planner.py`` and ``tests/test_torch_zoo_jamba.py``):
+    the site walk and the proxy error run; a Mamba layer's sites are
+    ``w_in`` and ``w_out``."""
     cfg = get_config("qwen3-14b-smoke").with_(**kw)
     if item == "item 7b":  # ported: deepseek-v2-lite-16b-smoke's MLA
         cfg = get_config("deepseek-v2-lite-16b-smoke")
@@ -211,7 +212,13 @@ def test_lm_branches_wait_for_the_lm_slice(kw, item):
         assert all(s.count == cfg.n_layers for s in sites)
         assert 0.0 < tpl.proxy_recon_error(cfg, params, PrecisionPlan(default="w4a8")) < 1.0
         return
-    for fn in (lambda: tpl.enumerate_sites(cfg, {}),
-               lambda: tpl.proxy_recon_error(cfg, {}, PrecisionPlan())):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    # item 9, ported: the Mamba layer's two sites
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+    sites = tpl.enumerate_sites(cfg, params)
+    assert [s.site for s in sites if ".mixer." in s.site] == [
+        f"blocks.l0.mixer.{n}" for n in ("wq", "wk", "wv", "wo")] + [
+        "blocks.l1.mixer.w_in", "blocks.l1.mixer.w_out"]
+    di = cfg.mamba_expand * cfg.d_model
+    assert [(s.d_in, s.d_out, s.count) for s in sites if ".mixer.w_" in s.site] == [
+        (cfg.d_model, 2 * di, 2), (di, cfg.d_model, 2)]
+    assert 0.0 < tpl.proxy_recon_error(cfg, params, PrecisionPlan(default="w4a8")) < 1.0

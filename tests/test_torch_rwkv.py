@@ -268,5 +268,10 @@ def test_pad_lens_and_mamba_refused():
     with pytest.raises(ValueError, match="attention-only"):
         lm.forward(cfg, tp, torch.zeros((1, 4), dtype=torch.long),
                    pad_lens=torch.zeros(1, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        lm.init_params(cfg.with_(pattern=("rwkv", "mamba")), torch.Generator().manual_seed(0))
+    # a Mamba layer beside rwkv builds, and pad_lens is refused there too
+    hybrid = cfg.with_(pattern=("rwkv", "mamba"))
+    hp = lm.init_params(hybrid, torch.Generator().manual_seed(0))
+    assert "a_log" in hp["blocks"]["l1"]["mixer"]
+    with pytest.raises(ValueError, match="attention-only"):
+        lm.forward(hybrid, hp, torch.zeros((1, 4), dtype=torch.long),
+                   pad_lens=torch.zeros(1, dtype=torch.long))
