@@ -24,6 +24,11 @@ launch (:func:`launch_tiles`) — a schedule compiled for the TPU, say —
 rather than ignore them.
 
 On CPU tensors the kernel modules run their plain PyTorch versions.
+
+No kernel has a backward (the reference defines none either), so every
+wrapper refuses a tensor that requires grad, on both devices: on the CPU
+the plain version would backpropagate while the card's kernel returned a
+tensor with no ``grad_fn``.  Serve a trained tree from detached tensors.
 """
 from __future__ import annotations
 
@@ -58,6 +63,16 @@ _LAUNCH_TILES = {
 }
 
 
+def _no_grad(wrapper: str, *tensors) -> None:
+    """Raise if any tensor (or a ``QTensor``'s fields) requires grad."""
+    for t in tensors:
+        leaves = (t.values, t.scale) if isinstance(t, QTensor) else (t,)
+        if any(isinstance(x, torch.Tensor) and x.requires_grad for x in leaves):
+            raise RuntimeError(
+                f"{wrapper}: got a tensor that requires grad, but no kernel has a backward "
+                "(the reference defines none); detach the inputs and parameters first")
+
+
 def launch_tiles(kernel: str, tiles=None) -> dict[str, int]:
     """The tiles ``kernel``'s CUDA kernel launches with.  ``tiles`` (a dict
     or a schedule's ``(name, size)`` pairs) may name any of them at their
@@ -87,6 +102,7 @@ def quant_linear_matmul(
     reference's ``vmap`` over the kernel; leading axes of x beyond E are
     dispatch blocks sharing the same experts).
     """
+    _no_grad("quant_linear_matmul", x, wq)
     launch_tiles("quant_matmul", tiles)
     lead = tuple(x.shape[:-1])
     k = x.shape[-1]
@@ -119,6 +135,7 @@ def two_stage_mha(
     keeps it.  Returns [B, H, Lq, dh] float32.  ``tiles``: see
     :func:`launch_tiles`.
     """
+    _no_grad("two_stage_mha", q, k, v)
     launch_tiles("two_stage_attention", tiles)
     b, h, lq, dh = q.shape
     hkv, lk = k.shape[1], k.shape[2]
@@ -151,6 +168,7 @@ def two_stage_mha(
 
 def online_wht_2d(x: torch.Tensor, **kw) -> torch.Tensor:
     """Blocked WHT kernel along the last axis of float [..., d]."""
+    _no_grad("online_wht_2d", x)
     lead = tuple(x.shape[:-1])
     d = x.shape[-1]
     return _wht.wht(x.reshape(-1, d), **kw).reshape(lead + (d,))
@@ -177,6 +195,7 @@ def fused_linear(x, p, *, tiles=None):
     epilogue requantizes.  ``tiles`` (default: the site's own
     ``p.tiles``): see :func:`launch_tiles`.
     """
+    _no_grad("fused_linear", x, p.qw, p.bias, p.norm_u)
     launch_tiles("fused_matmul", getattr(p, "tiles", None) if tiles is None else tiles)
     pro, epi = p.prologue, p.epilogue
     prequant = isinstance(x, QTensor)
@@ -217,6 +236,7 @@ def fused_ffn_apply(x: torch.Tensor, f, *, tiles=None) -> torch.Tensor:
     (default: the member sites' ``tiles``, which a schedule sets to its
     FFN group's): see :func:`launch_tiles`."""
     members = (f.w_up, f.w_down) + (() if f.w_gate is None else (f.w_gate,))
+    _no_grad("fused_ffn_apply", x, f.norm_u, *[t for m in members for t in (m.qw, m.bias)])
     for t in [tiles] if tiles is not None else [getattr(m, "tiles", None) for m in members]:
         launch_tiles("fused_ffn", t)
     lead = tuple(x.shape[:-1])
@@ -267,6 +287,7 @@ def norm_quant_prologue(
     blocked WHT → per-token quantization, one launch.  Returns a
     per-token-scaled ``QTensor`` ready for :func:`fused_linear` (share it
     across co-located projections, e.g. Q/K/V)."""
+    _no_grad("norm_quant_prologue", x, norm_u)
     lead = tuple(x.shape[:-1])
     d = x.shape[-1]
     qv, qs = _fused.norm_quant(

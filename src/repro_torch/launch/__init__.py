@@ -1,1 +1,1 @@
-"""Launchers of the port (VGGT serving so far)."""
+"""Launchers of the port: serving, schedule compilation and training."""

@@ -6,6 +6,7 @@ VersaQ-quantized (``QuantLinear``/``FoldedNorm`` params).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -24,6 +25,7 @@ __all__ = [
     "sincos_positions",
     "gelu",
     "silu",
+    "remat",
 ]
 
 dense = apply_linear
@@ -101,3 +103,32 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+# matmul outputs a "dots" checkpoint keeps (JAX's ``dots_saveable`` policy)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy):
+    """``fn`` activation-checkpointed as the reference's ``jax.checkpoint``
+    of a scan body: ``policy`` False/None (keep everything), True (keep
+    only the inputs, recompute the rest in the backward) or ``"dots"`` /
+    ``"dots_saveable"`` (also keep every matmul's output).  Without grad
+    mode there is nothing to keep, and ``fn`` runs as it is."""
+    if not policy or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if policy in ("dots", "dots_saveable"):
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif policy is not True:
+        raise ValueError(f"remat={policy!r}: expected False, True, 'dots' or 'dots_saveable'")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)

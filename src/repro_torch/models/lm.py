@@ -22,6 +22,7 @@ time axis.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -355,10 +356,14 @@ def forward(
     cache: Optional[dict] = None,
     mode: str = "full",
     pad_lens: Optional[torch.Tensor] = None,
+    remat: bool | str = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Full/prefill/decode forward.
 
     inputs: [B, L] int tokens (or [B, L, d] embeddings for stub frontends).
+    ``remat`` (without a cache): activation-checkpoint each scan group
+    (training memory), True or ``"dots"``/``"dots_saveable"`` to keep the
+    matmul outputs too (``layers.remat``).
     ``pad_lens``: [B] int LEFT-pad count per row — the serving engine's
     prompt-length buckets pad prompts on the left so the last real token
     always sits in the last slot.  Per-row RoPE positions shift back by the
@@ -395,32 +400,37 @@ def forward(
         new_prefix.append(c2)
 
     period = len(cfg.pattern)
+    # the reference's scan body takes each pattern position's FFN kind from
+    # the first group (``ffn_kind(first_dense + j)``)
+    fks = [ffn_kind(cfg, cfg.first_dense + j) for j in range(period)]
+    kw = dict(positions=positions, mode=mode, pad_lens=pad_lens, token_mask=token_mask)
     new_blocks = {}
-    for g in range(n_scan_groups(cfg)):  # the reference's lax.scan over groups
-        gp = tree_index(params["blocks"], g)
-        for j in range(period):
-            name, kind = f"l{j}", cfg.pattern[j]
-            c = full = None
-            if cache is not None:
+    if cache is None:
+        def group(gp, xc):
+            for j in range(period):
+                xc, _ = _apply_layer(cfg, gp[f"l{j}"], cfg.pattern[j], fks[j], xc, **kw)
+            return xc
+
+        for g in range(n_scan_groups(cfg)):  # the reference's lax.scan over groups
+            x = L.remat(functools.partial(group, tree_index(params["blocks"], g)), remat)(x)
+    else:
+        for g in range(n_scan_groups(cfg)):
+            gp = tree_index(params["blocks"], g)
+            for j in range(period):
+                name, kind = f"l{j}", cfg.pattern[j]
                 full = cache["blocks"][name]
                 if kind == "attn":
                     c = A.KVCache(full.k[g], full.v[g], full.k_scale[g], full.v_scale[g],
                                   full.length)
                 else:  # a recurrent state: the group's views of its [G, B, ...] leaves
                     c = type(full)(*(leaf[g] for leaf in full))
-            # the reference's scan body takes each pattern position's FFN
-            # kind from the first group (``ffn_kind(first_dense + j)``)
-            x, c2 = _apply_layer(cfg, gp[name], kind, ffn_kind(cfg, cfg.first_dense + j), x,
-                                 positions=positions, cache=c, mode=mode, pad_lens=pad_lens,
-                                 token_mask=token_mask)
-            if c2 is None:
-                continue
-            if kind == "attn":  # the group's view was written in place
-                new_blocks[name] = full._replace(length=c2.length)
-            else:  # write the group's state in place
-                for view, new in zip(c, c2):
-                    view.copy_(new)
-                new_blocks[name] = full
+                x, c2 = _apply_layer(cfg, gp[name], kind, fks[j], x, cache=c, **kw)
+                if kind == "attn":  # the group's view was written in place
+                    new_blocks[name] = full._replace(length=c2.length)
+                else:  # write the group's state in place
+                    for view, new in zip(c, c2):
+                        view.copy_(new)
+                    new_blocks[name] = full
 
     x = L.norm(params["final_norm"], x)
     if cfg.tie_embeddings:

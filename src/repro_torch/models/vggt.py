@@ -16,6 +16,7 @@ reference; its ``lax.scan`` becomes a Python loop that indexes the group.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -26,7 +27,7 @@ from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_index, tree_leaves, tree_stack
 
-__all__ = ["N_POSE", "init_params", "token_mask", "forward"]
+__all__ = ["N_POSE", "init_params", "token_mask", "forward", "reconstruction_loss"]
 
 N_POSE = 9  # rotation quaternion (4) + translation (3) + focal (2)
 
@@ -124,6 +125,7 @@ def forward(
     *,
     patch_mask: torch.Tensor | None = None,
     frame_mask: torch.Tensor | None = None,
+    remat: bool | str = False,
 ) -> dict[str, Any]:
     """patch_embeds: [B, S, P, d] (stub DINO features).
 
@@ -132,6 +134,10 @@ def forward(
     tokens are excluded from every attention softmax, so valid-token
     outputs equal the unpadded forward; head outputs at masked positions
     are garbage and must be sliced off by the caller.
+
+    ``remat``: activation-checkpoint each AA pair (training memory: only
+    the stream between pairs is kept), True or ``"dots"`` to keep the
+    matmul outputs too (``layers.remat``).
 
     Returns dict with pose [B,S,9], depth [B,S,P], points [B,S,P,3],
     conf [B,S,P], tokens [B,S,T,d].
@@ -146,12 +152,14 @@ def forward(
     fmask = None if tmask is None else tmask.reshape(b * s, t)
     gmask = None if tmask is None else tmask.reshape(b, s * t)
 
+    def pair(gp, xc):
+        xc = _block(gp["frame"], cfg, xc.reshape(b * s, t, d), kv_mask=fmask)  # frame-wise
+        xc = _block(gp["global"], cfg, xc.reshape(b, s * t, d), kv_mask=gmask)  # global
+        return xc.reshape(b, s, t, d)
+
     blocks = params["blocks"]
     for gi in range(tree_leaves(blocks)[0].shape[0]):
-        gp = tree_index(blocks, gi)
-        x = _block(gp["frame"], cfg, x.reshape(b * s, t, d), kv_mask=fmask)  # frame-wise
-        x = _block(gp["global"], cfg, x.reshape(b, s * t, d), kv_mask=gmask)  # global
-        x = x.reshape(b, s, t, d)
+        x = L.remat(functools.partial(pair, tree_index(blocks, gi)), remat)(x)
     x = L.norm(params["final_norm"], x)
 
     cam_tok = x[:, :, 0, :]  # [B, S, d]
@@ -169,3 +177,17 @@ def forward(
         "conf": torch.sigmoid(out[..., 4]),
         "tokens": x,
     }
+
+
+def reconstruction_loss(cfg: ModelConfig, params: dict, batch: dict, *,
+                        remat: bool | str = False) -> torch.Tensor:
+    """Multi-task training loss: the mean squared errors of pose, depth
+    and points, summed.  ``batch``: ``scene_batch``'s arrays (numpy or
+    tensors), taken to the parameters' device."""
+    dev = params["special_tokens"].device
+    b = {k: torch.as_tensor(batch[k], device=dev) for k in ("patches", "pose", "depth", "points")}
+    out = forward(cfg, params, b["patches"], remat=remat)
+    lp = torch.mean((out["pose"] - b["pose"]) ** 2)
+    ld = torch.mean((out["depth"] - b["depth"]) ** 2)
+    lx = torch.mean((out["points"] - b["points"]) ** 2)
+    return lp + ld + lx

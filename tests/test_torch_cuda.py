@@ -1213,3 +1213,38 @@ def test_mla_absorbed_decode_on_the_card_matches_cpu(dev, policy):
     assert _rel(got.cpu(), want) < 1e-5, _rel(got.cpu(), want)
     d = (card_c.k.cpu().to(torch.int32) - cpu_c.k.to(torch.int32)).abs()
     assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1
+
+
+# One train step (``runtime.trainer.make_train_step``: autograd, then AdamW
+# in place) on the card against the same step on the CPU, from the same
+# weights and batch, TF32 off: the loss and every updated leaf, at the
+# bounds of tests/test_torch_train.py's parity with the JAX package.
+@pytest.mark.parametrize("arch", ["qwen3-14b-smoke", "vggt-1b-smoke"])
+def test_train_step_on_the_card_matches_cpu(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, scene_batch, token_batch
+    from repro_torch.models import lm, vggt
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import make_train_step
+    from repro_torch.tree import tree_map, tree_paths
+
+    cfg = get_config(arch)
+    if cfg.vggt:
+        cpu = vggt.init_params(cfg, torch.Generator().manual_seed(0))
+        batch = scene_batch(2, 2, 16, cfg.d_model, 3)
+        loss_fn = lambda p, b: vggt.reconstruction_loss(cfg, p, b)  # noqa: E731
+    else:
+        cpu = lm.init_params(cfg, torch.Generator().manual_seed(0))
+        batch = token_batch(DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=16), 3)
+        loss_fn = None
+    card = tree_map(lambda x: x.to(dev, copy=True), cpu)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10),
+                           loss_fn)
+    cpu, _, m_cpu = step(cpu, adamw.init(cpu), batch)
+    card, _, m_card = step(card, adamw.init(card), batch)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-5 * abs(float(m_cpu["loss"]))
+    want = tree_paths(cpu)
+    for path, x in tree_paths(card).items():
+        w = want[path].double()
+        rel = float((x.cpu().double() - w).norm() / w.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, (path, rel)

@@ -146,30 +146,32 @@ def _rel_to(a, b, ref) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(ref))
 
 
-def _hold_proxy(jcfg, cfg, jp, tp, lv, x, bound, **kw):
-    """The port's proxy error of uniform ``lv`` on the inputs ``x`` (numpy
-    tokens or floats) against the reference's.  The port's quantized logits
-    must lie within ``bound`` of the nearer of the reference's eager and
-    jitted runs; the errors then agree to ``REL_ERR`` against that run's,
-    outright where the gap is float noise (``<= REL_ERR``), else give or
-    take the gap."""
+def _hold_proxy(jcfg, cfg, jp, tp, levels, x, bound, **kw):
+    """The port's proxy error of each uniform level in ``levels`` on the
+    inputs ``x`` (numpy tokens or floats) against the reference's.  The
+    port's quantized logits must lie within ``bound`` of the nearer of the
+    reference's eager and jitted runs; the errors then agree to ``REL_ERR``
+    against that run's, outright where the gap is float noise (``<=
+    REL_ERR``), else give or take the gap.  The reference's fp forward runs
+    once for all levels."""
     xj, tx = jnp.asarray(x), torch.as_tensor(x)
     tx = tx if tx.is_floating_point() else tx.long()
     ref = np.asarray(jlm.forward(jcfg, jp, xj)[0])
-    jt = j_quantize_lm(jcfg, jp, jplan_mod.PrecisionPlan(default=lv))
-    runs = [np.asarray(jlm.forward(jcfg, jt, xj)[0]),
-            np.asarray(jax.jit(lambda p, v: jlm.forward(jcfg, p, v)[0])(jt, xj))]
-    want_eager = jpl.proxy_recon_error(jcfg, jp, jplan_mod.PrecisionPlan(default=lv), **kw)
-    assert _rel_to(runs[0], ref, ref) == pytest.approx(want_eager, rel=1e-6)
-    got = tpl.proxy_recon_error(cfg, tp, PrecisionPlan(default=lv), inputs=tx)
-    with torch.inference_mode():
-        tq = lm.forward(cfg, quantize_lm(cfg, tp, PrecisionPlan(default=lv)), tx)[0].numpy()
-    gaps = [_rel_to(tq, r, ref) for r in runs]
-    i = int(np.argmin(gaps))
-    gap, want = gaps[i], _rel_to(runs[i], ref, ref)
-    assert gap <= bound, (lv, gaps, bound)
-    slack = gap if gap > REL_ERR else 0.0
-    assert abs(got - want) <= REL_ERR * want + slack, (lv, got, want, gaps)
+    for lv in levels:
+        jt = j_quantize_lm(jcfg, jp, jplan_mod.PrecisionPlan(default=lv))
+        runs = [np.asarray(jlm.forward(jcfg, jt, xj)[0]),
+                np.asarray(jax.jit(lambda p, v: jlm.forward(jcfg, p, v)[0])(jt, xj))]
+        want_eager = jpl.proxy_recon_error(jcfg, jp, jplan_mod.PrecisionPlan(default=lv), **kw)
+        assert _rel_to(runs[0], ref, ref) == pytest.approx(want_eager, rel=1e-6)
+        got = tpl.proxy_recon_error(cfg, tp, PrecisionPlan(default=lv), inputs=tx)
+        with torch.inference_mode():
+            tq = lm.forward(cfg, quantize_lm(cfg, tp, PrecisionPlan(default=lv)), tx)[0].numpy()
+        gaps = [_rel_to(tq, r, ref) for r in runs]
+        i = int(np.argmin(gaps))
+        gap, want = gaps[i], _rel_to(runs[i], ref, ref)
+        assert gap <= bound, (lv, gaps, bound)
+        slack = gap if gap > REL_ERR else 0.0
+        assert abs(got - want) <= REL_ERR * want + slack, (lv, got, want, gaps)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -183,8 +185,7 @@ def test_proxy_recon_error_matches_reference_on_its_tokens(arch):
                                           jnp.float32))
     else:
         toks = np.array(jax.random.randint(jax.random.PRNGKey(0), (2, 16), 0, jcfg.vocab_size))
-    for lv in ("w4a8", "w4a4", "w8a8"):
-        _hold_proxy(jcfg, cfg, jp, tp, lv, toks, GAP_BOUND[arch])
+    _hold_proxy(jcfg, cfg, jp, tp, ("w4a8", "w4a4", "w8a8"), toks, GAP_BOUND[arch])
     g = tpl.proxy_recon_error(cfg, tp, PrecisionPlan(default="w4a4"),
                               torch.Generator().manual_seed(3))
     assert g == tpl.proxy_recon_error(cfg, tp, PrecisionPlan(default="w4a4"),
@@ -203,8 +204,7 @@ def test_proxy_recon_error_takes_embedding_inputs():
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_numpy(flatten_jax(jp))
     x = np.array(jax.random.normal(jax.random.PRNGKey(0), (1, 8, cfg.d_model), jnp.float32))
-    for lv in ("w4a8", "w8a8"):
-        _hold_proxy(jcfg, cfg, jp, tp, lv, x, REL_L2_FLIP, batch=1, tokens=8)
+    _hold_proxy(jcfg, cfg, jp, tp, ("w4a8", "w8a8"), x, REL_L2_FLIP, batch=1, tokens=8)
 
 
 # ---------------------------------------------------------------------------
