@@ -299,6 +299,26 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    for bit; then ``python -m repro_torch.launch.train --steps 20
    --checkpoint-every 10`` and the same with ``--steps 30``, which resumes
    from step 20.  Prints its seconds.
+19. runs the multi-device layer at world size 1 (``phase_parallel``; NCCL
+   refuses two ranks on one device, so N > 1 runs only in the CPU tests on
+   gloo ranks): a one-rank NCCL group joined through a file and
+   ``make_local_mesh(1, 1)``; (a) qwen3-14b at ``LM_LAYERS`` layers, W4A8,
+   one [2, ``PARALLEL_SEQ``] scoring forward (two-stage attention) on the
+   unsharded tree and on the tree placed by ``sharding.distribute_tree``
+   under ``implicit_replication()``, its kernel sites on local shards
+   (``parallel/sites.py``): the same launches (7 ``quant_matmul`` and one
+   ``two_stage_attention`` a layer) and bit-equal logits; (b)
+   ``PARALLEL_DDP_STEPS`` steps each of ``make_train_step`` and
+   ``make_ddp_compressed_step`` at ``phase_train``'s qwen3-14b shapes from
+   the same seed-0 weights (ms a step, peak memory, the losses, the first
+   equal; the int8 wire bytes by ``compression.wire_bytes``); (c)
+   ``pipeline_apply`` at one stage equal to the stage applied alone.
+20. runs ``examples/torch_long_context.py``'s ``measure`` on the card
+   (``phase_long_context``): rwkv6-1.6b uncut and jamba-v0.1-52b at
+   ``JAMBA_LAYERS``, fp, batch 1, a 64-token prefill then 16 timed decode
+   steps at contexts 128, 512 and 2048: ms a token, the cache's bytes
+   (rwkv6's equal at every context) and jamba's int8 K/V bytes against
+   bf16 (exactly half).
 
 The configs of 16-17 serve on the CPU at their smoke sizes through the
 launcher, e.g. ``PYTHONPATH=src python -m repro_torch.launch.serve --device
@@ -307,7 +327,7 @@ cpu --arch jamba-v0.1-52b-smoke --tiers quality=fp,balanced=w4a8 --requests
 reason on its scheduler line; ``internlm2-20b-smoke``, ``starcoder2-7b-smoke``
 and ``musicgen-large-smoke`` serve continuous).
 
-Each of the paths 4-18 runs with the launch counts set to 0 just before it
+Each of the paths 4-20 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -391,6 +411,10 @@ TRAIN_STEPS, TRAIN_LM_LAYERS, TRAIN_LM_SEQ = 4, 4, 512
 # phase 18 (a): the card's train step against the CPU's, at the bounds of
 # tests/test_torch_train.py (the loss; each updated parameter leaf)
 TRAIN_LOSS_REL, TRAIN_PARAM_REL, REMAT_REL = 1e-5, 1e-4, 1e-6
+# phase 19: the sharded W4A8 forward's [2, PARALLEL_SEQ] tokens (qwen3-14b at
+# LM_LAYERS); PARALLEL_DDP_STEPS steps each of the plain and the compressed
+# DDP train step at phase 18's qwen3-14b shapes
+PARALLEL_SEQ, PARALLEL_DDP_STEPS = 512, 3
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
@@ -462,6 +486,8 @@ def main() -> int:
     paths["dense_zoo"] = phase_dense_zoo(torch, dev)
     paths["jamba"] = phase_jamba(torch, dev)
     paths["train"] = phase_train(torch, dev)
+    paths["parallel"] = phase_parallel(torch, dev)
+    paths["long_context"] = phase_long_context(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -4386,6 +4412,206 @@ def phase_train(torch, dev) -> dict:
         print(f"train (f) launcher: {time.perf_counter() - t0:.1f}s")
     print(f"train: phase {time.perf_counter() - t_phase:.1f}s")
     return {"counts": counts, "runs": calls, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the multi-device layer at world size 1
+# ---------------------------------------------------------------------------
+
+
+def _process_group(torch, dev, path: str):
+    """A one-rank process group: NCCL on the card (gloo for a CPU
+    rehearsal), joined through a file."""
+    import torch.distributed as dist
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    kw = {"device_id": torch.device("cuda", torch.cuda.current_device())} if dev.type == "cuda" \
+        else {}
+    dist.init_process_group(backend, init_method=f"file://{path}", rank=0, world_size=1, **kw)
+    return backend
+
+
+def _timed(torch, dev, fn):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_parallel(torch, dev) -> dict:
+    """See the module docstring (19)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_lm
+    from repro_torch.core.precision import PrecisionPlan
+    from repro_torch.data.pipeline import DataConfig, token_batch
+    from repro_torch.kernels import probe
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression, sharding
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.runtime.trainer import lm_loss, make_ddp_compressed_step, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = _process_group(torch, dev, os.path.join(tmp, "pg"))
+        try:
+            mesh = make_local_mesh(1, 1, device_type=dev.type)
+            print(f"parallel: world size 1 over {backend}, mesh {tuple(mesh.shape)} "
+                  f"{mesh.mesh_dim_names}")
+
+            # (a) qwen3-14b W4A8, one [2, PARALLEL_SEQ] scoring forward (two-stage
+            # attention) sharded and not
+            full = get_config("qwen3-14b")
+            cfg = full.with_(n_layers=LM_LAYERS, attn_impl="two_stage")
+            t0 = time.perf_counter()
+            raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            with torch.no_grad():
+                params = quantize_lm(cfg, raw, PrecisionPlan(default="w4a8", use_kernel=True))
+            del raw
+            gen = torch.Generator(device=dev).manual_seed(5)
+            toks = torch.randint(0, cfg.vocab_size, (2, PARALLEL_SEQ), generator=gen, device=dev)
+            with torch.no_grad(), probe.tracking() as log1:
+                want, ms1 = _timed(torch, dev, lambda: lm.forward(cfg, params, toks)[0])
+            sharded = sharding.distribute_tree(params, mesh)
+            stoks = sharding.distribute_tree(
+                toks, mesh, lambda p, x: (sharding.batch_axes(mesh), None))
+            with torch.no_grad(), implicit_replication(), probe.tracking() as log2:
+                got, ms2 = _timed(torch, dev, lambda: lm.forward(cfg, sharded, stoks)[0])
+            got = got.full_tensor()
+            for k, v in log2.by_name().items():
+                counts[k] = counts.get(k, 0) + v
+            same = torch.equal(got, want)
+            print(f"parallel (a) qwen3-14b ({LM_LAYERS} of {full.n_layers} layers) W4A8 "
+                  f"[2, {PARALLEL_SEQ}]: unsharded {ms1:.1f} ms {log1.by_name()}, sharded route "
+                  f"{ms2:.1f} ms {log2.by_name()}; logits bit-equal: {same} (max |diff| "
+                  f"{float((got - want).abs().max()):.3g}); {time.perf_counter() - t0:.1f}s")
+            _check(log1.by_name() == {"quant_matmul": 7 * LM_LAYERS,
+                                      "two_stage_attention": LM_LAYERS},
+                   f"parallel (a): unsharded launches {log1.by_name()}")
+            _check(log2.by_name() == log1.by_name(),
+                   f"parallel (a): sharded launches {log2.by_name()} vs {log1.by_name()}")
+            _check(same and bool(torch.isfinite(got).all()), "parallel (a): logits differ")
+            del params, sharded, want, got
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) compressed DDP against the plain step at phase_train's shapes
+            lcfg = full.with_(n_layers=TRAIN_LM_LAYERS)
+            t0 = time.perf_counter()
+            opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=10)
+            loss_fn = functools.partial(lm_loss, lcfg, remat=True)
+            dc = DataConfig(vocab_size=lcfg.vocab_size, batch=2, seq_len=TRAIN_LM_SEQ)
+            res = {}
+            for name in ("plain", "ddp"):  # each from the same seed-0 weights
+                lp = lm.init_params(lcfg, torch.Generator(device=dev).manual_seed(0))
+                n_params = sum(x.numel() for x in tree_leaves(lp))
+                opt = adamw.init(lp)
+                if name == "plain":
+                    step = make_train_step(lcfg, opt_cfg, loss_fn)
+                    run = lambda s: step(lp, opt, token_batch(dc, s))  # noqa: E731
+                else:
+                    err = compression.init_error_state(lp)
+                    step = make_ddp_compressed_step(lcfg, opt_cfg, mesh, loss_fn=loss_fn)
+                    run = lambda s: step(lp, opt, err, token_batch(dc, s))  # noqa: E731
+                torch.cuda.reset_peak_memory_stats()
+                times, losses = [], []
+                for s in range(PARALLEL_DDP_STEPS):
+                    out, ms = _timed(torch, dev, lambda: run(s))
+                    times.append(ms)
+                    losses.append(float(out[-1]["loss"]))
+                res[name] = (times, losses, torch.cuda.max_memory_allocated() / 2**30)
+                wire = compression.wire_bytes(lp, 1)
+                del opt, step, run, out, lp
+                if name == "ddp":
+                    del err
+                gc.collect()
+                torch.cuda.empty_cache()
+            for name, (times, losses, peak) in res.items():
+                print(f"parallel (b) qwen3-14b ({TRAIN_LM_LAYERS} layers, {n_params / 1e9:.3f} B "
+                      f"parameters) [2, {TRAIN_LM_SEQ}] {name}: {PARALLEL_DDP_STEPS} steps "
+                      f"{[f'{t:.1f}' for t in times]} ms, median warm "
+                      f"{statistics.median(times[1:]):.1f} ms; losses "
+                      f"{[f'{x:.5f}' for x in losses]}; peak memory {peak:.2f} GiB")
+            print(f"parallel (b): int8 bytes on the wire a step by compression.wire_bytes "
+                  f"(N (1 + 1/n) at n = 1): {wire / 1e9:.3f} GB, against {8 * n_params / 1e9:.3f}"
+                  f" GB for an f32 ring all-reduce (2 N 4); {time.perf_counter() - t0:.1f}s")
+            _check(all(math.isfinite(x) for x in res["ddp"][1] + res["plain"][1]),
+                   "parallel (b): a loss is not finite")
+            _check(abs(res["ddp"][1][0] - res["plain"][1][0]) <= 1e-5 * abs(res["plain"][1][0]),
+                   f"parallel (b): first losses {res['ddp'][1][0]} vs {res['plain'][1][0]}")
+
+            # (c) the pipeline at one stage
+            pmesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("pipe",))
+            g = torch.Generator(device=dev).manual_seed(6)
+            w = torch.randn((1, 1024, 1024), generator=g, device=dev) * 0.03
+            x = torch.randn((8, 1024), generator=g, device=dev)
+            fn = lambda p, h: torch.tanh(h @ p)  # noqa: E731
+            got = pipeline_apply(pmesh, fn, w, x, n_micro=4)
+            alone = torch.cat([fn(w[0], xm) for xm in x.reshape(4, 2, 1024)])
+            print(f"parallel (c) pipeline_apply at S=1, 4 microbatches: equal to the stage "
+                  f"alone: {torch.equal(got, alone)}")
+            _check(torch.equal(got, alone), "parallel (c): the pipeline differs")
+        finally:
+            dist.destroy_process_group()
+    print(f"parallel: phase {time.perf_counter() - t_phase:.1f}s")
+    return {"counts": counts, "runs": 1, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: long-context decode (examples/torch_long_context.py)
+# ---------------------------------------------------------------------------
+
+
+def phase_long_context(torch, dev) -> dict:
+    """See the module docstring (20)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_long_context as ex
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    for arch, cut in (("rwkv6-1.6b", None), ("jamba-v0.1-52b", JAMBA_LAYERS)):
+        full = get_config(arch)
+        cfg = full if cut is None else full.with_(n_layers=cut)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        got = {}
+        for ctx in ex.CONTEXTS:
+            ms, got[ctx] = ex.measure(cfg, params, ctx, dev)
+            line = (f"long context {arch} ({cfg.n_layers} of {full.n_layers} layers) ctx "
+                    f"{ctx}: {ms:.2f} ms/token over {ex.DECODE} decode steps after a "
+                    f"{ex.PROMPT}-token prefill, cache {got[ctx]} bytes")
+            if "attn" in cfg.pattern:
+                i8, bf = ex.kv_bytes(cfg, ctx, torch.int8), ex.kv_bytes(cfg, ctx, torch.bfloat16)
+                line += f"; K/V int8 {i8} bytes vs bf16 {bf} ({i8 / bf:.2f}x)"
+                _check(2 * i8 == bf, f"long context {arch}: int8 K/V {i8} vs bf16 {bf}")
+            print(line)
+            _check(math.isfinite(ms) and ms > 0, f"long context {arch}: {ms} ms")
+        if "attn" not in cfg.pattern:
+            _check(len(set(got.values())) == 1, f"long context {arch}: cache bytes {got}")
+        print(f"long context {arch}: {time.perf_counter() - t0:.1f}s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"long context: phase {time.perf_counter() - t_phase:.1f}s")
+    return {"counts": {}, "runs": 1, "inplace": {}}
 
 
 if __name__ == "__main__":

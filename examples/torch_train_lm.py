@@ -3,9 +3,12 @@ and the straggler watchdog (the port of ``examples/train_lm.py``).
 
 Kill it mid-run and re-run: it resumes from the last checkpoint and
 reproduces the uninterrupted loss curve (step-seeded data).  The
-reference's compressed data-parallel gradients wait for the port's
-multi-device layer.  It trains on the CUDA device unless ``--device cpu``
-is given; the default ``--ckpt`` lies under the temporary directory.
+compressed data-parallel step the reference names beside this example is
+``runtime.trainer.make_ddp_compressed_step`` (int8 error-feedback
+gradient all-reduce over a ``DeviceMesh`` axis, ``parallel/compression.py``);
+this example trains on one device.  It trains on the CUDA device unless
+``--device cpu`` is given; the default ``--ckpt`` lies under the temporary
+directory.
 
 Run:  PYTHONPATH=src python examples/torch_train_lm.py --steps 300 [--device cpu]
 """

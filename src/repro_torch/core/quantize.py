@@ -113,7 +113,7 @@ def pack_int4(v: torch.Tensor, axis: int = 0) -> torch.Tensor:
     n = v.shape[axis] // 2
     a = v.narrow(axis, 0, n).to(torch.uint8) & 0xF
     b = v.narrow(axis, n, n).to(torch.uint8) & 0xF
-    return a | (b << 4)
+    return a | torch.bitwise_left_shift(b, 4)
 
 
 def unpack_int4(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
@@ -121,7 +121,9 @@ def unpack_int4(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
     if p.dtype != torch.uint8:
         raise TypeError(f"unpack_int4 expects uint8, got {p.dtype}")
     lo = (p & 0xF).to(torch.int8)
-    hi = (p >> 4).to(torch.int8)
+    # torch.bitwise_right_shift, not ``>>``: on a DTensor ``>>`` returns the
+    # byte unshifted
+    hi = torch.bitwise_right_shift(p, 4).to(torch.int8)
     # sign-extend 4-bit two's complement
     lo = torch.where(lo > 7, lo - 16, lo)
     hi = torch.where(hi > 7, hi - 16, hi)

@@ -21,6 +21,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import is_dtensor
+
 __all__ = [
     "hadamard_matrix",
     "dct_matrix",
@@ -100,6 +102,10 @@ def fast_wht(x: torch.Tensor, block: int | None = None) -> torch.Tensor:
     """
     dim = x.shape[-1]
     b = block or block_size_for(dim)
+    if is_dtensor(x):  # a sharded path: each rank's rows, whole blocks
+        from repro_torch.parallel.sharding import local_rows
+
+        return local_rows(functools.partial(fast_wht, block=b), x, b)
     nblk = dim // b
     lead = tuple(x.shape[:-1])
     h = 1
@@ -128,6 +134,10 @@ def apply_blocked(x: torch.Tensor, mat: torch.Tensor, block: int) -> torch.Tenso
     dim = x.shape[-1]
     if dim % block:
         raise ValueError(f"dim {dim} is not a multiple of block {block}")
+    if is_dtensor(x):  # a sharded path: each rank's rows, whole blocks
+        from repro_torch.parallel.sharding import local_rows
+
+        return local_rows(lambda t: apply_blocked(t, mat, block), x, block)
     lead = tuple(x.shape[:-1])
     y = x.reshape(lead + (dim // block, block)) @ mat.to(x.dtype)
     return y.reshape(lead + (dim,))

@@ -152,6 +152,7 @@ def quant_matmul(
     xv [M,K] int8, xs [M,1] (or [M]) f32, ws [1,N] (or [N]) f32;
     wv [K,N] int8, or [K//2,N] uint8 when ``packed``.
     """
+    _build.refuse_dtensor("quant_matmul", xv, xs, wv, ws)
     if xv.device.type == "cpu":
         return quant_matmul_plain(xv, xs, wv, ws, packed=packed)
     if xv.device.type != "cuda":
@@ -172,6 +173,7 @@ def quant_matmul_batched(
     xv [B,M,K] int8, xs [B,M,1] (or [B,M]) f32; wv [E,K,N] int8, or
     [E,K//2,N] uint8 when ``packed``; ws [E,1,N] (or [E,N]) f32; E divides B.
     """
+    _build.refuse_dtensor("quant_matmul_batched", xv, xs, wv, ws)
     if xv.device.type == "cpu":
         return quant_matmul_batched_plain(xv, xs, wv, ws, packed=packed)
     if xv.device.type != "cuda":

@@ -149,6 +149,7 @@ def two_stage_attention(
     *query* head.  Returns [BH, Lq, dh] float32.  GQA when ``q_heads`` and
     ``kv_heads`` differ.
     """
+    _build.refuse_dtensor("two_stage_attention", qv, qs, kv, ks, vv, v_scale)
     if qv.device.type == "cpu":
         return two_stage_attention_plain(
             qv, qs, kv, ks, vv, v_scale, causal=causal, q_heads=q_heads, kv_heads=kv_heads,

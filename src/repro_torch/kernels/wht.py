@@ -44,6 +44,7 @@ def _kernel():
 def wht(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
     """Blocked WHT along the last axis of a 2-D f32 array [R, d]; ``block``
     defaults to ``block_size_for(d)``."""
+    _build.refuse_dtensor("wht", x)
     if x.device.type == "cpu":
         return wht_plain(x, block=block)
     if x.device.type != "cuda":

@@ -54,6 +54,7 @@ from repro_torch.core import transforms
 from repro_torch.core.quantize import quantize_per_token
 from repro_torch.core.versaq import QuantLinear, head_wht
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.models import layers as L
 
 __all__ = [
@@ -263,6 +264,11 @@ def _sdpa_streamed(q, k, v, *, causal: bool, two_stage: bool = False,
 
 
 def sdpa_dispatch(cfg, q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None, kv_mask=None):
+    if is_dtensor(q):  # a sharded path: each rank attends with its own heads
+        from repro_torch.parallel import sites
+
+        return sites.attention(sdpa_dispatch, cfg, q, k, v, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, kv_mask=kv_mask)
     impl = getattr(cfg, "attn_impl", "flash")
     if impl == "vanilla" or kv_len is not None:
         # cache-masked paths take the masked vanilla form (decode scores
@@ -282,7 +288,10 @@ def _two_stage_kernel_sdpa(q, k, v, *, causal: bool, tiles: tuple | None = None)
     lq, lk = q.shape[1], k.shape[1]
     if min(lq, lk) < 8:
         return None
-    o = kernel_ops.two_stage_mha(
+    ops = kernel_ops
+    if is_dtensor(q):  # a sharded path: the kernel on each rank's heads
+        from repro_torch.parallel import sites as ops
+    o = ops.two_stage_mha(
         q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal=causal, tiles=tiles
     )
     return o.movedim(1, 2)
@@ -316,14 +325,14 @@ def gqa_attention(
         # the shared per-token quantization and all three projections
         quantized = isinstance(p["wqkv"], QuantLinear)
         q, k, v = torch.split(L.dense(p["wqkv"], x), [h * dh, hkv * dh, hkv * dh], dim=-1)
-        q = q.reshape(b, lq, h, dh)
-        k = k.reshape(b, lq, hkv, dh)
-        v = v.reshape(b, lq, hkv, dh)
+        q = L.split_dim(q, -1, (h, dh))
+        k = L.split_dim(k, -1, (hkv, dh))
+        v = L.split_dim(v, -1, (hkv, dh))
     else:
         quantized = isinstance(p["wq"], QuantLinear)
-        q = L.dense(p["wq"], x).reshape(b, lq, h, dh)
-        k = L.dense(p["wk"], x).reshape(b, lq, hkv, dh)
-        v = L.dense(p["wv"], x).reshape(b, lq, hkv, dh)
+        q = L.split_dim(L.dense(p["wq"], x), -1, (h, dh))
+        k = L.split_dim(L.dense(p["wk"], x), -1, (hkv, dh))
+        v = L.split_dim(L.dense(p["wv"], x), -1, (hkv, dh))
     if cfg.qk_norm:
         q = L.norm(p["q_norm"], q)
         k = L.norm(p["k_norm"], k)

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.versaq import Norm, apply_linear, apply_norm
+from repro_torch.kernels._build import is_dtensor
 
 __all__ = [
     "dense",
@@ -26,6 +27,8 @@ __all__ = [
     "gelu",
     "silu",
     "remat",
+    "split_dim",
+    "constrain",
 ]
 
 dense = apply_linear
@@ -56,6 +59,28 @@ def init_norm(dim: int, *, kind: str = "rms", bias: bool = False, dtype=torch.fl
         b=torch.zeros((dim,), dtype=dtype, device=device) if bias else None,
         kind=kind,
     )
+
+
+def split_dim(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``x`` with dim ``dim`` reshaped into ``sizes`` (a head split); on a
+    sharded path ``parallel.sharding.split_dim``, which gathers a sharding
+    the split cannot keep."""
+    if is_dtensor(x):
+        from repro_torch.parallel.sharding import split_dim as split
+
+        return split(x, dim, sizes)
+    d = dim % x.ndim
+    return x.reshape(*x.shape[:d], *sizes, *x.shape[d + 1:])
+
+
+def constrain(x: torch.Tensor, sharding) -> torch.Tensor:
+    """The forwards' ``act_sharding``: ``x`` redistributed to ``sharding``
+    (``parallel.sharding.constrain``), or as it is with None."""
+    if sharding is None:
+        return x
+    from repro_torch.parallel.sharding import constrain as redistribute
+
+    return redistribute(x, sharding)
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

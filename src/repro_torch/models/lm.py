@@ -357,6 +357,7 @@ def forward(
     mode: str = "full",
     pad_lens: Optional[torch.Tensor] = None,
     remat: bool | str = False,
+    act_sharding=None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Full/prefill/decode forward.
 
@@ -364,6 +365,10 @@ def forward(
     ``remat`` (without a cache): activation-checkpoint each scan group
     (training memory), True or ``"dots"``/``"dots_saveable"`` to keep the
     matmul outputs too (``layers.remat``).
+    ``act_sharding``: a ``parallel.sharding.NamedSharding`` the residual
+    stream is redistributed to at every scan group's end (the reference's
+    ``with_sharding_constraint``: DP batch, optionally TP-SP sequence; see
+    ``sharding.act_pspec``); None leaves it where the ops put it.
     ``pad_lens``: [B] int LEFT-pad count per row — the serving engine's
     prompt-length buckets pad prompts on the left so the last real token
     always sits in the last slot.  Per-row RoPE positions shift back by the
@@ -409,7 +414,7 @@ def forward(
         def group(gp, xc):
             for j in range(period):
                 xc, _ = _apply_layer(cfg, gp[f"l{j}"], cfg.pattern[j], fks[j], xc, **kw)
-            return xc
+            return L.constrain(xc, act_sharding)
 
         for g in range(n_scan_groups(cfg)):  # the reference's lax.scan over groups
             x = L.remat(functools.partial(group, tree_index(params["blocks"], g)), remat)(x)
@@ -431,6 +436,7 @@ def forward(
                     for view, new in zip(c, c2):
                         view.copy_(new)
                     new_blocks[name] = full
+            x = L.constrain(x, act_sharding)
 
     x = L.norm(params["final_norm"], x)
     if cfg.tie_embeddings:

@@ -126,6 +126,7 @@ def forward(
     patch_mask: torch.Tensor | None = None,
     frame_mask: torch.Tensor | None = None,
     remat: bool | str = False,
+    act_sharding=None,
 ) -> dict[str, Any]:
     """patch_embeds: [B, S, P, d] (stub DINO features).
 
@@ -138,6 +139,10 @@ def forward(
     ``remat``: activation-checkpoint each AA pair (training memory: only
     the stream between pairs is kept), True or ``"dots"`` to keep the
     matmul outputs too (``layers.remat``).
+
+    ``act_sharding``: a ``parallel.sharding.NamedSharding`` the [B, S, T,
+    d] stream is redistributed to after every AA pair (the reference's
+    ``with_sharding_constraint``); None leaves it where the ops put it.
 
     Returns dict with pose [B,S,9], depth [B,S,P], points [B,S,P,3],
     conf [B,S,P], tokens [B,S,T,d].
@@ -155,7 +160,7 @@ def forward(
     def pair(gp, xc):
         xc = _block(gp["frame"], cfg, xc.reshape(b * s, t, d), kv_mask=fmask)  # frame-wise
         xc = _block(gp["global"], cfg, xc.reshape(b, s * t, d), kv_mask=gmask)  # global
-        return xc.reshape(b, s, t, d)
+        return L.constrain(xc.reshape(b, s, t, d), act_sharding)
 
     blocks = params["blocks"]
     for gi in range(tree_leaves(blocks)[0].shape[0]):

@@ -6,12 +6,17 @@
   running median of step wall times (unit-tested by injection);
 * a failure-injection hook (``fail_at``) for the restart tests.
 
-The step differentiates the float parameter leaves with ``torch.autograd``
-and updates them in place with ``optim.adamw.apply``.  The reference's
-data-parallel step with int8 error-feedback all-reduce
-(``make_ddp_compressed_step``) waits for the port's multi-device layer.
-The trainer runs on the CUDA device unless told otherwise; without a card
-it raises (``serving.batching.resolve_device``).
+Two steps, as in the reference:
+* :func:`make_train_step`: the loss and its gradient on one device (or on
+  a tree sharded by ``parallel.sharding.distribute_tree``, run under
+  ``implicit_replication()``), then AdamW;
+* :func:`make_ddp_compressed_step`: pure data parallelism, each rank's
+  gradients of its rows of the batch averaged by the int8 error-feedback
+  all-reduce (``parallel/compression.py``), then a replicated AdamW.
+Both differentiate the float parameter leaves with ``torch.autograd`` and
+update them in place with ``optim.adamw.apply``.  The trainer runs on the
+CUDA device unless told otherwise; without a card it raises
+(``serving.batching.resolve_device``).
 """
 from __future__ import annotations
 
@@ -22,31 +27,57 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, token_batch
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.models import lm
 from repro_torch.optim import adamw
+from repro_torch.parallel import compression
 from repro_torch.serving.batching import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["lm_loss", "make_train_step", "TrainerConfig", "Trainer"]
+__all__ = ["lm_loss", "make_train_step", "make_ddp_compressed_step", "TrainerConfig",
+           "Trainer"]
 
 
 def lm_loss(cfg: ModelConfig, params: Any, batch: dict, *, remat: bool | str = False
             ) -> torch.Tensor:
     """Mean next-token cross entropy over float32 logits: logsumexp minus
     the gold logit.  ``batch``: ``token_batch``'s arrays (numpy or
-    tensors), taken to the parameters' device."""
+    tensors, or DTensors on a sharded path), taken to the parameters'
+    device.  Sharded logits (vocab over ``model``, batch over ``data``)
+    are gathered whole first, and every rank computes the same loss:
+    DTensor's ``gather`` cannot take vocab-sharded logits."""
     dev = tree_leaves(params)[0].device
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    tokens, labels = (batch[k].to(dev) if isinstance(batch[k], torch.Tensor)
+                      else torch.as_tensor(batch[k], device=dev) for k in ("tokens", "labels"))
     logits, _ = lm.forward(cfg, params, tokens, remat=remat)
+    if is_dtensor(logits):
+        logits = logits.full_tensor()
+    if is_dtensor(labels):
+        labels = labels.full_tensor()
+    labels = labels.long()
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _value_and_grad(loss_fn: Callable, params: Any, batch) -> tuple[torch.Tensor, Any]:
+    """(the loss, its gradient tree: None where a leaf is not float or got
+    no gradient)."""
+    # differentiate fresh leaves that share the parameters' storage, so
+    # the tree itself never carries requires_grad (a kernel wrapper
+    # refuses such tensors when the trained tree is served)
+    live = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
+    loss = loss_fn(live, batch)
+    leaves = [p for p in tree_leaves(live) if p.requires_grad]
+    got = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    grads = tree_map(lambda p: next(got) if p.requires_grad else None, live)
+    return loss.detach(), grads
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -59,18 +90,50 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     loss_fn = loss_fn or functools.partial(lm_loss, cfg)
 
     def step(params, opt_state, batch):
-        # differentiate fresh leaves that share the parameters' storage, so
-        # the tree itself never carries requires_grad (a kernel wrapper
-        # refuses such tensors when the trained tree is served)
-        live = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
-        loss = loss_fn(live, batch)
-        leaves = [p for p in tree_leaves(live) if p.requires_grad]
-        got = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-        grads = tree_map(lambda p: next(got) if p.requires_grad else None, live)
-        del live, leaves
+        loss, grads = _value_and_grad(loss_fn, params, batch)
         params, opt_state, metrics = adamw.apply(opt_cfg, opt_state, params, grads)
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = loss
         return params, opt_state, metrics
+
+    return step
+
+
+def make_ddp_compressed_step(
+    cfg: ModelConfig,
+    opt_cfg: adamw.AdamWConfig,
+    mesh,
+    axis: str = "data",
+    loss_fn: Optional[Callable] = None,
+):
+    """Pure-DP step over the ``axis`` dim of ``mesh`` (a ``DeviceMesh``):
+    ``step(params, opt_state, err, batch) -> (params, opt_state, err,
+    metrics)``.  Every rank passes the same replicated ``params``,
+    ``opt_state`` (``adamw.init``), ``err`` (``compression.
+    init_error_state(params)``) and the global ``batch``; it takes its own
+    rows of the batch (the batch dim split over ``axis``, as
+    ``sharding.batch_pspec`` splits it on a mesh whose batch axis is
+    ``axis``), computes its loss and gradients, averages the loss over the
+    axis and the gradients through ``compression.compressed_tree_psum``,
+    and applies the same AdamW update as every other rank."""
+    loss_fn = loss_fn or functools.partial(lm_loss, cfg)
+    dim = mesh.mesh_dim_names.index(axis)
+    n_dev, rank, group = mesh.size(dim), mesh.get_local_rank(dim), mesh.get_group(dim)
+
+    def step(params, opt_state, err, batch):
+        rows = {}
+        for k, v in batch.items():
+            if v.shape[0] % n_dev:
+                raise ValueError(f"batch {k} of {v.shape[0]} rows does not split over "
+                                 f"{n_dev} ranks")
+            per = v.shape[0] // n_dev
+            rows[k] = v[rank * per:(rank + 1) * per]
+        loss, grads = _value_and_grad(loss_fn, params, rows)
+        grads = tree_map(lambda p, g: torch.zeros_like(p) if g is None else g, params, grads)
+        dist.all_reduce(loss, group=group)
+        grads, err = compression.compressed_tree_psum(grads, err, group, n_dev)
+        params, opt_state, metrics = adamw.apply(opt_cfg, opt_state, params, grads)
+        metrics["loss"] = loss / n_dev
+        return params, opt_state, err, metrics
 
     return step
 

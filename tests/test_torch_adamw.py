@@ -17,6 +17,7 @@ import torch
 
 from repro.optim import adamw as jadamw
 from repro_torch.optim import adamw
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REL = 1e-6
 CFG = dict(lr=3e-3, warmup_steps=3, total_steps=20, weight_decay=0.1)

@@ -39,6 +39,7 @@ from repro_torch.kernels import two_stage_attention as tsa
 from repro_torch.models import vggt as tvggt
 from repro_torch.tree import tree_leaves
 from test_torch_vggt import flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "goldens" / "schedule_vggt_smoke.json"

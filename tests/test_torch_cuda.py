@@ -1248,3 +1248,90 @@ def test_train_step_on_the_card_matches_cpu(dev, arch):
         w = want[path].double()
         rel = float((x.cpu().double() - w).norm() / w.norm().clamp_min(1e-30))
         assert rel <= 1e-4, (path, rel)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer at world size 1 over NCCL (one card: NCCL refuses
+# two ranks on one device, so N > 1 runs on CPU gloo ranks, in
+# tests/test_torch_{sharding,compression,pipeline}.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(dev, tmp_path_factory):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    init = tmp_path_factory.mktemp("nccl") / "pg"
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_local_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_group_of_one(nccl_mesh):
+    import torch.distributed as dist
+
+    assert tuple(nccl_mesh.shape) == (1, 1)
+    assert nccl_mesh.mesh_dim_names == ("data", "model")
+    x = torch.arange(8.0, device="cuda")
+    dist.all_reduce(x, group=nccl_mesh.get_group("model"))
+    assert torch.equal(x, torch.arange(8.0, device="cuda"))
+
+
+def test_sharded_w4a8_forward_is_bit_equal_to_the_unsharded(dev, nccl_mesh):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_lm
+    from repro_torch.core.precision import PrecisionPlan
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+
+    cfg = get_config("qwen3-14b-smoke").with_(attn_impl="two_stage")
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = quantize_lm(cfg, raw, PrecisionPlan(default="w4a8", use_kernel=True))
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad(), probe.tracking() as log1:
+        want, _ = lm.forward(cfg, params, toks)
+    sharded = sharding.distribute_tree(params, nccl_mesh)
+    stoks = sharding.distribute_tree(toks, nccl_mesh,
+                                     lambda p, x: (sharding.batch_axes(nccl_mesh), None))
+    with torch.no_grad(), implicit_replication(), probe.tracking() as log2:
+        got, _ = lm.forward(cfg, sharded, stoks)
+    assert log1.by_name() == log2.by_name() == {"quant_matmul": 7 * cfg.n_layers,
+                                                "two_stage_attention": cfg.n_layers}
+    assert torch.equal(got.full_tensor(), want)
+
+
+def test_compressed_psum_at_world_one_is_its_formula(nccl_mesh):
+    from repro_torch.parallel.compression import compressed_psum
+
+    rng = np.random.default_rng(7)
+    g = _normal(rng, (4099,), "cuda")
+    err = _normal(rng, (4099,), "cuda") * 1e-3
+    out, new_err = compressed_psum(g, nccl_mesh.get_group("data"), 1, err)
+    gf = g + err
+    s = torch.clamp_min(gf.abs().max() * float(torch.tensor(1 / 127.0)), 1e-20)
+    q = torch.clamp(torch.round(gf / s), -127, 127)
+    r = torch.clamp_min(q.abs().max() * float(torch.tensor(1 / 127.0)), 1.0)
+    q2 = torch.clamp(torch.round(q / r), -127, 127)
+    assert torch.equal(out, q2 * (r * s))
+    assert torch.equal(new_err, torch.addcmul(gf, q, s.expand_as(gf), value=-1.0))
+
+
+def test_pipeline_at_one_stage_is_the_stage(nccl_mesh):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    rng = np.random.default_rng(8)
+    w = _normal(rng, (1, 64, 64), "cuda") * 0.1
+    x = _normal(rng, (8, 64), "cuda")
+    got = pipeline_apply(mesh, lambda p, h: torch.tanh(h @ p), w, x, n_micro=4)
+    assert torch.equal(got, torch.cat([torch.tanh(xm @ w[0]) for xm in x.reshape(4, 2, 64)]))

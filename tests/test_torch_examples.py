@@ -18,6 +18,7 @@ import pathlib
 import re
 import subprocess
 import sys
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -125,4 +126,6 @@ def test_examples_need_a_card_unless_told_otherwise(tmp_path):
     r = _run("torch_observe_serving.py", "--requests", "1")
     assert r.returncode != 0 and "no CUDA device is available" in r.stderr
     r = _train("--steps", "1", "--ckpt", str(tmp_path))  # the Trainer's own check
+    assert r.returncode != 0 and "no CUDA device is available" in r.stderr
+    r = _run("torch_long_context.py")
     assert r.returncode != 0 and "no CUDA device is available" in r.stderr

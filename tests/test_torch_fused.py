@@ -29,6 +29,7 @@ from repro_torch.core.quantize import QTensor
 from repro_torch.kernels import fused as tfused
 from repro_torch.kernels import ops, probe
 from repro_torch.kernels import wht as twht
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RNG = np.random.default_rng(13)
 REL = 1e-5

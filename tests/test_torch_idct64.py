@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from repro_torch.core import transforms
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 

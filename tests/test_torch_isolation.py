@@ -5,6 +5,7 @@ import pathlib
 import re
 import subprocess
 import sys
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

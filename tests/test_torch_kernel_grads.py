@@ -14,6 +14,7 @@ from repro_torch.core.quantize import quantize_weight
 from repro_torch.kernels import ops
 from repro_torch.models import vggt
 from repro_torch.tree import tree_index, tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CFG = get_config("vggt-1b-smoke").with_(n_layers=1)
 

@@ -16,6 +16,7 @@ from repro.launch.specs import ServeSpec as JServeSpec
 from repro_torch.core.precision.plan import PrecisionPlan
 from repro_torch.launch import serve
 from repro_torch.launch.specs import ServeSpec
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

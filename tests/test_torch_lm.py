@@ -40,6 +40,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm
 from repro_torch.tree import tree_index
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # Relative L2 of one layer's output, and of full-precision logits without
 # the int8 KV cache, when both sides run the same float op sequence

@@ -30,6 +30,7 @@ from repro_torch.serving.batching import DeadlineExceeded, NumericFault, QueueFu
 from repro_torch.serving.engine import DecodeBucket, Engine, PrefillBucket
 
 from test_torch_lm import flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TINY = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=64)
 MAX_LEN = 32

@@ -19,6 +19,7 @@ the reference in ``tests/test_torch_zoo_jamba.py``."""
 import functools
 import json
 import pathlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.core import model_quant as jmq
 from repro.core.model_quant import quantize_lm as j_quantize_lm
 from repro.core.precision import compiler as jcomp
 from repro.core.precision import plan as jplan_mod
@@ -49,6 +51,7 @@ from test_torch_compiler import _strip
 from test_torch_lm import REL_L2_FLIP, flatten_jax
 from test_torch_precision import reference_constants  # noqa: F401 (a fixture)
 from test_torch_schedule_serving import _recording
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "goldens" / "schedule_qwen3_smoke.json"
@@ -84,6 +87,38 @@ PLANS = {
     "split": dict(default="w4a8", use_kernel=True, fuse=True, name="split",
                   overrides=(("*.wk", "w8a8"), ("*.ffn.w_up", "bf16"))),
 }
+
+
+# The reference's eager ``quantize_lm`` and ``lm.forward`` recompile their
+# scans on every call, and ``_hold_proxy`` repeats the same calls: the fp
+# forward once per level, and each level's tree and quantized forward once
+# in the case and again inside ``jpl.proxy_recon_error``.  ``_ref_quantize``
+# and ``_ref_forward`` memoise them on their exact arguments: the same
+# config, the same params object (held, so its id is not reused), the same
+# policy and equal inputs.  Traced calls (inside ``jax.jit``) and calls with
+# other keywords pass through.
+_REF_QUANT: dict = {}
+_REF_FWD: dict = {}
+
+
+def _ref_quantize(cfg, params, policy):
+    key = (cfg, id(params), policy)
+    if key not in _REF_QUANT:
+        _REF_QUANT[key] = (params, j_quantize_lm(cfg, params, policy))
+    return _REF_QUANT[key][1]
+
+
+_J_FORWARD = jlm.forward
+
+
+def _ref_forward(cfg, params, inputs, **kw):
+    if kw or not isinstance(inputs, jax.Array) or isinstance(inputs, jax.core.Tracer):
+        return _J_FORWARD(cfg, params, inputs, **kw)
+    x = np.asarray(inputs)
+    key = (cfg, id(params), x.shape, x.dtype.str, x.tobytes())
+    if key not in _REF_FWD:
+        _REF_FWD[key] = (params, _J_FORWARD(cfg, params, inputs))
+    return _REF_FWD[key][1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,16 +187,20 @@ def _hold_proxy(jcfg, cfg, jp, tp, levels, x, bound, **kw):
     port's quantized logits must lie within ``bound`` of the nearer of the
     reference's eager and jitted runs; the errors then agree to ``REL_ERR``
     against that run's, outright where the gap is float noise (``<=
-    REL_ERR``), else give or take the gap.  The reference's fp forward runs
-    once for all levels."""
+    REL_ERR``), else give or take the gap.  The reference's fp forward, and
+    each level's tree and eager forward, run once for the case and for its
+    ``proxy_recon_error`` (``_ref_forward``, ``_ref_quantize``)."""
     xj, tx = jnp.asarray(x), torch.as_tensor(x)
     tx = tx if tx.is_floating_point() else tx.long()
-    ref = np.asarray(jlm.forward(jcfg, jp, xj)[0])
+    ref = np.asarray(_ref_forward(jcfg, jp, xj)[0])
     for lv in levels:
-        jt = j_quantize_lm(jcfg, jp, jplan_mod.PrecisionPlan(default=lv))
-        runs = [np.asarray(jlm.forward(jcfg, jt, xj)[0]),
+        jt = _ref_quantize(jcfg, jp, jplan_mod.PrecisionPlan(default=lv))
+        runs = [np.asarray(_ref_forward(jcfg, jt, xj)[0]),
                 np.asarray(jax.jit(lambda p, v: jlm.forward(jcfg, p, v)[0])(jt, xj))]
-        want_eager = jpl.proxy_recon_error(jcfg, jp, jplan_mod.PrecisionPlan(default=lv), **kw)
+        with mock.patch.object(jlm, "forward", _ref_forward), \
+                mock.patch.object(jmq, "quantize_lm", _ref_quantize):
+            want_eager = jpl.proxy_recon_error(jcfg, jp, jplan_mod.PrecisionPlan(default=lv),
+                                               **kw)
         assert _rel_to(runs[0], ref, ref) == pytest.approx(want_eager, rel=1e-6)
         got = tpl.proxy_recon_error(cfg, tp, PrecisionPlan(default=lv), inputs=tx)
         with torch.inference_mode():

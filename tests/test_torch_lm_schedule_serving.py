@@ -30,6 +30,7 @@ from repro_torch.launch.specs import ServeSpec
 from repro_torch.serving.engine import Engine
 from test_torch_lm_planner import ARCHS, _setup
 from test_torch_schedule_serving import _no_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = str(ROOT / "tests" / "goldens" / "schedule_qwen3_smoke.json")

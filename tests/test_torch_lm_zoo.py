@@ -51,6 +51,7 @@ from repro_torch.tree import tree_index
 from test_torch_lm import (
     REL_L2, REL_L2_FLIP, REL_L2_KV, _assert_kv_close, flatten_jax, jax_cache_to_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PHI3, PALI = "phi3-mini-3.8b-smoke", "paligemma-3b-smoke"
 SMOKES = (PHI3, PALI)

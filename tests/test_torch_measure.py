@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.kernels import two_stage_attention as tsa
 from repro_torch.kernels.measure import attention_inputs, pq_flips
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _inputs(b, hq, hkv, length, dh, seed=0):

@@ -48,6 +48,7 @@ from test_torch_lm import (
     REL_L2, REL_L2_FLIP, _assert_kv_close, _compare_trees, flatten_jax, jax_cache_to_numpy,
 )
 from test_torch_schedule_serving import _recording
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCH = "deepseek-v2-lite-16b-smoke"
 

@@ -33,6 +33,7 @@ from repro_torch.serving.engine import Engine, PrefillBucket
 
 from test_torch_launch_serve import _launch
 from test_torch_lm import REL_L2_FLIP, flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCH = "deepseek-v2-lite-16b-smoke"
 W4A8 = PrecisionPlan(default="w4a8", use_kernel=True)

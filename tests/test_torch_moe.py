@@ -42,6 +42,7 @@ from repro_torch.models import lm
 from repro_torch.tree import tree_index
 
 from test_torch_lm import REL_L2, REL_L2_FLIP, flatten_jax, jax_cache_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCH = "deepseek-moe-16b-smoke"
 # Full-precision logits through the int8 KV cache.  As for qwen3-14b-smoke

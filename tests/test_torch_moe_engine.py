@@ -33,6 +33,7 @@ from repro_torch.serving.engine import Engine
 
 from test_torch_launch_serve import _launch
 from test_torch_lm import flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCH = "deepseek-moe-16b-smoke"
 W4A8 = PrecisionPlan(default="w4a8", use_kernel=True)

@@ -26,6 +26,7 @@ from repro_torch.kernels import probe
 from repro_torch.models import vggt
 from repro_torch.obs import metrics, quant_health, trace
 from tests.test_torch_vggt_engine import _fixture, _scenes
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _script_basic(m):

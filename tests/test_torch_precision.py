@@ -23,6 +23,7 @@ from repro_torch.core.precision import planner as tpl
 from repro_torch.launch import roofline_util
 from repro_torch.models import lm as tlm
 from test_torch_vggt import flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # Relative tolerance of a site's error at a level against the reference's:
 # both quantize the same float32 values, and the matmuls sum in another

@@ -18,6 +18,7 @@ from repro.kernels.quant_matmul import quant_matmul as j_quant_matmul
 from repro_torch.core.quantize import quantize_per_token, quantize_weight
 from repro_torch.kernels import ops, probe
 from repro_torch.kernels import quant_matmul as qm
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RNG = np.random.default_rng(5)
 TOL = dict(rtol=1e-5, atol=1e-5)

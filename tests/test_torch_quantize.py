@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # ``repro.core`` and ``repro_torch.core`` re-export a ``quantize`` function
 # that shadows the module

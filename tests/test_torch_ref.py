@@ -20,6 +20,7 @@ from repro_torch.core import transforms as ttr
 from repro_torch.data.pipeline import mixed_len_prompts
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import two_stage_attention as tsa
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # both packages' ``core`` re-export a ``quantize`` function that shadows the module
 jquant = importlib.import_module("repro.core.quantize")

@@ -36,6 +36,7 @@ from repro_torch.models import rwkv as trwkv
 from repro_torch.tree import tree_index
 
 from test_torch_lm import MAX_INT_FLIPS, REL_L2, REL_L2_FLIP, _compare_trees, flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCH = "rwkv6-1.6b-smoke"
 

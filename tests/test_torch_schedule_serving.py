@@ -39,6 +39,7 @@ from repro_torch.launch.specs import ServeSpec
 from repro_torch.serving import batching
 from repro_torch.serving.vggt_engine import VGGTEngine
 from test_torch_vggt import flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = str(ROOT / "tests" / "goldens" / "schedule_vggt_smoke.json")

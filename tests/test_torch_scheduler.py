@@ -33,6 +33,7 @@ from repro_torch.serving.engine import (
 )
 
 from test_torch_lm import flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 QWEN, RWKV = "qwen3-14b-smoke", "rwkv6-1.6b-smoke"
 POLICIES = {"fp": (None, None),

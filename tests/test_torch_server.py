@@ -26,6 +26,7 @@ from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.server import AsyncServer
 from repro_torch.serving.vggt_engine import VGGTEngine
 from tests.test_torch_vggt_engine import _fixture, _scenes
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TIERS = "quality=fp,balanced=w4a8"
 

@@ -32,6 +32,7 @@ from repro_torch.serving.engine import Engine as LMEngine
 from repro_torch.serving.vggt_engine import Bucket, VGGTEngine
 from tests.test_torch_lm import flatten_jax
 from tests.test_torch_vggt_engine import REL_L2, _fixture, _scenes
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TIERS = "quality=fp,balanced=w4a8,fast=w4a8:fused"
 

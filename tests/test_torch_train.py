@@ -39,6 +39,7 @@ from repro_torch.runtime.trainer import Trainer, TrainerConfig, lm_loss, make_tr
 from repro_torch.serving.vggt_engine import VGGTEngine
 from repro_torch.tree import tree_map, tree_paths
 from tests.test_torch_lm import flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 KEY = jax.random.PRNGKey(0)
 TINY = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=64)

@@ -10,6 +10,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path, tree_paths
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 class _State(NamedTuple):

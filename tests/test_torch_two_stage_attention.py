@@ -16,6 +16,7 @@ from repro.kernels import ref as jref
 from repro.kernels.two_stage_attention import two_stage_attention as j_tsa
 from repro_torch.kernels import ops, probe
 from repro_torch.kernels import two_stage_attention as tsa
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RNG = np.random.default_rng(3)
 TOL = dict(rtol=3e-4, atol=3e-4)

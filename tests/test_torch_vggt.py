@@ -32,6 +32,7 @@ from repro_torch.core.precision.plan import PrecisionPlan
 from repro_torch.core.quantize import unpack_int4
 from repro_torch.kernels import ops
 from repro_torch.models import vggt as tvggt
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LS = 0.2
 # Relative L2 bound on pose/points/depth.  Both sides run the same float32

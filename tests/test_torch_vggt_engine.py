@@ -22,6 +22,7 @@ from repro_torch.data.pipeline import scene_batch
 from repro_torch.models import vggt
 from repro_torch.serving.batching import DeadlineExceeded, NumericFault
 from repro_torch.serving.vggt_engine import Bucket, VGGTEngine
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PLAN = PrecisionPlan(default="w4a8", use_kernel=True)
 # the forward-parity bound of tests/test_torch_vggt.py (unmasked buckets)

@@ -50,6 +50,7 @@ from test_torch_zoo_jamba import _jforward
 from test_torch_lm import (
     MAX_INT_FLIPS, REL_L2, REL_L2_FLIP, REL_L2_KV, _compare_trees, flatten_jax,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCHS = ("internlm2-20b", "starcoder2-7b", "musicgen-large")
 SMOKES = tuple(a + "-smoke" for a in ARCHS)

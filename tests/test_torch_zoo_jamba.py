@@ -64,6 +64,7 @@ from test_torch_lm import (
 )
 from test_torch_zoo_mamba import _cache_to_numpy
 from test_torch_schedule_serving import _recording
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCH = "jamba-v0.1-52b-smoke"
 W4A8 = PrecisionPlan(default="w4a8", use_kernel=True)

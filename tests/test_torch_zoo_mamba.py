@@ -33,6 +33,7 @@ from repro_torch.models import lm
 from repro_torch.models import ssm
 
 from test_torch_lm import REL_L2, REL_L2_FLIP, flatten_jax
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCH = "jamba-v0.1-52b-smoke"
 # int8 activations of a quantized mixer: ±1 on at most this share of entries
