@@ -307,7 +307,8 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    unsharded tree and on the tree placed by ``sharding.distribute_tree``
    under ``implicit_replication()``, its kernel sites on local shards
    (``parallel/sites.py``): the same launches (7 ``quant_matmul`` and one
-   ``two_stage_attention`` a layer) and bit-equal logits; (b)
+   ``two_stage_attention`` a layer) and bit-equal logits, and each route's
+   first call and the median of ``PARALLEL_WARM`` warm calls; (b)
    ``PARALLEL_DDP_STEPS`` steps each of ``make_train_step`` and
    ``make_ddp_compressed_step`` at ``phase_train``'s qwen3-14b shapes from
    the same seed-0 weights (ms a step, peak memory, the losses, the first
@@ -413,8 +414,9 @@ TRAIN_STEPS, TRAIN_LM_LAYERS, TRAIN_LM_SEQ = 4, 4, 512
 TRAIN_LOSS_REL, TRAIN_PARAM_REL, REMAT_REL = 1e-5, 1e-4, 1e-6
 # phase 19: the sharded W4A8 forward's [2, PARALLEL_SEQ] tokens (qwen3-14b at
 # LM_LAYERS); PARALLEL_DDP_STEPS steps each of the plain and the compressed
-# DDP train step at phase 18's qwen3-14b shapes
-PARALLEL_SEQ, PARALLEL_DDP_STEPS = 512, 3
+# DDP train step at phase 18's qwen3-14b shapes; PARALLEL_WARM timed calls
+# of each route of the forward after its first
+PARALLEL_SEQ, PARALLEL_DDP_STEPS, PARALLEL_WARM = 512, 3, 3
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
@@ -4484,20 +4486,28 @@ def phase_parallel(torch, dev) -> dict:
             del raw
             gen = torch.Generator(device=dev).manual_seed(5)
             toks = torch.randint(0, cfg.vocab_size, (2, PARALLEL_SEQ), generator=gen, device=dev)
-            with torch.no_grad(), probe.tracking() as log1:
-                want, ms1 = _timed(torch, dev, lambda: lm.forward(cfg, params, toks)[0])
             sharded = sharding.distribute_tree(params, mesh)
             stoks = sharding.distribute_tree(
                 toks, mesh, lambda p, x: (sharding.batch_axes(mesh), None))
+            plain_fwd = lambda: lm.forward(cfg, params, toks)[0]  # noqa: E731
+            sharded_fwd = lambda: lm.forward(cfg, sharded, stoks)[0]  # noqa: E731
+            with torch.no_grad(), probe.tracking() as log1:
+                want, ms1 = _timed(torch, dev, plain_fwd)
             with torch.no_grad(), implicit_replication(), probe.tracking() as log2:
-                got, ms2 = _timed(torch, dev, lambda: lm.forward(cfg, sharded, stoks)[0])
+                got, ms2 = _timed(torch, dev, sharded_fwd)
             got = got.full_tensor()
             for k, v in log2.by_name().items():
                 counts[k] = counts.get(k, 0) + v
+            with torch.no_grad(), implicit_replication():  # warm: after each route's first
+                warm1 = [_timed(torch, dev, plain_fwd)[1] for _ in range(PARALLEL_WARM)]
+                warm2 = [_timed(torch, dev, sharded_fwd)[1] for _ in range(PARALLEL_WARM)]
             same = torch.equal(got, want)
             print(f"parallel (a) qwen3-14b ({LM_LAYERS} of {full.n_layers} layers) W4A8 "
-                  f"[2, {PARALLEL_SEQ}]: unsharded {ms1:.1f} ms {log1.by_name()}, sharded route "
-                  f"{ms2:.1f} ms {log2.by_name()}; logits bit-equal: {same} (max |diff| "
+                  f"[2, {PARALLEL_SEQ}]: unsharded first call {ms1:.1f} ms, warm "
+                  f"{[f'{t:.1f}' for t in warm1]} ms (median {statistics.median(warm1):.1f}) "
+                  f"{log1.by_name()}; sharded route first call {ms2:.1f} ms, warm "
+                  f"{[f'{t:.1f}' for t in warm2]} ms (median {statistics.median(warm2):.1f}) "
+                  f"{log2.by_name()}; logits bit-equal: {same} (max |diff| "
                   f"{float((got - want).abs().max()):.3g}); {time.perf_counter() - t0:.1f}s")
             _check(log1.by_name() == {"quant_matmul": 7 * LM_LAYERS,
                                       "two_stage_attention": LM_LAYERS},

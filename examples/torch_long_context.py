@@ -43,26 +43,25 @@ def kv_bytes(cfg, ctx: int, kv_dtype) -> int:
 
 
 @torch.inference_mode()
-def measure(cfg, params, ctx: int, device, *, steps: int = DECODE, prompt: int = PROMPT,
-            seed: int = 0) -> tuple[float, int]:
-    """(ms a decode token, cache bytes after a ``prompt``-token prefill and
-    ``steps`` timed decode steps)."""
+def measure(cfg, params, ctx: int, device) -> tuple[float, int]:
+    """(ms a decode token, cache bytes after a ``PROMPT``-token prefill and
+    ``DECODE`` timed decode steps)."""
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(0)
     cache = lm.init_cache(cfg, 1, ctx, device=dev)
-    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen, device=dev)
     _, cache = lm.forward(cfg, params, toks, cache=cache, mode="prefill")
     tok = torch.zeros((1,), dtype=torch.long, device=dev)
     _, cache = lm.decode_step(cfg, params, tok, cache)  # warm-up, untimed
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(DECODE):
         logits, cache = lm.decode_step(cfg, params, tok, cache)
         tok = torch.argmax(logits[:, 0], dim=-1)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return (time.perf_counter() - t0) / steps * 1e3, cache_bytes(cache)
+    return (time.perf_counter() - t0) / DECODE * 1e3, cache_bytes(cache)
 
 
 def main():

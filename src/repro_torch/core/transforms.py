@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import is_dtensor
+from repro_torch.sharded import routed
 
 __all__ = [
     "hadamard_matrix",
@@ -93,6 +93,7 @@ def blocked_dct_matrix(dim: int, block: int = 64, dtype=torch.float32, device=No
     return torch.as_tensor(out, dtype=dtype, device=device)
 
 
+@routed
 def fast_wht(x: torch.Tensor, block: int | None = None) -> torch.Tensor:
     """Multiplier-free blocked WHT along the last axis (add/sub butterfly).
 
@@ -102,10 +103,6 @@ def fast_wht(x: torch.Tensor, block: int | None = None) -> torch.Tensor:
     """
     dim = x.shape[-1]
     b = block or block_size_for(dim)
-    if is_dtensor(x):  # a sharded path: each rank's rows, whole blocks
-        from repro_torch.parallel.sharding import local_rows
-
-        return local_rows(functools.partial(fast_wht, block=b), x, b)
     nblk = dim // b
     lead = tuple(x.shape[:-1])
     h = 1
@@ -125,6 +122,7 @@ def apply_wht(x: torch.Tensor) -> torch.Tensor:
     return fast_wht(x)
 
 
+@routed
 def apply_blocked(x: torch.Tensor, mat: torch.Tensor, block: int) -> torch.Tensor:
     """y = x @ M where M is block-diagonal with [block, block] blocks.
 
@@ -134,10 +132,6 @@ def apply_blocked(x: torch.Tensor, mat: torch.Tensor, block: int) -> torch.Tenso
     dim = x.shape[-1]
     if dim % block:
         raise ValueError(f"dim {dim} is not a multiple of block {block}")
-    if is_dtensor(x):  # a sharded path: each rank's rows, whole blocks
-        from repro_torch.parallel.sharding import local_rows
-
-        return local_rows(lambda t: apply_blocked(t, mat, block), x, block)
     lead = tuple(x.shape[:-1])
     y = x.reshape(lead + (dim // block, block)) @ mat.to(x.dtype)
     return y.reshape(lead + (dim,))

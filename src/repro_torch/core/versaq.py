@@ -28,10 +28,9 @@ import torch
 
 from repro_torch.core import transforms
 from repro_torch.core.quantize import QTensor, quantize_per_token, quantize_weight, unpack_int4
-from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels._build import is_dtensor
 from repro_torch.kernels.fused import act_rows as _act_fn
 from repro_torch.obs import quant_health
+from repro_torch.sharded import kernels_for
 
 __all__ = [
     "QuantPolicy",
@@ -250,16 +249,6 @@ def carries_norm(p: Any) -> bool:
     return isinstance(p, QuantLinear) and p.prologue is not None and p.prologue.norm is not None
 
 
-def _kernels_for(*tensors):
-    """``kernels.ops``, or on a sharded path (DTensor operands)
-    ``parallel.sites``: the same wrappers, run on local shards."""
-    if any(is_dtensor(t) for t in tensors):
-        from repro_torch.parallel import sites
-
-        return sites
-    return kernel_ops
-
-
 def _kernel_ready(p: QuantLinear) -> bool:
     return p.use_kernel and p.qw.bits <= 8 and p.a_bits <= 8
 
@@ -297,7 +286,7 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
             )
         if fused and _kernel_ready(p):
             _monitor_quant(p, x)
-            return _kernels_for(x, p.qw.values).fused_linear(x, p).to(dtype)
+            return kernels_for(x, p.qw.values).fused_linear(x, p).to(dtype)
         if p.prologue is not None and p.prologue.norm is not None:
             x = folded_norm_stats(
                 x.to(torch.float32), p.prologue.norm, p.norm_u, p.prologue.eps
@@ -306,8 +295,8 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
             x = online_wht(x)
         _monitor_quant(p, x)
         if _kernel_ready(p):
-            y = _kernels_for(x, p.qw.values).quant_linear_matmul(x, p.qw, a_bits=p.a_bits,
-                                                                 tiles=p.tiles)
+            y = kernels_for(x, p.qw.values).quant_linear_matmul(x, p.qw, a_bits=p.a_bits,
+                                                                tiles=p.tiles)
         else:
             y = _int_matmul(quantize_per_token(x, p.a_bits), p.qw)
         if p.idct:
@@ -335,7 +324,7 @@ def apply_ffn(f: FusedFFN, x: torch.Tensor) -> torch.Tensor:
     members = (f.w_up, f.w_down) + (() if f.w_gate is None else (f.w_gate,))
     if all(_kernel_ready(ql) for ql in members):
         _monitor_quant(f.w_up, x)  # the in-kernel hidden is unobservable
-        return _kernels_for(x, f.w_up.qw.values).fused_ffn_apply(x, f).to(dtype)
+        return kernels_for(x, f.w_up.qw.values).fused_ffn_apply(x, f).to(dtype)
     if f.norm is not None:
         x = folded_norm_stats(x.to(torch.float32), f.norm, f.norm_u, f.norm_eps).to(dtype)
     u = apply_linear(f.w_up, x)

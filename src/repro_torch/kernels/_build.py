@@ -24,31 +24,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import sys
 import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "nvcc_path", "is_dtensor",
-           "refuse_dtensor"]
-
-
-def is_dtensor(x) -> bool:
-    """True for a ``torch.distributed`` DTensor.  None can exist before
-    ``torch.distributed.tensor`` is imported, so this imports nothing."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
-
-
-def refuse_dtensor(kernel: str, *tensors) -> None:
-    """Raise if any operand is a DTensor.  A kernel takes ``data_ptr``s of
-    local tensors, and a DTensor's plain version would compute on its
-    local shard as if it were the whole: a sharded path hands the kernel
-    sites local shards (``parallel/sites.py``)."""
-    if any(is_dtensor(t) for t in tensors):
-        raise TypeError(f"{kernel}: got a DTensor; kernels take local shards "
-                        "(run the site through repro_torch.parallel.sites)")
-
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

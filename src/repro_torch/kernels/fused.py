@@ -41,6 +41,7 @@ from repro_torch.core import transforms
 from repro_torch.core.quantize import quantize_per_token
 from repro_torch.kernels import _build, probe
 from repro_torch.kernels.quant_matmul import quant_matmul_plain
+from repro_torch.sharded import refuse_dtensor
 
 __all__ = [
     "act_rows",
@@ -330,7 +331,7 @@ def norm_quant(x: torch.Tensor, norm_u=None, *, norm_kind: Optional[str] = None,
 
     ``norm_u``: the LayerNorm mean-recovery vector [D] (``norm_kind="ln"``).
     """
-    _build.refuse_dtensor("norm_quant", x, norm_u)
+    refuse_dtensor("norm_quant", x, norm_u)
     if x.device.type == "cpu":
         return norm_quant_plain(x, norm_u, norm_kind=norm_kind, norm_eps=norm_eps,
                                 wht_block=wht_block, a_bits=a_bits)
@@ -370,7 +371,7 @@ def fused_matmul(x: torch.Tensor, wv: torch.Tensor, ws: torch.Tensor, xs=None, b
     kw = dict(packed=packed, a_bits=a_bits, norm_kind=norm_kind, norm_eps=norm_eps,
               pro_wht_block=pro_wht_block, act=act, epi_wht_block=epi_wht_block,
               requant_bits=requant_bits, dct_block=dct_block)
-    _build.refuse_dtensor("fused_matmul", x, wv, ws, xs, bias, norm_u)
+    refuse_dtensor("fused_matmul", x, wv, ws, xs, bias, norm_u)
     if x.device.type == "cpu":
         return fused_matmul_plain(x, wv, ws, xs, bias, norm_u, **kw)
     _check(x.device.type == "cuda", "fused_matmul", f"unsupported device {x.device}")
@@ -445,7 +446,7 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
               a_bits_mid=a_bits_mid, norm_kind=norm_kind, norm_eps=norm_eps, act=act,
               pro_wht_block=pro_wht_block, mid_wht_block=mid_wht_block, idct_h=idct_h,
               idct_out=idct_out, dct_block=dct_block)
-    _build.refuse_dtensor("fused_ffn", x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u)
+    refuse_dtensor("fused_ffn", x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u)
     if x.device.type == "cpu":
         return fused_ffn_plain(x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u, **kw)
     _check(x.device.type == "cuda", "fused_ffn", f"unsupported device {x.device}")

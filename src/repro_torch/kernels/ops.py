@@ -90,15 +90,11 @@ def launch_tiles(kernel: str, tiles=None) -> dict[str, int]:
 
 
 def quant_linear_matmul(
-    x: torch.Tensor, wq: QTensor, a_bits: int = 8, *, tiles=None,
-    k_index: torch.Tensor | None = None,
+    x: torch.Tensor, wq: QTensor, a_bits: int = 8, *, tiles=None
 ) -> torch.Tensor:
     """Quantize activations per token and run the integer matmul kernel.
 
     x: [..., K] float -> [..., N] float32.  ``tiles``: see :func:`launch_tiles`.
-    ``k_index`` (a row-parallel shard, ``parallel/sites.py``): x is
-    quantized per token over all of its K, as the unsharded site does, and
-    only these columns of it multiply ``wq``, the shard's K rows.
 
     Expert-stacked weights (values [E, K(/2), N], scales [E, 1, N]: a MoE
     layer's routed experts) take x [..., E, M, K], quantize every row at
@@ -120,9 +116,8 @@ def quant_linear_matmul(
         )
         return y.reshape(lead + (n,))
     xq = quantize_per_token(x.reshape(-1, k), a_bits)
-    xv = xq.values if k_index is None else xq.values.index_select(1, k_index)
     y = _qm.quant_matmul(
-        xv, xq.scale, wq.values, wq.scale.reshape(1, -1).to(torch.float32),
+        xq.values, xq.scale, wq.values, wq.scale.reshape(1, -1).to(torch.float32),
         packed=wq.packed,
     )
     return y.reshape(lead + (n,))

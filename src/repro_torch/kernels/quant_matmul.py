@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core.quantize import unpack_int4
 from repro_torch.kernels import _build, probe
+from repro_torch.sharded import refuse_dtensor
 
 __all__ = ["quant_matmul", "quant_matmul_plain", "quant_matmul_batched",
            "quant_matmul_batched_plain", "function_bytes", "batched_function_bytes",
@@ -152,7 +153,7 @@ def quant_matmul(
     xv [M,K] int8, xs [M,1] (or [M]) f32, ws [1,N] (or [N]) f32;
     wv [K,N] int8, or [K//2,N] uint8 when ``packed``.
     """
-    _build.refuse_dtensor("quant_matmul", xv, xs, wv, ws)
+    refuse_dtensor("quant_matmul", xv, xs, wv, ws)
     if xv.device.type == "cpu":
         return quant_matmul_plain(xv, xs, wv, ws, packed=packed)
     if xv.device.type != "cuda":
@@ -173,7 +174,7 @@ def quant_matmul_batched(
     xv [B,M,K] int8, xs [B,M,1] (or [B,M]) f32; wv [E,K,N] int8, or
     [E,K//2,N] uint8 when ``packed``; ws [E,1,N] (or [E,N]) f32; E divides B.
     """
-    _build.refuse_dtensor("quant_matmul_batched", xv, xs, wv, ws)
+    refuse_dtensor("quant_matmul_batched", xv, xs, wv, ws)
     if xv.device.type == "cpu":
         return quant_matmul_batched_plain(xv, xs, wv, ws, packed=packed)
     if xv.device.type != "cuda":

@@ -34,6 +34,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build, probe
+from repro_torch.sharded import refuse_dtensor
 
 __all__ = ["two_stage_attention", "two_stage_attention_plain", "function_bytes", "NEG_INF",
            "T_V", "LAUNCH_TILES", "HEAD_DIMS"]
@@ -149,7 +150,7 @@ def two_stage_attention(
     *query* head.  Returns [BH, Lq, dh] float32.  GQA when ``q_heads`` and
     ``kv_heads`` differ.
     """
-    _build.refuse_dtensor("two_stage_attention", qv, qs, kv, ks, vv, v_scale)
+    refuse_dtensor("two_stage_attention", qv, qs, kv, ks, vv, v_scale)
     if qv.device.type == "cpu":
         return two_stage_attention_plain(
             qv, qs, kv, ks, vv, v_scale, causal=causal, q_heads=q_heads, kv_heads=kv_heads,

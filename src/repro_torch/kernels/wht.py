@@ -21,6 +21,7 @@ import torch
 from repro_torch.core import transforms
 from repro_torch.kernels import _build, probe
 from repro_torch.kernels.fused import ROW_WARPS, _blocks_per_sm, grid_for, wht_rows
+from repro_torch.sharded import refuse_dtensor
 
 __all__ = ["wht", "wht_plain"]
 
@@ -44,7 +45,7 @@ def _kernel():
 def wht(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
     """Blocked WHT along the last axis of a 2-D f32 array [R, d]; ``block``
     defaults to ``block_size_for(d)``."""
-    _build.refuse_dtensor("wht", x)
+    refuse_dtensor("wht", x)
     if x.device.type == "cpu":
         return wht_plain(x, block=block)
     if x.device.type != "cuda":

@@ -53,9 +53,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import transforms
 from repro_torch.core.quantize import quantize_per_token
 from repro_torch.core.versaq import QuantLinear, head_wht
-from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels._build import is_dtensor
 from repro_torch.models import layers as L
+from repro_torch.sharded import kernels_for, routed
 
 __all__ = [
     "KVCache",
@@ -113,6 +112,13 @@ def roll_kv(cache: KVCache, shift: int) -> KVCache:
         k_scale=torch.roll(cache.k_scale, shift, dims=axis),
         v_scale=torch.roll(cache.v_scale, shift, dims=axis),
     )
+
+
+@routed
+def write_slots(buf: torch.Tensor, start: int, new: torch.Tensor) -> None:
+    """Write ``new`` [B, L, ...] into slots ``[start, start + L)`` of the
+    cache buffer ``buf`` [B, S, ...], in place."""
+    buf[:, start:start + new.shape[1]] = new
 
 
 def _quant_tokens_like(x: torch.Tensor, dtype) -> tuple[torch.Tensor, torch.Tensor]:
@@ -263,12 +269,8 @@ def _sdpa_streamed(q, k, v, *, causal: bool, two_stage: bool = False,
     return o.reshape(b, hkv * g, lq, dv).movedim(1, 2)
 
 
+@routed
 def sdpa_dispatch(cfg, q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None, kv_mask=None):
-    if is_dtensor(q):  # a sharded path: each rank attends with its own heads
-        from repro_torch.parallel import sites
-
-        return sites.attention(sdpa_dispatch, cfg, q, k, v, causal=causal, q_offset=q_offset,
-                               kv_len=kv_len, kv_mask=kv_mask)
     impl = getattr(cfg, "attn_impl", "flash")
     if impl == "vanilla" or kv_len is not None:
         # cache-masked paths take the masked vanilla form (decode scores
@@ -288,10 +290,7 @@ def _two_stage_kernel_sdpa(q, k, v, *, causal: bool, tiles: tuple | None = None)
     lq, lk = q.shape[1], k.shape[1]
     if min(lq, lk) < 8:
         return None
-    ops = kernel_ops
-    if is_dtensor(q):  # a sharded path: the kernel on each rank's heads
-        from repro_torch.parallel import sites as ops
-    o = ops.two_stage_mha(
+    o = kernels_for(q).two_stage_mha(
         q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal=causal, tiles=tiles
     )
     return o.movedim(1, 2)
@@ -375,10 +374,9 @@ def gqa_attention(
                              f"{cache.k.shape[1]}")
         kq, ks_ = _quant_tokens_like(k, cache.k.dtype)
         vq, vs_ = _quant_tokens_like(v, cache.v.dtype)
-        cache.k[:, pos0:new_len] = kq
-        cache.v[:, pos0:new_len] = vq
-        cache.k_scale[:, pos0:new_len] = ks_
-        cache.v_scale[:, pos0:new_len] = vs_
+        for buf, new in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks_),
+                         (cache.v_scale, vs_)):
+            write_slots(buf, pos0, new)
         new_cache = cache._replace(length=new_len)
         if mode == "prefill" and lq > 1:
             # attention over the freshly quantized K/V (prefill starts the
@@ -393,7 +391,8 @@ def gqa_attention(
             kf = cache.k.to(torch.float32) * cache.k_scale
             vf = cache.v.to(torch.float32) * cache.v_scale
             mask = _pad_mask(pad_lens, cache.k.shape[1]) if pad_lens is not None else None
-            o = _sdpa(q, kf, vf, causal=causal, q_offset=pos0, kv_len=new_len, kv_mask=mask)
+            o = sdpa_dispatch(cfg, q, kf, vf, causal=causal, q_offset=pos0, kv_len=new_len,
+                              kv_mask=mask)
     o = o.reshape(b, lq, h * dh).to(x.dtype)
     return L.dense(p["wo"], o), new_cache
 
@@ -439,8 +438,8 @@ def _write_compressed(cache: KVCache, ck: torch.Tensor, pos0: int) -> tuple[KVCa
         raise ValueError(f"KV cache overflow: writing slots {pos0}..{new_len - 1} of "
                          f"{cache.k.shape[1]}")
     ckq, cks = _quant_tokens_like(ck, cache.k.dtype)
-    cache.k[:, pos0:new_len] = ckq
-    cache.k_scale[:, pos0:new_len] = cks
+    write_slots(cache.k, pos0, ckq)
+    write_slots(cache.k_scale, pos0, cks)
     return cache._replace(length=new_len), new_len
 
 

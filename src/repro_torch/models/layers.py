@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.versaq import Norm, apply_linear, apply_norm
-from repro_torch.kernels._build import is_dtensor
+from repro_torch.sharded import routed
 
 __all__ = [
     "dense",
@@ -61,14 +61,10 @@ def init_norm(dim: int, *, kind: str = "rms", bias: bool = False, dtype=torch.fl
     )
 
 
+@routed
 def split_dim(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
-    """``x`` with dim ``dim`` reshaped into ``sizes`` (a head split); on a
-    sharded path ``parallel.sharding.split_dim``, which gathers a sharding
-    the split cannot keep."""
-    if is_dtensor(x):
-        from repro_torch.parallel.sharding import split_dim as split
-
-        return split(x, dim, sizes)
+    """``x`` with dim ``dim`` reshaped into ``sizes`` (a head split; on a
+    sharded path ``parallel.sites.split_dim``)."""
     d = dim % x.ndim
     return x.reshape(*x.shape[:d], *sizes, *x.shape[d + 1:])
 

@@ -57,9 +57,6 @@ __all__ = [
     "distribute_tree",
     "constrain",
     "full_tensor",
-    "gather_dim",
-    "split_dim",
-    "local_rows",
 ]
 
 # projection name -> parallel style
@@ -307,44 +304,3 @@ def full_tensor(tree: Any) -> Any:
 
     return tree_map_with_path(
         lambda _, x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
-
-
-def gather_dim(x, dim: int, keep: int = 0):
-    """DTensor ``x`` with every mesh dim that shards tensor dim ``dim`` and
-    does not divide ``keep`` (0: none divides) replicated; other tensors
-    as they are."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    if not isinstance(x, DTensor):
-        return x
-    d = dim % x.ndim
-    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == d
-           and (keep == 0 or keep % x.device_mesh.size(i)) else pl
-           for i, pl in enumerate(x.placements)]
-    return x if pls == list(x.placements) else x.redistribute(x.device_mesh, pls)
-
-
-def split_dim(x, dim: int, sizes: Sequence[int]):
-    """``x`` with dim ``dim`` reshaped into ``sizes``.  A DTensor sharded on
-    that dim keeps the sharding on the first new dim where the mesh dim
-    divides ``sizes[0]``, and is gathered on that mesh dim first where it
-    does not (a reshape cannot split uneven shards; GSPMD regathers so
-    implicitly, e.g. 2 KV heads on a 4-way model axis)."""
-    x = gather_dim(x, dim, keep=sizes[0])
-    d = dim % x.ndim
-    return x.reshape(*x.shape[:d], *sizes, *x.shape[d + 1:])
-
-
-def local_rows(fn, x, block: int = 0):
-    """``fn(x)`` for a DTensor ``x``, computed on each rank's local shard:
-    ``fn`` must act on each row of the last dim alone (on each run of
-    ``block`` entries, with ``block``), as a blocked WHT or IDCT does.  A
-    sharding of the last dim that would split a block (any, without
-    ``block``) is gathered first; the result keeps ``x``'s placements.
-    Reshapes that flatten sharded dims (a matmul over [..., blocks, block])
-    then never meet DTensor's sharding rules."""
-    from torch.distributed.tensor.experimental import local_map
-
-    x = gather_dim(x, -1, keep=x.shape[-1] // block if block else 0)
-    pls = list(x.placements)  # a list: local_map reads a tuple as one entry an output
-    return local_map(fn, out_placements=pls, in_placements=(pls,), device_mesh=x.device_mesh)(x)

@@ -1,15 +1,18 @@
-"""The kernel sites of a sharded path, on local shards.
+"""The sharded route: the ops of a sharded path, on local shards.
 
-A kernel takes the ``data_ptr`` of local tensors, and every wrapper of
-``kernels/ops.py`` refuses a DTensor.  So on a sharded path (a tree placed
-by ``parallel/sharding.py``) each site where the model code would call a
-wrapper runs it through ``torch.distributed.tensor.experimental.local_map``
-instead: the inputs are redistributed to the placements below, the wrapper
-runs on each rank's local shards, and its output is wrapped back.  These
-functions take the wrappers' arguments, and ``core/versaq.py`` and
-``models/attention.py`` call them in the wrappers' place when a site's
-operands are DTensors.  On the CPU the wrapper inside runs its plain
-version, so CPU runs take the same route as the card.
+A kernel takes the ``data_ptr`` of local tensors, and every kernel wrapper
+refuses a DTensor; some reshapes of a sharded dim are refused by DTensor's
+view rules.  So on a sharded path (a tree placed by
+``parallel/sharding.py``) those ops run here instead, each through
+``torch.distributed.tensor.experimental.local_map``: the inputs are
+redistributed to the placements below, the op runs on each rank's local
+shards, and its output is wrapped back.  Model code reaches this module
+only through ``repro_torch.sharded``: a kernel site's wrappers come from
+``sharded.kernels_for`` (``kernels.ops``, or the functions of the same
+names here), and an op decorated with ``sharded.routed`` (``fast_wht``,
+``apply_blocked``, ``split_dim``, ``sdpa_dispatch``, ``write_slots``) runs
+the function of its name here, handed the op.  On the CPU the kernel wrappers run their
+plain versions, so CPU runs take the same route as the card.
 
 Placements on the ``model`` mesh axis (on the batch axes an input keeps
 its own placement when it shards the batch, dim 0, else is replicated;
@@ -23,14 +26,17 @@ row-parallel linear     Replicate    Shard(-2)       Replicate     Partial,
                                                                    reduced to
                                                                    Replicate
 two_stage_mha           Shard(1)     (q, k, v: heads)              Shard(1)
-any other site          Replicate    Replicate       Replicate     Replicate
+sdpa_dispatch           Shard(2)     (q, k, v: heads)              Shard(2)
+any other kernel site   Replicate    Replicate       Replicate     Replicate
 ======================  ===========  ==============  ============  =========
 
 A site's style is read off its weight's placement.  A dimension that the
 model axis does not divide evenly takes the replicated route, as do
 expert stacks and the fused sites (``fused_linear``, ``fused_ffn_apply``:
 one launch runs a whole site or FFN, whose requantized hidden needs the
-full row), which gather their weights.
+full row), which gather their weights.  The blocked transforms run on each
+rank's rows with whole blocks (:func:`local_rows`), and a head split keeps
+the sharding where the model axis divides the heads (:func:`split_dim`).
 
 **Row-parallel sites gather their input.**  Two things keep a row shard
 from quantizing its own slice of the input: the per-token activation scale
@@ -41,9 +47,9 @@ the low nibbles and ``[K/2, K)`` in the high ones
 gathers the input, quantizes it per token over all of K exactly as the
 unsharded site does, and multiplies only its K columns (the two runs, or
 one run ``[r K/m, (r+1) K/m)`` for a W8 weight) against its packed rows
-(``ops.quant_linear_matmul(..., k_index=)``).  The partial outputs are
-summed over the model axis: the integer products are exact, the scaled
-float partial sums are added in rank order.
+(:func:`row_partial`).  The partial outputs are summed over the model
+axis: the integer products are exact, the scaled float partial sums are
+added in rank order.
 """
 from __future__ import annotations
 
@@ -52,12 +58,17 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.quantize import QTensor, quantize_per_token
+from repro_torch.core.transforms import block_size_for
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels._build import is_dtensor
+from repro_torch.kernels import quant_matmul as _qm
+from repro_torch.sharded import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["quant_linear_matmul", "two_stage_mha", "attention", "fused_linear",
-           "fused_ffn_apply", "row_columns"]
+__all__ = ["quant_linear_matmul", "two_stage_mha", "fused_linear", "fused_ffn_apply",
+           "fast_wht", "apply_blocked", "split_dim", "sdpa_dispatch", "write_slots",
+           "row_columns",
+           "row_partial", "gather_dim", "local_rows"]
 
 
 def _mesh(*xs):
@@ -117,6 +128,29 @@ def row_columns(k: int, rows: int, rank: int, *, packed: bool, device=None) -> t
     return torch.cat([run, run + k // 2]) if packed else run
 
 
+def row_partial(x: torch.Tensor, wq: QTensor, rank: int, size: int, a_bits: int = 8
+                ) -> torch.Tensor:
+    """Rank ``rank``'s partial output of a row-parallel site over ``size``
+    ranks: ``x`` [..., K] whole, ``wq`` the rank's K rows (``values`` [K/m,
+    N], or [K/2m, N] packed) with the whole scale.  ``x`` is quantized per
+    token over all of K, as the unsharded site quantizes it, and only the
+    columns of the rank's rows (:func:`row_columns`) enter the kernel.
+    Returns [..., N] float32; summed over the ranks it is the site's
+    output."""
+    if x.requires_grad or wq.values.requires_grad or wq.scale.requires_grad:
+        raise RuntimeError("row_partial: got a tensor that requires grad, but no kernel has "
+                           "a backward; detach the inputs and parameters first")
+    lead, k = tuple(x.shape[:-1]), x.shape[-1]
+    xq = quantize_per_token(x.reshape(-1, k), a_bits)
+    xv = xq.values
+    if size > 1:
+        xv = xv.index_select(1, row_columns(k, wq.values.shape[0], rank, packed=wq.packed,
+                                            device=x.device))
+    y = _qm.quant_matmul(xv, xq.scale, wq.values, wq.scale.reshape(1, -1).to(torch.float32),
+                         packed=wq.packed)
+    return y.reshape(lead + (y.shape[-1],))
+
+
 def _replicated(fn: Callable, x, site: Any, mesh, model_dim):
     """``fn(x, site)`` with every leaf of ``site`` gathered: the route of a
     site with no tensor-parallel rule."""
@@ -158,15 +192,12 @@ def quant_linear_matmul(x, wq, a_bits: int = 8, *, tiles=None):
             device_mesh=mesh, redistribute_inputs=True)(x, vals, scale)
 
     if dim == 0 and vals.shape[0] % size == 0 and (not wq.packed or wq.pack_axis == 0):
+        kernel_ops.launch_tiles("quant_matmul", tiles)
         rank = mesh.get_local_rank(md)
-        k = x.shape[-1]
 
         def row(xl, vl, sl):
-            idx = None if size == 1 else row_columns(k, vl.shape[0], rank, packed=wq.packed,
-                                                     device=xl.device)
-            return kernel_ops.quant_linear_matmul(
-                xl, dataclasses.replace(wq, values=vl, scale=sl), a_bits, tiles=tiles,
-                k_index=idx)
+            return row_partial(xl, dataclasses.replace(wq, values=vl, scale=sl), rank, size,
+                               a_bits)
 
         y = local_map(
             row, out_placements=_batch(x, mesh, md, Partial()),
@@ -200,7 +231,7 @@ def two_stage_mha(q, k, v, *, causal: bool = False, tiles=None):
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
-def attention(fn, cfg, q, k, v, *, kv_mask=None, **kw):
+def sdpa_dispatch(fn, cfg, q, k, v, *, kv_mask=None, **kw):
     """``fn(cfg, q, k, v, kv_mask=, **kw)`` (the float attention of
     ``models/attention.py``) on local shards: q [B, L, H, dh] and k/v [B,
     Lk, Hkv, dh] split on their heads (dim 2) when the model axis divides
@@ -239,3 +270,72 @@ def fused_ffn_apply(x, f, *, tiles=None):
     mesh, md = _mesh(x, *tree_leaves(f))
     return _replicated(lambda xl, site: kernel_ops.fused_ffn_apply(xl, site, tiles=tiles),
                        _dt(x, mesh), f, mesh, md)
+
+
+def gather_dim(x, dim: int, keep: int = 0):
+    """DTensor ``x`` with every mesh dim that shards tensor dim ``dim`` and
+    does not divide ``keep`` (0: none divides) replicated; other tensors
+    as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(x):
+        return x
+    d = dim % x.ndim
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == d
+           and (keep == 0 or keep % x.device_mesh.size(i)) else pl
+           for i, pl in enumerate(x.placements)]
+    return x if pls == list(x.placements) else x.redistribute(x.device_mesh, pls)
+
+
+def split_dim(fn, x, dim: int, sizes):
+    """``fn(x, dim, sizes)``, a reshape of dim ``dim`` into ``sizes``.  A
+    DTensor sharded on that dim keeps the sharding on the first new dim
+    where the mesh dim divides ``sizes[0]``, and is gathered on that mesh
+    dim first where it does not (a reshape cannot split uneven shards;
+    GSPMD regathers so implicitly, e.g. 2 KV heads on a 4-way model axis)."""
+    return fn(gather_dim(x, dim, keep=sizes[0]), dim, sizes)
+
+
+def local_rows(fn, x, block: int = 0):
+    """``fn(x)`` for a DTensor ``x``, computed on each rank's local shard:
+    ``fn`` must act on each row of the last dim alone (on each run of
+    ``block`` entries, with ``block``), as a blocked WHT or IDCT does.  A
+    sharding of the last dim that would split a block (any, without
+    ``block``) is gathered first; the result keeps ``x``'s placements.
+    Reshapes that flatten sharded dims (a matmul over [..., blocks, block])
+    then never meet DTensor's sharding rules."""
+    from torch.distributed.tensor.experimental import local_map
+
+    x = gather_dim(x, -1, keep=x.shape[-1] // block if block else 0)
+    pls = list(x.placements)  # a list: local_map reads a tuple as one entry an output
+    return local_map(fn, out_placements=pls, in_placements=(pls,), device_mesh=x.device_mesh)(x)
+
+
+def fast_wht(fn, x, block=None):
+    """``fn(x, block)``, the blocked WHT, on each rank's rows."""
+    b = block or block_size_for(x.shape[-1])
+    return local_rows(lambda t: fn(t, b), x, b)
+
+
+def apply_blocked(fn, x, mat, block: int):
+    """``fn(x, mat, block)``, a block-diagonal matmul, on each rank's rows."""
+    return local_rows(lambda t: fn(t, mat, block), x, block)
+
+
+def write_slots(fn, buf, start: int, new):
+    """``fn(buf, start, new)``, a cache write into slots ``[start, start +
+    L)`` of dim 1, on a cache placed whole on that dim (batch or channels
+    sharded, or replicated).  A cache sharded on its slots (the
+    ``seq_axis_shard``/``seq_model_shard`` specs of
+    ``sharding.cache_pspecs``) raises: DTensor would write into a gathered
+    copy and drop the write; so does a plain cache."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(buf):
+        raise TypeError("a sharded forward writes a plain cache: place the cache with "
+                        "sharding.distribute_tree (specs from sharding.cache_pspecs)")
+    if any(isinstance(pl, Shard) and pl.dim % buf.ndim == 1 for pl in buf.placements):
+        raise NotImplementedError(
+            f"a KV cache sharded on its sequence dim ({buf.placements}) is not supported "
+            "yet; place the cache with seq_axis_shard=False and seq_model_shard=False")
+    fn(buf, start, new)

@@ -32,11 +32,11 @@ import torch.distributed as dist
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, token_batch
-from repro_torch.kernels._build import is_dtensor
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression
 from repro_torch.serving.batching import resolve_device
+from repro_torch.sharded import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["lm_loss", "make_train_step", "make_ddp_compressed_step", "TrainerConfig",

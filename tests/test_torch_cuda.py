@@ -1335,3 +1335,77 @@ def test_pipeline_at_one_stage_is_the_stage(nccl_mesh):
     x = _normal(rng, (8, 64), "cuda")
     got = pipeline_apply(mesh, lambda p, h: torch.tanh(h @ p), w, x, n_micro=4)
     assert torch.equal(got, torch.cat([torch.tanh(xm @ w[0]) for xm in x.reshape(4, 2, 64)]))
+
+
+@pytest.mark.parametrize("m", [2, 4, 16])
+def test_tensor_parallel_sites_on_local_shards_at_qwen3_14b_widths(dev, m):
+    """The kernels at the shapes an ``m``-way model axis hands each rank, with
+    no process group (the card's NCCL mesh is 1 x 1, whose shards are whole):
+    every rank's slice of qwen3-14b's W4 weights, contiguous as DTensor's
+    local shards are, for 1024 tokens ([2, 512]).
+
+    Column-parallel ``wq``/``w_up``: each rank's N/m columns, concatenated,
+    equal the unsharded launch bit for bit.  Row-parallel ``wo``/``w_down``:
+    each rank's K/2m packed rows through ``sites.row_partial`` (its two
+    nibble runs of K) equal the plain version on the same local operands to
+    the kernel's own 1e-6, and their sum the unsharded launch (float partial
+    sums added in rank order).  Two-stage attention on each rank's heads,
+    where ``m`` divides both head counts (40 and 8; else the site runs
+    replicated), equals the unsharded launch bit for bit."""
+    import dataclasses
+
+    from repro_torch.parallel import sites
+
+    d, heads, kv_heads, dh, ff, tokens = 5120, 40, 8, 128, 17408, 1024
+    rng = np.random.default_rng(m)
+    for k, n, row in ((d, heads * dh, False), (d, ff, False), (heads * dh, d, True),
+                      (ff, d, True)):
+        x = _normal(rng, (tokens, k), dev)
+        wq = quantize_weight(_normal(rng, (k, n), dev) * 0.02, 4)
+        with probe.tracking() as log:
+            whole = ops.quant_linear_matmul(x, wq)
+            parts = []
+            for r in range(m):
+                if row:
+                    rows = k // (2 * m)
+                    local = dataclasses.replace(wq, values=wq.values[r * rows:(r + 1) * rows]
+                                                .contiguous())
+                    parts.append(sites.row_partial(x, local, r, m))
+                else:
+                    cols = slice(r * n // m, (r + 1) * n // m)
+                    local = dataclasses.replace(wq, values=wq.values[:, cols].contiguous(),
+                                                scale=wq.scale[..., cols].contiguous())
+                    parts.append(ops.quant_linear_matmul(x, local))
+        torch.cuda.synchronize()
+        assert log.by_name() == {"quant_matmul": 1 + m}, (k, n)
+        xq = quantize_per_token(x, 8)
+        torch.testing.assert_close(whole, qm.quant_matmul_plain(
+            xq.values, xq.scale, wq.values, wq.scale.reshape(1, -1), packed=True),
+            rtol=1e-6, atol=0)
+        if not row:
+            assert torch.equal(torch.cat(parts, dim=-1), whole), (k, n)
+            continue
+        for r, part in enumerate(parts):
+            rows = k // (2 * m)
+            idx = sites.row_columns(k, rows, r, packed=True, device=dev)
+            want = qm.quant_matmul_plain(xq.values.index_select(1, idx), xq.scale,
+                                         wq.values[r * rows:(r + 1) * rows].contiguous(),
+                                         wq.scale.reshape(1, -1), packed=True)
+            torch.testing.assert_close(part, want, rtol=1e-6, atol=0)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        torch.testing.assert_close(total, whole, rtol=1e-5,
+                                   atol=1e-5 * float(whole.abs().max()))
+    if heads % m or kv_heads % m:
+        return
+    q = _normal(rng, (2, heads, 512, dh), dev)
+    kk, v = (_normal(rng, (2, kv_heads, 512, dh), dev) for _ in range(2))
+    with probe.tracking() as log:
+        whole = ops.two_stage_mha(q, kk, v, causal=True)
+        parts = [ops.two_stage_mha(*(t[:, r * t.shape[1] // m:(r + 1) * t.shape[1] // m]
+                                     .contiguous() for t in (q, kk, v)), causal=True)
+                 for r in range(m)]
+    torch.cuda.synchronize()
+    assert log.by_name() == {"two_stage_attention": 1 + m}
+    assert torch.equal(torch.cat(parts, dim=1), whole)

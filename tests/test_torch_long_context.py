@@ -32,13 +32,16 @@ def _reference_bytes(arch: str, ctx: int) -> int:
 
 
 @pytest.mark.parametrize("arch", ex.ARCHS)
-def test_cache_bytes_equal_the_reference_at_each_context(arch):
+def test_cache_bytes_equal_the_reference_at_each_context(arch, monkeypatch):
     cfg = get_config(arch)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    # the bytes depend on neither the prompt's length nor the number of
+    # decode steps: 8 tokens and 1 step, not 64 and 16, for the test's time
+    monkeypatch.setattr(ex, "PROMPT", 8)
+    monkeypatch.setattr(ex, "DECODE", 1)
     got = {}
     for ctx in ex.CONTEXTS:
-        # the bytes do not depend on the prompt's length: 8 tokens, not 64
-        ms, got[ctx] = ex.measure(cfg, params, ctx, "cpu", steps=1, prompt=8)
+        ms, got[ctx] = ex.measure(cfg, params, ctx, "cpu")
         assert got[ctx] == _reference_bytes(arch, ctx), ctx
         assert ms > 0
     if "attn" not in cfg.pattern:  # the O(1) state

@@ -250,14 +250,16 @@ def test_quantized_serving_sharded_matches(ranks, case):
         if case.startswith("emulation"):
             assert plain == sharded == []
             continue
-        # every site of the sharded forward called the wrapper on local
-        # shards, once a site, as the unsharded forward does
+        # every site of the sharded forward called its kernel wrapper on
+        # local shards, once a site, as the unsharded forward does
         assert [n for n, _, _ in sharded] == [n for n, _, _ in plain]
         assert not any(dt for _, dt, _ in plain + sharded)
-        # the row-parallel sites (wo, w_down of 2 layers) took their K runs;
-        # a fused site runs replicated
-        assert sum(k for _, _, k in sharded) == (0 if case.startswith("fused") else 4)
-        n_attn = sum(n == "two_stage_mha" for n, _, _ in sharded)
+        # the row-parallel sites (wo, w_down of 2 layers) took their K runs,
+        # a quarter of K on the 4-way model axis; a fused site runs replicated
+        ks = [(k, kp) for (_, _, k), (_, _, kp) in zip(sharded, plain) if k != kp]
+        assert all(4 * k == kp for k, kp in ks)
+        assert len(ks) == (0 if case.startswith("fused") else 4)
+        n_attn = sum(n == "two_stage_attention" for n, _, _ in sharded)
         assert n_attn == (2 if case.endswith("two_stage") else 0)
         assert any(n.startswith("fused") for n, _, _ in sharded) == case.startswith("fused")
     d = ranks[0][case]
@@ -271,6 +273,29 @@ def test_two_stage_site_attends_with_each_ranks_heads(ranks):
         t = r["two_stage_heads"]
         assert torch.equal(t["got"], t["want"])
         assert t["placements"] == "(Shard(dim=0), Shard(dim=1))"
+
+
+@pytest.mark.parametrize("case", ["fp", "w4a8"])
+def test_sharded_decode_through_the_kv_cache_matches(ranks, case):
+    """A prefill and a decode step, the int8 KV cache placed by
+    ``cache_pspecs(seq_axis_shard=False)``, under the W4A8 forward's
+    structural bound against the unsharded."""
+    for r in ranks:
+        d = r["decode"][case]
+        diff = (d["got"] - d["want"]).abs()
+        assert float((diff > FLIP_DIFF).float().mean()) < FLIP_FRAC
+        assert float(diff.max()) < MAX_DIFF, float(diff.max())
+    d = ranks[0]["decode"][case]
+    print(f"sharded decode ({case}): max |diff| {float((d['got'] - d['want']).abs().max()):.3g} "
+          f"over max |logit| {float(d['want'].abs().max()):.3g}")
+
+
+def test_sequence_sharded_or_plain_cache_is_refused(ranks):
+    """A cache sharded on its sequence would lose DTensor's writes, and a
+    plain one cannot take them: both raise rather than decode wrong."""
+    for r in ranks:
+        assert "sharded on its sequence dim" in r["decode"]["seq"]
+        assert "writes a plain cache" in r["decode"]["plain"]
 
 
 def test_row_parallel_w4_site_is_exact_in_integers(ranks):

@@ -10,6 +10,7 @@ test process makes the same ones through the ``*_inputs`` functions.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import time
 
 import numpy as np
@@ -26,7 +27,9 @@ ROW_K, ROW_N, ROW_M = 256, 64, 8
 # the sharded W4A8 forwards: kernel sites (the flash emulation of attention,
 # or the two-stage kernel's site) or the float emulation of every site
 W4A8_CASES = ("kernel-flash", "kernel-two_stage", "fused-flash", "emulation-flash")
-WRAPPERS = ("quant_linear_matmul", "two_stage_mha", "fused_linear", "fused_ffn_apply")
+# the kernel wrappers a W4A8 forward reaches: (module of repro_torch.kernels, name)
+KERNELS = (("quant_matmul", "quant_matmul"), ("two_stage_attention", "two_stage_attention"),
+           ("fused", "fused_matmul"), ("fused", "fused_ffn"))
 
 
 def _batch_spec(mesh):
@@ -55,25 +58,45 @@ def row_site_inputs() -> tuple[np.ndarray, np.ndarray]:
     return x, w
 
 
+def _prefill_decode(cfg, params, toks, nxt, cache):
+    """The logits of one decode step on ``nxt`` after a prefill of ``toks``."""
+    from repro_torch.models import lm
+
+    _, cache = lm.forward(cfg, params, toks, cache=cache, mode="prefill")
+    logits, _ = lm.decode_step(cfg, params, nxt, cache)
+    return logits
+
+
+def _spec_at(specs):
+    """A ``distribute_tree`` spec function reading the tree of specs
+    ``specs`` (``sharding.cache_pspecs``) at each leaf's dotted path."""
+    def at(path, _):
+        node = specs
+        for key in path.split("."):
+            node = node[key] if isinstance(node, dict) else (
+                node[int(key)] if isinstance(node, list) else getattr(node, key))
+        return node
+    return at
+
+
 class _Calls:
-    """Records the operands each kernel wrapper got on a sharded path."""
+    """Records the operands each kernel wrapper got on a sharded path:
+    (wrapper, any DTensor operand, K of a ``quant_matmul``'s activations)."""
 
     def __init__(self):
-        self.log: list[tuple[str, bool, bool]] = []  # (wrapper, any DTensor, k_index given)
+        self.log: list[tuple[str, bool, int | None]] = []
 
-    def wrap(self, ops, name):
-        from repro_torch.kernels._build import is_dtensor
+    def wrap(self, mod, name):
+        from repro_torch.sharded import is_dtensor
 
-        inner = getattr(ops, name)
+        inner = getattr(mod, name)
 
         def rec(*args, **kw):
-            leaves = [a for a in args if isinstance(a, torch.Tensor)]
-            leaves += [t for a in args if hasattr(a, "pack_axis") for t in (a.values, a.scale)]
-            self.log.append((name, any(is_dtensor(t) for t in leaves),
-                             kw.get("k_index") is not None))
+            self.log.append((name, any(is_dtensor(t) for t in (*args, *kw.values())),
+                             args[0].shape[-1] if name == "quant_matmul" else None))
             return inner(*args, **kw)
 
-        setattr(ops, name, rec)
+        setattr(mod, name, rec)
         return inner
 
 
@@ -122,7 +145,8 @@ def sharding(rank: int, world: int, out) -> None:
     raw = lm.init_params(qcfg, torch.Generator().manual_seed(0))
     toks = torch.as_tensor(forward_tokens(qcfg.vocab_size))
     calls = _Calls()
-    inner = [calls.wrap(ops, name) for name in WRAPPERS]
+    mods = [importlib.import_module(f"repro_torch.kernels.{m}") for m, _ in KERNELS]
+    inner = [calls.wrap(mod, name) for mod, (_, name) in zip(mods, KERNELS)]
     for case in W4A8_CASES:
         route, attn = case.split("-")
         cfg = qcfg.with_(attn_impl=attn)
@@ -137,8 +161,8 @@ def sharding(rank: int, world: int, out) -> None:
         res[case] = {"want": want, "got": got.full_tensor(), "calls_plain": calls.log[:n_plain],
                      "calls_sharded": calls.log[n_plain:]}
         calls.log.clear()
-    for name, fn in zip(WRAPPERS, inner):
-        setattr(ops, name, fn)
+    for mod, (_, name), fn in zip(mods, KERNELS, inner):
+        setattr(mod, name, fn)
     # the two-stage site on each rank's heads (8 query and 4 K/V heads split
     # 4 ways), against the unsharded wrapper
     g = torch.Generator().manual_seed(4)
@@ -176,6 +200,35 @@ def sharding(rank: int, world: int, out) -> None:
         vbase = vggt.forward(vcfg, vp, scenes)["points"]
         vgot = vggt.forward(vcfg, vp, scenes, act_sharding=spec)["points"]
         res["act"]["vggt"] = (vbase.full_tensor(), vgot.full_tensor())
+
+    # (3b) a 6-token prefill and a decode step through the int8 KV cache,
+    # fp and W4A8 kernel sites, the cache placed by the reference's
+    # cache_pspecs (batch over data, head_dim over model) against the
+    # unsharded; a cache sharded on its sequence, or left plain, is refused
+    res["decode"] = {}
+    qp = quantize_lm(qcfg, raw, PrecisionPlan(default="w4a8", use_kernel=True))
+    nxt = torch.as_tensor(forward_tokens(qcfg.vocab_size)[:, 6])
+    for case, tree in (("fp", raw), ("w4a8", qp)):
+        with torch.no_grad():
+            want = _prefill_decode(qcfg, tree, toks[:, :6], nxt, lm.init_cache(qcfg, 4, 8))
+            cache = lm.init_cache(qcfg, 4, 8)
+            specs = sh.cache_pspecs(qcfg, cache, mesh, seq_axis_shard=False)
+            with implicit_replication():
+                tree_s = fp if case == "fp" else sh.distribute_tree(qp, mesh)
+                got = _prefill_decode(qcfg, tree_s, ftoks[:, :6], nxt,
+                                      sh.distribute_tree(cache, mesh, _spec_at(specs)))
+        res["decode"][case] = {"want": want, "got": got.full_tensor()}
+    for case, seq in (("seq", True), ("plain", None)):
+        cache = lm.init_cache(qcfg, 4, 8)
+        if seq:
+            cache = sh.distribute_tree(cache, mesh, _spec_at(
+                sh.cache_pspecs(qcfg, cache, mesh, seq_axis_shard=True)))
+        try:
+            with torch.no_grad(), implicit_replication():
+                _prefill_decode(qcfg, fp, ftoks[:, :6], nxt, cache)
+            res["decode"][case] = None
+        except (NotImplementedError, TypeError) as e:
+            res["decode"][case] = str(e)
 
     # (4) one row-parallel W4 site alone: the two nibble runs, exact ints
     x, w = row_site_inputs()
