@@ -320,6 +320,23 @@ It imports nothing of JAX or of the JAX package, and does, in order:
    steps at contexts 128, 512 and 2048: ms a token, the cache's bytes
    (rwkv6's equal at every context) and jamba's int8 K/V bytes against
    bf16 (exactly half).
+21. runs the sharded paths of the dry run's cells at world size 1
+   (``phase_cells``, a one-rank NCCL group as in 19): (a) vggt-1b at full
+   width and depth, W4A8, two-stage attention, ``CELL_SCENES`` scenes of
+   ``S_FRAMES`` x ``N_PATCHES``, on the ``vggt_serve_s8`` cell's
+   batch-sharded stream (``specs.vggt_stream_specs``) with no
+   ``act_sharding`` and again with the act-SP spec: every output bit-equal
+   to the unsharded forward's and the same ``quant_matmul`` and
+   ``two_stage_attention`` launches, first-call and warm times; (b)
+   jamba-v0.1-52b at ``JAMBA_LAYERS``, W4A8, batch 1: a ``CELL_PROMPT``-token
+   prefill and ``CELL_DECODE`` greedy decode steps through a KV cache placed
+   by ``cache_pspecs(seq_axis_shard=True)``, and again by
+   ``seq_model_shard=True``: ids and logits equal to the unsharded cache's;
+   (c) ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS`` (CPU-only
+   subprocesses on a fake 256-rank mesh, started first and run beside (a)
+   and (b)): each cell's terms and seconds, ``status`` ``ok``, and no
+   collective of the jamba ``long_500k`` decode whose result spans the
+   cache's whole sequence (524,288 slots).
 
 The configs of 16-17 serve on the CPU at their smoke sizes through the
 launcher, e.g. ``PYTHONPATH=src python -m repro_torch.launch.serve --device
@@ -328,7 +345,7 @@ cpu --arch jamba-v0.1-52b-smoke --tiers quality=fp,balanced=w4a8 --requests
 reason on its scheduler line; ``internlm2-20b-smoke``, ``starcoder2-7b-smoke``
 and ``musicgen-large-smoke`` serve continuous).
 
-Each of the paths 4-20 runs with the launch counts set to 0 just before it
+Each of the paths 4-21 runs with the launch counts set to 0 just before it
 and read just after.  Both serve paths use 4 requests of one scene each,
 ``max_batch=2``, two-stage attention.  Any failed check raises, so the
 script exits non-zero.  The kernels' JSON line carries, per kernel, its
@@ -417,6 +434,13 @@ TRAIN_LOSS_REL, TRAIN_PARAM_REL, REMAT_REL = 1e-5, 1e-4, 1e-6
 # DDP train step at phase 18's qwen3-14b shapes; PARALLEL_WARM timed calls
 # of each route of the forward after its first
 PARALLEL_SEQ, PARALLEL_DDP_STEPS, PARALLEL_WARM = 512, 3, 3
+# phase 21: vggt-1b on the vggt_serve_s8 cell's stream (CELL_SCENES scenes of
+# S_FRAMES x N_PATCHES); jamba at JAMBA_LAYERS decoding CELL_DECODE greedy
+# tokens after a CELL_PROMPT-token prefill through sequence-sharded caches;
+# the dry run's DRYRUN_CELLS, each a subprocess of at most DRYRUN_TIMEOUT s
+CELL_SCENES, CELL_PROMPT, CELL_DECODE = 2, 64, 8
+DRYRUN_CELLS = (("vggt-1b", "vggt_serve_s8"), ("jamba-v0.1-52b", "long_500k"))
+DRYRUN_TIMEOUT = 420
 # A fast 64-point DCT (Chen/Loeffler: N/2 log2 N multiplies and 3N/2
 # log2 N adds, 192 + 576 per block) does 12 f32 operations per output: the
 # least work of the fused kernels' block IDCT.  Both run a generated fast
@@ -490,6 +514,7 @@ def main() -> int:
     paths["train"] = phase_train(torch, dev)
     paths["parallel"] = phase_parallel(torch, dev)
     paths["long_context"] = phase_long_context(torch, dev)
+    paths["cells"] = phase_cells(torch, dev)
     out = summarize(kernels, paths)
 
     smi = subprocess.run(
@@ -4622,6 +4647,188 @@ def phase_long_context(torch, dev) -> dict:
         torch.cuda.empty_cache()
     print(f"long context: phase {time.perf_counter() - t_phase:.1f}s")
     return {"counts": {}, "runs": 1, "inplace": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the dry run's cells and their sharded paths
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_procs(tmp: str) -> list:
+    """Start ``launch.dryrun`` on each of ``DRYRUN_CELLS`` (CPU-only: no
+    card is visible to them)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(os.path.join(tmp, f"{arch}.{shape}.log"), "w+")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", tmp]
+        procs.append((arch, shape, log, time.perf_counter(),
+                      subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    return procs
+
+
+def _dryrun_results(procs, tmp: str, deadline: float) -> None:
+    """Wait for the dry runs, print each cell's terms, check each."""
+    try:
+        for arch, shape, log, t0, p in procs:
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            log.seek(0)
+            text = log.read()
+            _check(rc == 0, f"cells (c): dryrun {arch} x {shape} exit {rc}: {text[-3000:]}")
+            with open(os.path.join(tmp, f"{arch}__{shape}__single__baseline.json")) as f:
+                res = json.load(f)
+            _check(res["status"] == "ok", f"cells (c): {arch} x {shape} status {res['status']}")
+            terms = {k: res[k] for k in ("flops_per_dev", "hbm_bytes_per_dev",
+                                         "coll_bytes_per_dev", "t_compute_s", "t_memory_s",
+                                         "t_collective_s", "dominant", "useful_flops_ratio")}
+            print(f"cells (c) dry run {arch} x {shape} x single (256 ranks): "
+                  f"{json.dumps(terms)}; memory {json.dumps(res['memory'])}; run "
+                  f"{res['run_s']} s, process {time.perf_counter() - t0:.1f} s")
+            if shape == "long_500k":
+                seq = 524288
+                whole = [e for e in res["collective_log"] if seq in e[1]]
+                print(f"cells (c) {arch} long_500k: {len(res['collective_log'])} distinct "
+                      f"collectives, none spanning the {seq}-slot cache: {not whole}")
+                _check(not whole, f"cells (c): collectives over the whole cache {whole}")
+    finally:
+        for *_, log, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+
+def phase_cells(torch, dev) -> dict:
+    """See the module docstring (21)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_quant import quantize_lm, quantize_vggt
+    from repro_torch.kernels import probe
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm, vggt
+    from repro_torch.parallel import sharding
+    from repro_torch.sharded import is_dtensor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _dryrun_procs(tmp)
+        deadline = time.perf_counter() + DRYRUN_TIMEOUT
+        backend = _process_group(torch, dev, os.path.join(tmp, "pg"))
+        try:
+            mesh = make_local_mesh(1, 1, device_type=dev.type)
+
+            # (a) vggt-1b on the vggt_serve_s8 cell's stream, with and without act-SP
+            cfg = get_config("vggt-1b").with_(attn_impl="two_stage")
+            t0 = time.perf_counter()
+            raw = vggt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            with torch.no_grad():
+                params = quantize_vggt(cfg, raw, _plan(False))
+            del raw
+            x = _scenes(torch, dev, CELL_SCENES, 0)
+            bspec, aspec = specs.vggt_stream_specs(mesh, CELL_SCENES)
+            ps = sharding.distribute_tree(params, mesh)
+            xs = sharding.distribute_tree(x, mesh, lambda p, t: bspec)
+            keys = ("pose", "depth", "points", "conf")
+            runs = {"unsharded": lambda: vggt.forward(cfg, params, x)}
+            for name, act in (("batch", None), ("batch + act-SP", aspec)):
+                spec = None if act is None else sharding.NamedSharding(mesh, act)
+                runs[name] = lambda spec=spec: vggt.forward(cfg, ps, xs, act_sharding=spec)
+            outs, logs = {}, {}
+            for name, fwd in runs.items():
+                with torch.no_grad(), implicit_replication(), probe.tracking() as log:
+                    out, first = _timed(torch, dev, fwd)
+                    warm = [_timed(torch, dev, fwd)[1] for _ in range(2)]
+                outs[name] = {k: out[k].full_tensor() if is_dtensor(out[k]) else out[k]
+                              for k in keys}
+                logs[name] = {k: v // 3 for k, v in log.by_name().items()}
+                if name != "unsharded":
+                    for k, v in log.by_name().items():
+                        counts[k] = counts.get(k, 0) + v
+                print(f"cells (a) vggt-1b W4A8 two-stage {CELL_SCENES} x {S_FRAMES} x "
+                      f"{N_PATCHES} {name}: first call {first:.1f} ms, warm "
+                      f"{[f'{t:.1f}' for t in warm]} ms; launches a forward {logs[name]}")
+            for name in runs:
+                same = all(torch.equal(outs[name][k], outs["unsharded"][k]) for k in keys)
+                print(f"cells (a) {name}: outputs bit-equal to the unsharded forward: {same}")
+                _check(same, f"cells (a): {name} outputs differ")
+                _check(logs[name] == logs["unsharded"],
+                       f"cells (a): {name} launches {logs[name]} vs {logs['unsharded']}")
+            _check(logs["unsharded"] == {"quant_matmul": 12 * cfg.n_layers,
+                                         "two_stage_attention": 2 * cfg.n_layers},
+                   f"cells (a): unsharded launches {logs['unsharded']}")
+            _check(all(bool(torch.isfinite(v).all()) for v in outs["unsharded"].values()),
+                   "cells (a): outputs not finite")
+            print(f"cells (a): {time.perf_counter() - t0:.1f}s")
+            del params, ps, outs
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) jamba decode through sequence-sharded caches
+            full = get_config("jamba-v0.1-52b")
+            cfg = full.with_(n_layers=JAMBA_LAYERS)
+            t0 = time.perf_counter()
+            raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            with torch.no_grad():
+                params = quantize_lm(cfg, raw, _plan(False))
+            del raw
+            gc.collect()
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev).manual_seed(8)
+            prompt = torch.randint(0, cfg.vocab_size, (1, CELL_PROMPT), generator=gen, device=dev)
+            ps = sharding.distribute_tree(params, mesh)
+
+            def greedy(tree, cache):
+                logits, cache = lm.forward(cfg, tree, prompt, cache=cache, mode="prefill")
+                steps = []
+                for _ in range(CELL_DECODE):
+                    last = logits.full_tensor() if is_dtensor(logits) else logits
+                    nxt = last[:, -1].argmax(-1)
+                    logits, cache = lm.decode_step(cfg, tree, nxt, cache)
+                    steps.append((nxt, logits.full_tensor() if is_dtensor(logits) else logits))
+                return torch.stack([i for i, _ in steps]), torch.stack([g for _, g in steps])
+
+            length = CELL_PROMPT + CELL_DECODE
+            with torch.no_grad():
+                want_ids, want = greedy(params, lm.init_cache(cfg, 1, length, device=dev))
+            for name, flags in (("seq_axis_shard", dict(seq_axis_shard=True)),
+                                ("seq_model_shard", dict(seq_axis_shard=False,
+                                                         seq_model_shard=True))):
+                cache = lm.init_cache(cfg, 1, length, device=dev)
+                cache = sharding.distribute_tree(cache, mesh, sharding.spec_at(
+                    sharding.cache_pspecs(cfg, cache, mesh, **flags)))
+                with torch.no_grad(), implicit_replication(), probe.tracking() as log:
+                    (ids, got), ms = _timed(torch, dev, lambda: greedy(ps, cache))
+                for k, v in log.by_name().items():
+                    counts[k] = counts.get(k, 0) + v
+                same = torch.equal(ids, want_ids) and torch.equal(got, want)
+                print(f"cells (b) jamba ({JAMBA_LAYERS} of {full.n_layers} layers) W4A8, cache "
+                      f"{name}: {CELL_PROMPT}-token prefill + {CELL_DECODE} decode steps "
+                      f"{ms:.1f} ms; ids {ids.flatten().tolist()}; ids and logits equal to "
+                      f"the unsharded cache's: {same} (max |diff| "
+                      f"{float((got - want).abs().max()):.3g}); launches {log.by_name()}")
+                _check(same, f"cells (b): {name} decode differs")
+            print(f"cells (b): {time.perf_counter() - t0:.1f}s")
+            del params, ps, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        _dryrun_results(procs, tmp, deadline)
+    print(f"cells: phase {time.perf_counter() - t_phase:.1f}s ({backend})")
+    return {"counts": counts, "runs": 1, "inplace": {}}
 
 
 if __name__ == "__main__":

@@ -19,4 +19,18 @@ from repro_torch.configs import (  # noqa: F401
     vggt_1b,
 )
 
-__all__ = ["ModelConfig", "get_config", "list_configs", "register"]
+# the reference's assigned pool: the LMs of the dry run's ``--all``
+ASSIGNED = [
+    "jamba-v0.1-52b",
+    "paligemma-3b",
+    "deepseek-moe-16b",
+    "deepseek-v2-lite-16b",
+    "qwen3-14b",
+    "internlm2-20b",
+    "starcoder2-7b",
+    "phi3-mini-3.8b",
+    "rwkv6-1.6b",
+    "musicgen-large",
+]
+
+__all__ = ["ModelConfig", "get_config", "list_configs", "register", "ASSIGNED"]

@@ -30,7 +30,7 @@ from repro_torch.core import transforms
 from repro_torch.core.quantize import QTensor, quantize_per_token, quantize_weight, unpack_int4
 from repro_torch.kernels.fused import act_rows as _act_fn
 from repro_torch.obs import quant_health
-from repro_torch.sharded import kernels_for
+from repro_torch.sharded import kernels_for, routed
 
 __all__ = [
     "QuantPolicy",
@@ -233,7 +233,7 @@ def folded_norm_stats(
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
         return xf * torch.rsqrt(ms + eps)
     d = xf.shape[-1]
-    mu = (xf @ u)[..., None]  # mean of the unrotated x
+    mu = matmul(xf, u)[..., None]  # mean of the unrotated x
     sq = torch.mean(xf * xf, dim=-1, keepdim=True)  # E[x²] (rotation-invariant)
     var = sq - mu * mu
     return (xf - mu * u * d) * torch.rsqrt(var + eps)
@@ -261,6 +261,13 @@ def _monitor_quant(p: QuantLinear, x: torch.Tensor) -> None:
     there; the unfused path observes the exact pre-quant tensor."""
     if p.site is not None:
         quant_health.monitor(p.site, x, p.a_bits)
+
+
+@routed
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A float site's ``x @ w`` (on a sharded path ``parallel.sites.matmul``,
+    which multiplies each rank's rows)."""
+    return x @ w
 
 
 def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
@@ -311,7 +318,7 @@ def apply_linear(p: Any, x: torch.Tensor) -> torch.Tensor:
         return y.to(dtype)
     if not isinstance(p, dict):
         raise NotImplementedError(f"{type(p).__name__} layers are not ported yet")
-    y = x @ p["w"].to(x.dtype)
+    y = matmul(x, p["w"].to(x.dtype))
     if p.get("b") is not None:
         y = y + p["b"].to(x.dtype)
     return y

@@ -332,7 +332,7 @@ def norm_quant(x: torch.Tensor, norm_u=None, *, norm_kind: Optional[str] = None,
     ``norm_u``: the LayerNorm mean-recovery vector [D] (``norm_kind="ln"``).
     """
     refuse_dtensor("norm_quant", x, norm_u)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
         return norm_quant_plain(x, norm_u, norm_kind=norm_kind, norm_eps=norm_eps,
                                 wht_block=wht_block, a_bits=a_bits)
     _check(x.device.type == "cuda", "norm_quant", f"unsupported device {x.device}")
@@ -372,7 +372,7 @@ def fused_matmul(x: torch.Tensor, wv: torch.Tensor, ws: torch.Tensor, xs=None, b
               pro_wht_block=pro_wht_block, act=act, epi_wht_block=epi_wht_block,
               requant_bits=requant_bits, dct_block=dct_block)
     refuse_dtensor("fused_matmul", x, wv, ws, xs, bias, norm_u)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
         return fused_matmul_plain(x, wv, ws, xs, bias, norm_u, **kw)
     _check(x.device.type == "cuda", "fused_matmul", f"unsupported device {x.device}")
     dev = x.device
@@ -447,7 +447,7 @@ def fused_ffn(x: torch.Tensor, wu: torch.Tensor, wus: torch.Tensor, wd: torch.Te
               pro_wht_block=pro_wht_block, mid_wht_block=mid_wht_block, idct_h=idct_h,
               idct_out=idct_out, dct_block=dct_block)
     refuse_dtensor("fused_ffn", x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
         return fused_ffn_plain(x, wu, wus, wd, wds, wg, wgs, bg, bu, bd, norm_u, **kw)
     _check(x.device.type == "cuda", "fused_ffn", f"unsupported device {x.device}")
     dev = x.device

@@ -154,7 +154,7 @@ def quant_matmul(
     wv [K,N] int8, or [K//2,N] uint8 when ``packed``.
     """
     refuse_dtensor("quant_matmul", xv, xs, wv, ws)
-    if xv.device.type == "cpu":
+    if xv.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
         return quant_matmul_plain(xv, xs, wv, ws, packed=packed)
     if xv.device.type != "cuda":
         raise ValueError(f"quant_matmul: unsupported device {xv.device}")
@@ -175,7 +175,7 @@ def quant_matmul_batched(
     [E,K//2,N] uint8 when ``packed``; ws [E,1,N] (or [E,N]) f32; E divides B.
     """
     refuse_dtensor("quant_matmul_batched", xv, xs, wv, ws)
-    if xv.device.type == "cpu":
+    if xv.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
         return quant_matmul_batched_plain(xv, xs, wv, ws, packed=packed)
     if xv.device.type != "cuda":
         raise ValueError(f"quant_matmul: unsupported device {xv.device}")

@@ -151,7 +151,7 @@ def two_stage_attention(
     ``kv_heads`` differ.
     """
     refuse_dtensor("two_stage_attention", qv, qs, kv, ks, vv, v_scale)
-    if qv.device.type == "cpu":
+    if qv.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
         return two_stage_attention_plain(
             qv, qs, kv, ks, vv, v_scale, causal=causal, q_heads=q_heads, kv_heads=kv_heads,
         )

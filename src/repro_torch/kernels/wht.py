@@ -46,7 +46,7 @@ def wht(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
     """Blocked WHT along the last axis of a 2-D f32 array [R, d]; ``block``
     defaults to ``block_size_for(d)``."""
     refuse_dtensor("wht", x)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
         return wht_plain(x, block=block)
     if x.device.type != "cuda":
         raise ValueError(f"wht: unsupported device {x.device}")

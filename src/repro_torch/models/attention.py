@@ -64,6 +64,7 @@ __all__ = [
     "gqa_attention",
     "init_mla",
     "mla_attention",
+    "absorbed_attend",
     "sdpa_dispatch",
     "CHUNK",
 ]
@@ -171,21 +172,24 @@ def _sqrt_f32(n: int, device) -> torch.Tensor:
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_len: Optional[int] = None,
-          kv_mask: Optional[torch.Tensor] = None):
+          kv_mask: Optional[torch.Tensor] = None, k_offset: int = 0, stats: bool = False):
     """Vanilla SDPA (materializes [Lq, Lk] scores) — ablation baseline and
     the cache-masked path.
 
     q: [B,Lq,H,dh]; k/v: [B,Lk,Hkv,dh].  f32 softmax, GQA broadcast.
     ``q_offset``: position of the first query (decode); ``kv_len``: keys at
     or past it are unwritten cache slots; ``kv_mask``: [B, Lk] bool — False
-    keys are excluded."""
+    keys are excluded.  ``k_offset``: the position of the first key (one
+    rank's shard of a sequence-sharded cache); with ``stats`` the call also
+    returns each row's score max and sum of exponentials ([B, Lq, H, 1]),
+    which ``parallel.sites`` combines across the shards."""
     b, lq, h, dh = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     qf = q.reshape(b, lq, hkv, g, dh).to(torch.float32)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(torch.float32)) / _sqrt_f32(dh, q.device)
     neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
-    cols = torch.arange(lk, device=q.device)[None, :]
+    cols = k_offset + torch.arange(lk, device=q.device)[None, :]
     if causal:
         rows = q_offset + torch.arange(lq, device=q.device)[:, None]
         s = torch.where(rows >= cols, s, neg)
@@ -195,7 +199,12 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_len: Optional[int] = N
         s = torch.where(kv_mask[:, None, None, None, :], s, neg)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
-    return o.reshape(b, lq, h, v.shape[-1])
+    o = o.reshape(b, lq, h, v.shape[-1])
+    if not stats:
+        return o
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    return o, *(t.movedim(3, 1).reshape(b, lq, h, 1) for t in (m, l))
 
 
 def _sdpa_streamed(q, k, v, *, causal: bool, two_stage: bool = False,
@@ -270,12 +279,19 @@ def _sdpa_streamed(q, k, v, *, causal: bool, two_stage: bool = False,
 
 
 @routed
-def sdpa_dispatch(cfg, q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None, kv_mask=None):
+def sdpa_dispatch(cfg, q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None, kv_mask=None,
+                  k_offset: int = 0, stats: bool = False):
+    """The float attention of q [B, Lq, H, dh] over k/v [B, Lk, Hkv, dh]:
+    the vanilla :func:`_sdpa` under ``attn_impl="vanilla"`` and on every
+    cache-masked call (``kv_len``), else :func:`_sdpa_streamed`.
+    ``k_offset``/``stats`` (cache-masked calls only) are the sharded
+    route's: see :func:`_sdpa`."""
     impl = getattr(cfg, "attn_impl", "flash")
     if impl == "vanilla" or kv_len is not None:
         # cache-masked paths take the masked vanilla form (decode scores
         # are [*, 1, S]: linear, not quadratic)
-        return _sdpa(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, kv_mask=kv_mask)
+        return _sdpa(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, kv_mask=kv_mask,
+                     k_offset=k_offset, stats=stats)
     return _sdpa_streamed(q, k, v, causal=causal, two_stage=(impl == "two_stage"),
                           compute_dtype=getattr(cfg, "attn_dtype", "f32"), kv_mask=kv_mask)
 
@@ -443,6 +459,38 @@ def _write_compressed(cache: KVCache, ck: torch.Tensor, pos0: int) -> tuple[KVCa
     return cache._replace(length=new_len), new_len
 
 
+@routed
+def absorbed_attend(q_lora, q_rope, ck, *, rank: int, scale: torch.Tensor, q_offset: int,
+                    kv_len: int, kv_mask: Optional[torch.Tensor] = None, k_offset: int = 0,
+                    stats: bool = False):
+    """MLA's absorbed decode attention: queries in the compressed domain,
+    q_lora [B, Lq, H, rank] and q_rope [B, Lq, H, dr], over the dequantized
+    compressed cache ck [B, S, rank + dr]; returns the attention-weighted
+    c_kv, [B, Lq, H, rank].  Scores are ``(q_lora·c + q_rope·k_rope) ·
+    scale``, causal from ``q_offset``, keys at or past ``kv_len`` and where
+    ``kv_mask`` [B, S] is False masked.  ``k_offset``/``stats`` are the
+    sharded route's (``parallel.sites.absorbed_attend``, which splits the
+    keys over the ranks and combines their partial softmaxes): the first
+    key's position, and the rows' score max and sum of exponentials
+    ([B, Lq, H, 1]) returned beside the output."""
+    c_all, krope_all = ck[..., :rank], ck[..., rank:]
+    s = (torch.einsum("bqhr,bkr->bhqk", q_lora, c_all)
+         + torch.einsum("bqhd,bkd->bhqk", q_rope, krope_all)) * scale
+    neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
+    rows = q_offset + torch.arange(q_lora.shape[1], device=s.device)[:, None]
+    cols = k_offset + torch.arange(c_all.shape[1], device=s.device)[None, :]
+    s = torch.where((rows >= cols) & (cols < kv_len), s, neg)
+    if kv_mask is not None:
+        s = torch.where(kv_mask[:, None, None, :], s, neg)
+    att = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkr->bqhr", att, c_all)
+    if not stats:
+        return o
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    return o, m.transpose(1, 2), l.transpose(1, 2)
+
+
 def mla_attention(
     p: dict,
     cfg: ModelConfig,
@@ -463,8 +511,10 @@ def mla_attention(
     writes the quantized ``[c_kv, k_rope]`` at ``cache.length``.  Decode
     (and a one-token prefill) is absorbed: the new token is written, the
     whole compressed cache is dequantized, and the scores are
-    ``q_nope·W_k_upᵀ·c + q_rope·k_rope`` over it.  ``pad_lens`` masks
-    left-pad slots in both branches."""
+    ``q_nope·W_k_upᵀ·c + q_rope·k_rope`` over it (:func:`absorbed_attend`;
+    on a sharded path the ranks split the cache's slots and combine their
+    partial softmaxes).  ``pad_lens`` masks left-pad slots in both
+    branches."""
     b, lq, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv, rank = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
@@ -498,20 +548,13 @@ def mla_attention(
         ck = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]  # [B, L, 1, rank + dr]
         new_cache, new_len = _write_compressed(cache, ck, pos0)
         ckf = (cache.k.to(torch.float32) * cache.k_scale)[:, :, 0, :]  # [B, S, rank + dr]
-        c_all, krope_all = ckf[..., :rank], ckf[..., rank:]
         wku = _absorbed_weight(p["w_k_up"]).reshape(rank, h, dn)
         q_lora = torch.einsum("bqhd,rhd->bqhr", q_nope.to(torch.float32), wku)
-        scale = 1.0 / _sqrt_f32(dn + dr, x.device)
-        s = (torch.einsum("bqhr,bkr->bhqk", q_lora, c_all)
-             + torch.einsum("bqhd,bkd->bhqk", q_rope.to(torch.float32), krope_all)) * scale
-        neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
-        rows = pos0 + torch.arange(lq, device=x.device)[:, None]
-        cols = torch.arange(c_all.shape[1], device=x.device)[None, :]
-        s = torch.where((rows >= cols) & (cols < new_len), s, neg)
-        if pad_lens is not None:  # left-pad slots from a bucketed prefill
-            s = torch.where(_pad_mask(pad_lens, c_all.shape[1])[:, None, None, :], s, neg)
-        att = torch.softmax(s, dim=-1)
-        o_lora = torch.einsum("bhqk,bkr->bqhr", att, c_all)
+        # left-pad slots from a bucketed prefill are masked
+        mask = _pad_mask(pad_lens, ckf.shape[1]) if pad_lens is not None else None
+        o_lora = absorbed_attend(q_lora, q_rope.to(torch.float32), ckf, rank=rank,
+                                 scale=1.0 / _sqrt_f32(dn + dr, x.device), q_offset=pos0,
+                                 kv_len=new_len, kv_mask=mask)
         wvu = _absorbed_weight(p["w_v_up"]).reshape(rank, h, dv)
         o = torch.einsum("bqhr,rhd->bqhd", o_lora, wvu)
     o = o.reshape(b, lq, h * dv).to(x.dtype)

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.versaq import FusedFFN, apply_ffn, carries_norm
 from repro_torch.models import layers as L
+from repro_torch.sharded import routed
 
 __all__ = ["init_dense_ffn", "dense_ffn", "carries_norm", "init_moe", "moe_ffn",
            "moe_aux_loss"]
@@ -182,6 +183,14 @@ def _moe_block(p: dict, cfg: ModelConfig, xt: torch.Tensor,
     return out[0] if one else out
 
 
+@routed
+def moe_dispatch(p: dict, cfg: ModelConfig, xt: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`_moe_block` (on a sharded path ``parallel.sites.moe_dispatch``,
+    which routes each rank's dispatch blocks)."""
+    return _moe_block(p, cfg, xt, mask)
+
+
 def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
             token_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Top-k routed experts + always-on shared experts (DeepSeekMoE §3).
@@ -196,8 +205,9 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
     nb = cfg.moe_dispatch_blocks or max(1, t // 4096)
     while t % nb:
         nb -= 1
-    mt = None if token_mask is None else token_mask.reshape(nb, t // nb)
-    y = _moe_block(p, cfg, x.reshape(nb, t // nb, d), mt).reshape(b, l, d).to(x.dtype)
+    mt = None if token_mask is None else L.reshape(token_mask, (nb, t // nb))
+    y = L.reshape(moe_dispatch(p, cfg, L.reshape(x, (nb, t // nb, d)), mt),
+                  (b, l, d)).to(x.dtype)
     if "shared" in p:
         y = y + dense_ffn(p["shared"], cfg.act, x)
     return y

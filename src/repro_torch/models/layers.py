@@ -28,6 +28,7 @@ __all__ = [
     "silu",
     "remat",
     "split_dim",
+    "reshape",
     "constrain",
 ]
 
@@ -69,6 +70,13 @@ def split_dim(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
     return x.reshape(*x.shape[:d], *sizes, *x.shape[d + 1:])
 
 
+@routed
+def reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x.reshape(shape)`` (on a sharded path ``parallel.sites.reshape``,
+    which reshapes each rank's block)."""
+    return x.reshape(shape)
+
+
 def constrain(x: torch.Tensor, sharding) -> torch.Tensor:
     """The forwards' ``act_sharding``: ``x`` redistributed to ``sharding``
     (``parallel.sharding.constrain``), or as it is with None."""
@@ -79,7 +87,10 @@ def constrain(x: torch.Tensor, sharding) -> torch.Tensor:
     return redistribute(x, sharding)
 
 
+@routed
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``ids`` (on a sharded path
+    ``parallel.sites.embed``, vocab-parallel)."""
     return table[ids]
 
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharded import routed
 
 __all__ = ["MambaState", "init_mamba", "mamba_mixer", "init_mamba_state"]
 
@@ -61,6 +62,7 @@ def init_mamba(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32
     }
 
 
+@routed
 def _selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_in: torch.Tensor,
                     c_in: torch.Tensor, d_skip: torch.Tensor,
                     init_state: Optional[torch.Tensor] = None
@@ -69,7 +71,9 @@ def _selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_in: to
     ``a_log`` parameter) [di, ds], b/c [B, L, ds], the skip [di], the state
     [B, di, ds] (zeros when None).  Returns (y [B, L, di], the state after
     the last token).  One loop step per token (the reference's
-    ``lax.scan``), discretizing ``exp(Δ·A)`` and ``Δ·B·u`` inside the step."""
+    ``lax.scan``), discretizing ``exp(Δ·A)`` and ``Δ·B·u`` inside the step.
+    On a sharded path ``parallel.sites._selective_scan`` runs it on each
+    rank's channels."""
     neg_a = -torch.exp(a.to(torch.float32))  # [di, ds]
     bsz, l, di = u.shape
     h = (torch.zeros((bsz, di, a.shape[-1]), dtype=torch.float32, device=u.device)

@@ -158,9 +158,9 @@ def forward(
     gmask = None if tmask is None else tmask.reshape(b, s * t)
 
     def pair(gp, xc):
-        xc = _block(gp["frame"], cfg, xc.reshape(b * s, t, d), kv_mask=fmask)  # frame-wise
-        xc = _block(gp["global"], cfg, xc.reshape(b, s * t, d), kv_mask=gmask)  # global
-        return L.constrain(xc.reshape(b, s, t, d), act_sharding)
+        xc = _block(gp["frame"], cfg, L.reshape(xc, (b * s, t, d)), kv_mask=fmask)  # frame-wise
+        xc = _block(gp["global"], cfg, L.reshape(xc, (b, s * t, d)), kv_mask=gmask)  # global
+        return L.constrain(L.reshape(xc, (b, s, t, d)), act_sharding)
 
     blocks = params["blocks"]
     for gi in range(tree_leaves(blocks)[0].shape[0]):
@@ -185,13 +185,14 @@ def forward(
 
 
 def reconstruction_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-                        remat: bool | str = False) -> torch.Tensor:
+                        remat: bool | str = False, act_sharding=None) -> torch.Tensor:
     """Multi-task training loss: the mean squared errors of pose, depth
     and points, summed.  ``batch``: ``scene_batch``'s arrays (numpy or
-    tensors), taken to the parameters' device."""
+    tensors), taken to the parameters' device.  ``remat`` and
+    ``act_sharding`` as :func:`forward` takes them."""
     dev = params["special_tokens"].device
     b = {k: torch.as_tensor(batch[k], device=dev) for k in ("patches", "pose", "depth", "points")}
-    out = forward(cfg, params, b["patches"], remat=remat)
+    out = forward(cfg, params, b["patches"], remat=remat, act_sharding=act_sharding)
     lp = torch.mean((out["pose"] - b["pose"]) ** 2)
     ld = torch.mean((out["depth"] - b["depth"]) ** 2)
     lx = torch.mean((out["points"] - b["points"]) ** 2)

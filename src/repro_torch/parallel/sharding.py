@@ -51,6 +51,7 @@ __all__ = [
     "batch_pspec",
     "act_pspec",
     "cache_pspecs",
+    "spec_at",
     "NamedSharding",
     "placements",
     "make_param_shardings",
@@ -234,6 +235,19 @@ def cache_pspecs(cfg, cache: Any, mesh, *, seq_axis_shard: bool,
         return (None,) * ndim
 
     return tree_map_with_path(f, cache)
+
+
+def spec_at(specs: Any):
+    """A ``spec_fn(path, leaf)`` for :func:`distribute_tree` reading the
+    tree of specs ``specs`` (e.g. :func:`cache_pspecs`'s) at each leaf's
+    dotted path."""
+    def at(path, _):
+        node = specs
+        for key in path.split("."):
+            node = (node[key] if isinstance(node, dict) else
+                    node[int(key)] if isinstance(node, list) else getattr(node, key))
+        return node
+    return at
 
 
 # ---------------------------------------------------------------------------

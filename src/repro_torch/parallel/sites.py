@@ -10,9 +10,11 @@ shards, and its output is wrapped back.  Model code reaches this module
 only through ``repro_torch.sharded``: a kernel site's wrappers come from
 ``sharded.kernels_for`` (``kernels.ops``, or the functions of the same
 names here), and an op decorated with ``sharded.routed`` (``fast_wht``,
-``apply_blocked``, ``split_dim``, ``sdpa_dispatch``, ``write_slots``) runs
-the function of its name here, handed the op.  On the CPU the kernel wrappers run their
-plain versions, so CPU runs take the same route as the card.
+``apply_blocked``, ``split_dim``, ``reshape``, ``embed``, ``matmul``,
+``moe_dispatch``, ``sdpa_dispatch``, ``absorbed_attend``, ``token_nll``,
+``_selective_scan``, ``write_slots``) runs the function of its name here,
+handed the op.  On the CPU the kernel wrappers run their plain versions,
+so CPU runs take the same route as the card.
 
 Placements on the ``model`` mesh axis (on the batch axes an input keeps
 its own placement when it shards the batch, dim 0, else is replicated;
@@ -27,8 +29,23 @@ row-parallel linear     Replicate    Shard(-2)       Replicate     Partial,
                                                                    Replicate
 two_stage_mha           Shard(1)     (q, k, v: heads)              Shard(1)
 sdpa_dispatch           Shard(2)     (q, k, v: heads)              Shard(2)
+float matmul            as above, by its weight's placement (float)   as above
 any other kernel site   Replicate    Replicate       Replicate     Replicate
 ======================  ===========  ==============  ============  =========
+
+The float matmul (:func:`matmul`) keeps every sharding of the input's
+leading dims, on the model axis too when its weight is replicated there
+(the DPT and camera heads on the act-SP stream), so no row of a [B, S, P,
+d] stream is flattened across shards.  A reshape (:func:`reshape`) runs
+on each rank's local block where the sharded dim is the major one of the
+dims it merges or splits, and gathers that mesh dim first where it is not.
+
+A KV cache sharded on its sequence (``cache_pspecs(seq_axis_shard=True)``
+or ``seq_model_shard=True``) is written slot by slot on the rank that
+holds the slot (:func:`write_slots`), and decode attention over it
+combines the ranks' partial softmaxes (:func:`sdpa_dispatch`, and
+:func:`absorbed_attend` for MLA's compressed cache): no rank gathers the
+cache.
 
 A site's style is read off its weight's placement.  A dimension that the
 model axis does not divide evenly takes the replicated route, as do
@@ -66,9 +83,9 @@ from repro_torch.sharded import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["quant_linear_matmul", "two_stage_mha", "fused_linear", "fused_ffn_apply",
-           "fast_wht", "apply_blocked", "split_dim", "sdpa_dispatch", "write_slots",
-           "row_columns",
-           "row_partial", "gather_dim", "local_rows"]
+           "fast_wht", "apply_blocked", "split_dim", "reshape", "embed", "matmul", "moe_dispatch",
+           "sdpa_dispatch", "absorbed_attend", "token_nll", "_selective_scan",
+           "write_slots", "row_columns", "row_partial", "gather_dim", "local_rows"]
 
 
 def _mesh(*xs):
@@ -231,31 +248,120 @@ def two_stage_mha(q, k, v, *, causal: bool = False, tiles=None):
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
+def _seq_dims(k) -> list:
+    """The mesh dims that shard k's sequence (dim 1) into even shards."""
+    from torch.distributed.tensor import Shard
+
+    dims = [i for i, pl in enumerate(k.placements) if isinstance(pl, Shard) and pl.dim == 1]
+    return dims if dims and k.shape[1] % _shards(k, 1, k.placements) == 0 else []
+
+
 def sdpa_dispatch(fn, cfg, q, k, v, *, kv_mask=None, **kw):
     """``fn(cfg, q, k, v, kv_mask=, **kw)`` (the float attention of
     ``models/attention.py``) on local shards: q [B, L, H, dh] and k/v [B,
     Lk, Hkv, dh] split on their heads (dim 2) when the model axis divides
     both head counts, else replicated; the batch and ``kv_mask`` [B, Lk]
     keep the batch's sharding.  Megatron's attention: every head is local,
-    so no einsum over sharded heads meets DTensor's sharding rules."""
-    from torch.distributed.tensor import Shard
+    so no einsum over sharded heads meets DTensor's sharding rules.
+
+    Keys sharded on their sequence (a sequence-sharded decode cache) stay
+    where they are: each rank attends over its own keys (``fn`` with
+    ``k_offset``, their first global position, and ``stats=True``) and the
+    ranks combine their partial softmaxes over the mesh dims of the
+    sequence (:func:`_combine`).  A head_dim sharded over ``model`` is
+    moved to the heads for the local chunk only.  On a cache-masked call
+    (decode) whose heads the model axis does not divide, the model axis
+    splits the keys the same way rather than gathering them."""
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh, md = _mesh(q, k, v)
     q, k, v = (_dt(t, mesh) for t in (q, k, v))
-    size = mesh.size(md) if md is not None else 1
-    heads = md is not None and q.shape[2] % size == 0 and k.shape[2] % size == 0
+    seq = _seq_dims(k)
+    size = mesh.size(md) if md is not None and md not in seq else 1
+    heads = md is not None and md not in seq and q.shape[2] % size == 0 \
+        and k.shape[2] % size == 0
+    if (not heads and size > 1 and kw.get("kv_len") is not None
+            and k.shape[1] % (_shards(k, 1, k.placements) * size) == 0):
+        seq = sorted(seq + [md])  # decode: the model axis splits the keys instead
     io = _batch(q, mesh, md, Shard(2) if heads else None)
-    args, places = [q, k, v], [io, io, io]
+    if seq:
+        io = [Replicate() if i in seq else pl for i, pl in enumerate(io)]
+    kvp = [Shard(1) if i in seq else pl for i, pl in enumerate(io)]
+    mp = [Shard(1) if i in seq else (Replicate() if i == md else pl)
+          for i, pl in enumerate(io)]
+    args, places = [q, k, v], [io, kvp, kvp]
     if kv_mask is not None:
         args.append(_dt(kv_mask, mesh))
-        places.append(_batch(q, mesh, md))
+        places.append(mp)
+    if seq:
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        kw = dict(kw, k_offset=int(compute_local_shape_and_global_offset(
+            k.shape, mesh, kvp)[1][1]), stats=True)
 
     def attend(ql, kl, vl, ml=None):
-        return fn(cfg, ql, kl, vl, kv_mask=ml, **kw)
+        out = fn(cfg, ql, kl, vl, kv_mask=ml, **kw)
+        return _combine(*out, [mesh.get_group(i) for i in seq]) if seq else out
 
     return local_map(attend, out_placements=io, in_placements=tuple(places),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def absorbed_attend(fn, q_lora, q_rope, ck, *, kv_mask=None, **kw):
+    """``fn(q_lora, q_rope, ck, kv_mask=, **kw)``, MLA's absorbed decode
+    attention (``models/attention.py``), with the compressed cache's slots
+    split over the ranks: over the mesh dims that shard them already, and
+    over the model axis too (the cache's channels, sharded there by
+    ``cache_pspecs``, move to its slots for the local chunk), each rank
+    attends over its own slots (``k_offset``, ``stats=True``) and the
+    ranks combine their partial softmaxes (:func:`_combine`).  The queries
+    keep the batch's sharding and are whole on the other axes.  No rank
+    gathers the cache."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, md = _mesh(q_lora, q_rope, ck)
+    q_lora, q_rope, ck = (_dt(t, mesh) for t in (q_lora, q_rope, ck))
+    seq = _seq_dims(ck)
+    if (md is not None and md not in seq and mesh.size(md) > 1
+            and ck.shape[1] % (_shards(ck, 1, ck.placements) * mesh.size(md)) == 0):
+        seq = sorted(seq + [md])
+    io = [Replicate() if i in seq else pl for i, pl in enumerate(_batch(q_lora, mesh, md))]
+    ckp = [Shard(1) if i in seq else pl for i, pl in enumerate(io)]
+    args, places = [q_lora, q_rope, ck], [io, io, ckp]
+    if kv_mask is not None:
+        args.append(_dt(kv_mask, mesh))
+        places.append(ckp)
+    if seq:
+        kw = dict(kw, k_offset=int(compute_local_shape_and_global_offset(
+            ck.shape, mesh, ckp)[1][1]), stats=True)
+
+    def attend(ql, qr, cl, ml=None):
+        out = fn(ql, qr, cl, kv_mask=ml, **kw)
+        return _combine(*out, [mesh.get_group(i) for i in seq]) if seq else out
+
+    return local_map(attend, out_placements=io, in_placements=tuple(places),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _combine(o, m, l, groups):
+    """The attention output over every rank's keys, from each rank's own
+    (o, m, l): its output normalized over its keys, its row max and its sum
+    of exponentials ([B, Lq, H, 1] each).  The log-sum-exp rule: the global
+    max M (an all-reduce max), each rank's weight ``l exp(m - M)`` over
+    their sum (an all-reduce sum), and the weighted outputs summed (another).
+    Over one rank the weight is exactly 1, and the output is ``o`` itself."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def reduce(t, op):
+        for g in groups:
+            t = funcol.all_reduce(t, op, g)
+        return funcol.wait_tensor(t)
+
+    w = l * torch.exp(m - reduce(m, "max"))
+    return reduce(o * (w / reduce(w, "sum")), "sum")
 
 
 def fused_linear(x, p, *, tiles=None):
@@ -270,6 +376,134 @@ def fused_ffn_apply(x, f, *, tiles=None):
     mesh, md = _mesh(x, *tree_leaves(f))
     return _replicated(lambda xl, site: kernel_ops.fused_ffn_apply(xl, site, tiles=tiles),
                        _dt(x, mesh), f, mesh, md)
+
+
+def moe_dispatch(fn, p, cfg, xt, mask=None):
+    """``fn(p, cfg, xt, mask)``, the MoE dispatch of blocks ``xt`` [nb, tb,
+    d], on each rank's blocks: ``xt`` and ``mask`` [nb, tb] keep a sharding
+    of the blocks (dim 0) and are whole on the model axis, and every leaf of
+    ``p`` (router, expert stacks, their scales) is gathered, as an expert
+    stack's kernel site is (module docstring).  Each rank routes its own
+    tokens through every expert: capacity and rank order are block-local,
+    so the blocks split across ranks as they are."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    leaves = tree_leaves(p)
+    mesh, md = _mesh(xt, *leaves)
+    xt = _dt(xt, mesh)
+    io = _batch(xt, mesh, md)
+    rep = [Replicate()] * mesh.ndim
+    args, places = [xt] + [_dt(t, mesh) for t in leaves], [io] + [rep] * len(leaves)
+    if mask is not None:
+        args.append(_dt(mask, mesh))
+        places.append(io)
+
+    def local(xl, *ls):
+        it = iter(ls)
+        return fn(tree_map(lambda _: next(it), p), cfg, xl, next(it, None))
+
+    return local_map(local, out_placements=io, in_placements=tuple(places), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+class _AllReduce(torch.autograd.Function):
+    """``t`` summed (``op`` "sum") or averaged ("avg") over ``group``; the
+    backward hands each rank the gradient of the reduced value (divided by
+    the group's size for "avg"), which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, t, op, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.scale = 1.0 / group.size() if op == "avg" else 1.0
+        return funcol.wait_tensor(funcol.all_reduce(t.contiguous(), op, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None
+
+
+def token_nll(fn, logits, labels):
+    """``fn(logits, labels)``, the mean token cross entropy, vocab-parallel
+    (Megatron's): each rank keeps its rows of the batch and its slice of the
+    vocabulary, takes its row max, sum of exponentials and gold logit (where
+    the label falls in its slice), and the model axis combines them (a max,
+    then two sums); the batch axes average the ranks' means.  No rank
+    gathers the logits.  The loss is replicated; differentiable."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, md = _mesh(logits, labels)
+    logits, labels = _dt(logits, mesh), _dt(labels, mesh)
+    io = _batch(logits, mesh, md)
+    vocab = md is not None and logits.shape[-1] % mesh.size(md) == 0
+    lp = list(io)
+    if vocab:
+        lp[md] = Shard(logits.ndim - 1)
+    rows = [mesh.get_group(i) for i, pl in enumerate(io) if isinstance(pl, Shard)]
+    group = mesh.get_group(md) if vocab else None
+    v0 = mesh.get_local_rank(md) * (logits.shape[-1] // mesh.size(md)) if vocab else 0
+
+    def local(xl, yl):
+        xl = xl.to(torch.float32)
+        if group is None:
+            nll = torch.logsumexp(xl, dim=-1) - torch.gather(
+                xl, -1, yl.long()[..., None])[..., 0]
+        else:
+            m = funcol.wait_tensor(funcol.all_reduce(xl.detach().amax(dim=-1), "max", group))
+            z = _AllReduce.apply(torch.exp(xl - m[..., None]).sum(dim=-1), "sum", group)
+            idx = yl.long() - v0
+            mine = (idx >= 0) & (idx < xl.shape[-1])
+            gold = torch.gather(xl, -1, idx.clamp(0, xl.shape[-1] - 1)[..., None])[..., 0]
+            gold = _AllReduce.apply(torch.where(mine, gold, 0.0), "sum", group)
+            nll = torch.log(z) + m - gold
+        loss = torch.mean(nll)
+        for g in rows:
+            loss = _AllReduce.apply(loss, "avg", g)
+        return loss
+
+    return local_map(local, out_placements=[Replicate()] * mesh.ndim,
+                     in_placements=(lp, io), device_mesh=mesh, redistribute_inputs=True)(
+        logits, labels)
+
+
+def _selective_scan(fn, u, dt, a, b_in, c_in, d_skip, init_state=None):
+    """``fn(u, dt, a, b_in, c_in, d_skip, init_state)``, the Mamba selective
+    scan over time, on each rank's (batch, channel) block: every channel
+    of the scan runs alone, so u/dt [B, L, di], a [di, ds], d_skip [di] and
+    the state [B, di, ds] split their channels over the model axis where it
+    divides d_inner, b/c [B, L, ds] are whole there, and the batch keeps its
+    sharding.  Differentiable: b/c's gradients are summed over the model
+    axis, the parameters' over the mesh dims that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, md = _mesh(u, dt, a, b_in, c_in, d_skip)
+    u, dt, a, b_in, c_in, d_skip = (_dt(t, mesh) for t in (u, dt, a, b_in, c_in, d_skip))
+    chan = md is not None and u.shape[-1] % mesh.size(md) == 0
+    io = _batch(u, mesh, md)
+
+    def on_model(pl, dim):
+        return [Shard(dim) if i == md and chan else p for i, p in enumerate(pl)]
+
+    rows = on_model(io, 2)
+    bc = list(io)
+    params = on_model([Replicate()] * mesh.ndim, 0)
+    pgrad = [Partial() if isinstance(p, Shard) else q for p, q in zip(io, params)]
+    bgrad = [Partial() if i == md and chan else p for i, p in enumerate(io)]
+    state = on_model(io, 1)
+    args = [u, dt, a, b_in, c_in, d_skip]
+    places = [rows, rows, params, bc, bc, params]
+    grads = [rows, rows, pgrad, bgrad, bgrad, pgrad]
+    if init_state is not None:
+        args.append(_dt(init_state, mesh))
+        places.append(state)
+        grads.append(state)
+    return local_map(fn, out_placements=(rows, state), in_placements=tuple(places),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def gather_dim(x, dim: int, keep: int = 0):
@@ -311,6 +545,176 @@ def local_rows(fn, x, block: int = 0):
     return local_map(fn, out_placements=pls, in_placements=(pls,), device_mesh=x.device_mesh)(x)
 
 
+def _shards(x, dim: int, pls) -> int:
+    """The number of shards the mesh dims of ``pls`` split tensor dim
+    ``dim`` of ``x`` into."""
+    from torch.distributed.tensor import Shard
+
+    n = 1
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            n *= x.device_mesh.size(i)
+    return n
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``
+    (Megatron's copy into the tensor-parallel region: every rank of a
+    column-parallel site holds only its columns' share of the input's
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+def embed(fn, table, ids):
+    """``fn(table, ids)``, an embedding lookup, vocab-parallel (Megatron's)
+    where the model axis shards the table's rows evenly: ``ids`` keep their
+    batch sharding and are whole on the model axis, each rank looks up the
+    ids that fall in its rows (zeros elsewhere), and the partial rows are
+    summed over the model axis.  No rank gathers the table.
+    Differentiable: the table's gradient is each rank's rows, summed over
+    the mesh dims that split the ids."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, md = _mesh(table, ids)
+    table, ids = _dt(table, mesh), _dt(ids, mesh)
+    io = _batch(ids, mesh, md)
+    vocab = _shard_dim(table, md) == 0 and table.shape[0] % mesh.size(md) == 0
+    tin = _on_model(mesh, md, Shard(0)) if vocab else [Replicate()] * mesh.ndim
+    tgrad = [Partial() if isinstance(pl, Shard) else t for pl, t in zip(io, tin)]
+    out = list(io)
+    local = fn
+    if vocab:
+        out[md] = Partial()
+        v0 = mesh.get_local_rank(md) * (table.shape[0] // mesh.size(md))
+
+        def local(tl, il):
+            idx = il.long() - v0
+            mine = (idx >= 0) & (idx < tl.shape[0])
+            return fn(tl, idx.clamp(0, tl.shape[0] - 1)) * mine[..., None].to(tl.dtype)
+
+    y = local_map(local, out_placements=out, in_placements=(tin, io),
+                  in_grad_placements=(tgrad, io), device_mesh=mesh,
+                  redistribute_inputs=True)(table, ids)
+    if vocab:
+        out[md] = Replicate()
+        y = y.redistribute(mesh, out)
+    return y
+
+
+def matmul(fn, x, w):
+    """``fn(x, w)``, a float site's ``x @ w`` (x [..., K], w [K, N] or a
+    vector [K]), on each rank's rows: the leading dims of ``x`` keep their
+    sharding, and the weight's placement on the model axis picks the style
+    (module docstring): column-parallel (x whole on K, output sharded on
+    N), row-parallel (x sharded on K, partial sums reduced), or, for a
+    replicated weight, x's own placement on that axis too.  A sharding that
+    splits a dim unevenly is gathered first.  Differentiable: a weight used
+    on a rank's rows gets that rank's partial gradient (``Partial`` over the
+    mesh dims that split the rows), and a column-parallel input's gradient
+    is summed over the model axis inside the site (:class:`_SumGrad`)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, md = _mesh(x, w)
+    x, w = _dt(x, mesh), _dt(w, mesh)
+    last = x.ndim - 1
+    wd = _shard_dim(w, md)
+    if wd is not None and w.shape[wd] % mesh.size(md):
+        wd = None  # an uneven weight shard takes the replicated route
+    xin = [pl if isinstance(pl, Shard) and pl.dim < last and (i != md or wd is None)
+           else Replicate() for i, pl in enumerate(x.placements)]
+    xin = [Replicate() if isinstance(pl, Shard) and x.shape[pl.dim] % _shards(x, pl.dim, xin)
+           else pl for pl in xin]
+    out, win = list(xin), [Replicate()] * mesh.ndim
+    wgrad = [Partial() if isinstance(pl, Shard) else Replicate() for pl in xin]
+    local = fn
+    if wd is not None:
+        win[md] = wgrad[md] = Shard(wd)
+        if wd == 0:  # row-parallel
+            xin[md] = Shard(last)
+            out[md] = Partial()
+        else:  # column-parallel
+            out[md] = Shard(last)
+            group = mesh.get_group(md)
+
+            def local(xl, wl):
+                return fn(_SumGrad.apply(xl, group), wl)
+
+    y = local_map(local, out_placements=out, in_placements=(xin, win),
+                  in_grad_placements=(xin, wgrad), device_mesh=mesh,
+                  redistribute_inputs=True)(x, w)
+    if wd == 0:  # the row-parallel partial sums, reduced
+        out[md] = Replicate()
+        y = y.redistribute(mesh, out)
+    return y
+
+
+def _groups(old, new) -> list:
+    """The dims of a reshape from ``old`` to ``new`` in aligned groups:
+    [(old dims, new dims)], each pair of runs of equal product."""
+    out, i, j = [], 0, 0
+    while i < len(old) or j < len(new):
+        a, b, po, pn = i, j, 1, 1
+        if i < len(old):
+            po, i = old[i], i + 1
+        if j < len(new):
+            pn, j = new[j], j + 1
+        while po != pn:
+            if po < pn:
+                po, i = po * old[i], i + 1
+            else:
+                pn, j = pn * new[j], j + 1
+        out.append((range(a, i), range(b, j)))
+    return out
+
+
+def reshape(fn, x, shape):
+    """``fn(x, shape)``, a reshape, on each rank's local block.  A mesh
+    dim sharding tensor dim ``d`` keeps its sharding, on the first dim of
+    ``d``'s group in the new shape that is not 1, where ``d`` is the major
+    dim of its group (every dim before it in the group is 1) and both dims
+    split evenly; otherwise that mesh dim is gathered first.  The local
+    block is then one contiguous run of the group in both shapes, and the
+    local reshape is the global one's block."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    old = tuple(x.shape)
+    shape = tuple(int(n) for n in shape)
+    if -1 in shape:
+        known = -1 * torch.Size(shape).numel()
+        shape = tuple(x.numel() // known if n == -1 else n for n in shape)
+    where = {d: g for g in _groups(old, shape) for d in g[0]}
+    xin, out = [], []
+    for pl in x.placements:
+        if isinstance(pl, Shard):
+            olds, news = where[pl.dim]
+            major = [e for e in news if shape[e] != 1]
+            n = _shards(x, pl.dim, x.placements)
+            if (major and all(old[d] == 1 for d in olds if d < pl.dim)
+                    and old[pl.dim] % n == 0 and shape[major[0]] % n == 0):
+                xin.append(pl)
+                out.append(Shard(major[0]))
+                continue
+            pl = Replicate()
+        xin.append(pl)
+        out.append(pl)
+    local = tuple(n // _shards(x, e, out) for e, n in enumerate(shape))
+    return local_map(lambda t: fn(t, local), out_placements=out, in_placements=(xin,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)
+
+
 def fast_wht(fn, x, block=None):
     """``fn(x, block)``, the blocked WHT, on each rank's rows."""
     b = block or block_size_for(x.shape[-1])
@@ -324,18 +728,30 @@ def apply_blocked(fn, x, mat, block: int):
 
 def write_slots(fn, buf, start: int, new):
     """``fn(buf, start, new)``, a cache write into slots ``[start, start +
-    L)`` of dim 1, on a cache placed whole on that dim (batch or channels
-    sharded, or replicated).  A cache sharded on its slots (the
-    ``seq_axis_shard``/``seq_model_shard`` specs of
-    ``sharding.cache_pspecs``) raises: DTensor would write into a gathered
-    copy and drop the write; so does a plain cache."""
-    from torch.distributed.tensor import Shard
+    L)`` of dim 1.  A cache placed whole on that dim (batch or channels
+    sharded, or replicated) takes the write as it is.  A cache sharded on
+    its slots (the ``seq_axis_shard``/``seq_model_shard`` specs of
+    ``sharding.cache_pspecs``) is written by each rank into its local
+    tensor, in place: the slots of ``[start, start + L)`` that fall in its
+    own shard, at its global offset on that dim; ``new`` is replicated over
+    the mesh dims of the slots and placed as the cache elsewhere.  No rank
+    gathers the cache.  A plain cache raises: DTensor cannot write a
+    sharded forward's values into it."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     if not is_dtensor(buf):
         raise TypeError("a sharded forward writes a plain cache: place the cache with "
                         "sharding.distribute_tree (specs from sharding.cache_pspecs)")
-    if any(isinstance(pl, Shard) and pl.dim % buf.ndim == 1 for pl in buf.placements):
-        raise NotImplementedError(
-            f"a KV cache sharded on its sequence dim ({buf.placements}) is not supported "
-            "yet; place the cache with seq_axis_shard=False and seq_model_shard=False")
-    fn(buf, start, new)
+    seq = [i for i, pl in enumerate(buf.placements) if isinstance(pl, Shard) and pl.dim == 1]
+    if not seq:
+        fn(buf, start, new)
+        return
+    mesh = buf.device_mesh
+    new = _dt(new, mesh).redistribute(
+        mesh, [Replicate() if i in seq else pl for i, pl in enumerate(buf.placements)])
+    shape, offset = compute_local_shape_and_global_offset(buf.shape, mesh, buf.placements)
+    lo, hi = int(offset[1]), int(offset[1]) + int(shape[1])
+    a, b = max(start, lo), min(start + new.shape[1], hi)
+    if a < b:
+        buf.to_local()[:, a - lo:b - lo] = new.to_local()[:, a - start:b - start]

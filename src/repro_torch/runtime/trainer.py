@@ -36,34 +36,36 @@ from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression
 from repro_torch.serving.batching import resolve_device
-from repro_torch.sharded import is_dtensor
+from repro_torch.sharded import routed
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["lm_loss", "make_train_step", "make_ddp_compressed_step", "TrainerConfig",
+__all__ = ["token_nll", "lm_loss", "make_train_step", "make_ddp_compressed_step", "TrainerConfig",
            "Trainer"]
 
 
-def lm_loss(cfg: ModelConfig, params: Any, batch: dict, *, remat: bool | str = False
-            ) -> torch.Tensor:
-    """Mean next-token cross entropy over float32 logits: logsumexp minus
-    the gold logit.  ``batch``: ``token_batch``'s arrays (numpy or
-    tensors, or DTensors on a sharded path), taken to the parameters'
-    device.  Sharded logits (vocab over ``model``, batch over ``data``)
-    are gathered whole first, and every rank computes the same loss:
-    DTensor's ``gather`` cannot take vocab-sharded logits."""
+@routed
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy of logits [B, L, V] against labels [B,
+    L]: logsumexp minus the gold logit, in float32 (on a sharded path
+    ``parallel.sites.token_nll``: vocab-parallel, no rank gathers the
+    logits)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def lm_loss(cfg: ModelConfig, params: Any, batch: dict, *, remat: bool | str = False,
+            act_sharding=None) -> torch.Tensor:
+    """Mean next-token cross entropy over float32 logits (:func:`token_nll`).
+    ``batch``: ``token_batch``'s arrays (numpy or tensors, or DTensors on a
+    sharded path), taken to the parameters' device; ``remat`` and
+    ``act_sharding`` as ``lm.forward`` takes them."""
     dev = tree_leaves(params)[0].device
     tokens, labels = (batch[k].to(dev) if isinstance(batch[k], torch.Tensor)
                       else torch.as_tensor(batch[k], device=dev) for k in ("tokens", "labels"))
-    logits, _ = lm.forward(cfg, params, tokens, remat=remat)
-    if is_dtensor(logits):
-        logits = logits.full_tensor()
-    if is_dtensor(labels):
-        labels = labels.full_tensor()
-    labels = labels.long()
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    logits, _ = lm.forward(cfg, params, tokens, remat=remat, act_sharding=act_sharding)
+    return token_nll(logits, labels)
 
 
 def _value_and_grad(loss_fn: Callable, params: Any, batch) -> tuple[torch.Tensor, Any]:

@@ -27,6 +27,22 @@ ROW_K, ROW_N, ROW_M = 256, 64, 8
 # the sharded W4A8 forwards: kernel sites (the flash emulation of attention,
 # or the two-stage kernel's site) or the float emulation of every site
 W4A8_CASES = ("kernel-flash", "kernel-two_stage", "fused-flash", "emulation-flash")
+# VGGT's scene streams as the reference's vggt cells place them on a mesh
+# without "pod" (src/repro/launch/specs.py:269-276): the batch over the data
+# axes, or the frames where the data axes do not divide the scenes; each
+# with and without the act-SP constraint (the tokens over "model")
+VGGT_SPECS = {"batch": ((("data",), None, None, None), None),
+              "batch-act_sp": ((("data",), None, None, None), (("data",), None, "model", None)),
+              "frames": ((None, "data", None, None), None),
+              "frames-act_sp": ((None, "data", None, None), (None, "data", "model", None))}
+# 2 scenes x 4 frames x 11 patches (16 tokens a frame: the 4-way model axis
+# splits them evenly) and 8 patches (13 tokens: it does not)
+VGGT_SHAPES = ((2, 4, 11), (2, 4, 8))
+VGGT_TREES = ("fp", "w4a8", "w4a8-two_stage")
+# the sequence-sharded decode caches: cache_pspecs' two flags
+SEQ_CACHES = {"seq_axis": dict(seq_axis_shard=True),
+              "seq_model": dict(seq_axis_shard=False, seq_model_shard=True)}
+SEQ_ARCHS = ("qwen3-14b-smoke", "deepseek-v2-lite-16b-smoke", "jamba-v0.1-52b-smoke")
 # the kernel wrappers a W4A8 forward reaches: (module of repro_torch.kernels, name)
 KERNELS = (("quant_matmul", "quant_matmul"), ("two_stage_attention", "two_stage_attention"),
            ("fused", "fused_matmul"), ("fused", "fused_ffn"))
@@ -58,6 +74,29 @@ def row_site_inputs() -> tuple[np.ndarray, np.ndarray]:
     return x, w
 
 
+def vggt_inputs(b: int, s: int, p: int, d: int) -> dict:
+    """Patches and the train step's targets of ``b`` scenes of ``s`` frames
+    of ``p`` patches."""
+    g = np.random.default_rng(7)
+    return {"patches": g.normal(size=(b, s, p, d)).astype(np.float32),
+            "pose": g.normal(size=(b, s, 9)).astype(np.float32),
+            "depth": g.normal(size=(b, s, p)).astype(np.float32),
+            "points": g.normal(size=(b, s, p, 3)).astype(np.float32)}
+
+
+def _decode_steps(cfg, params, toks, cache, n_prompt: int):
+    """The logits of every decode step after a prefill of ``n_prompt``
+    tokens, fed the rest of ``toks`` one by one."""
+    from repro_torch.models import lm
+
+    _, cache = lm.forward(cfg, params, toks[:, :n_prompt], cache=cache, mode="prefill")
+    out = []
+    for i in range(n_prompt, toks.shape[1]):
+        logits, cache = lm.decode_step(cfg, params, toks[:, i], cache)
+        out.append(logits)
+    return torch.stack([o.full_tensor() if hasattr(o, "full_tensor") else o for o in out])
+
+
 def _prefill_decode(cfg, params, toks, nxt, cache):
     """The logits of one decode step on ``nxt`` after a prefill of ``toks``."""
     from repro_torch.models import lm
@@ -65,18 +104,6 @@ def _prefill_decode(cfg, params, toks, nxt, cache):
     _, cache = lm.forward(cfg, params, toks, cache=cache, mode="prefill")
     logits, _ = lm.decode_step(cfg, params, nxt, cache)
     return logits
-
-
-def _spec_at(specs):
-    """A ``distribute_tree`` spec function reading the tree of specs
-    ``specs`` (``sharding.cache_pspecs``) at each leaf's dotted path."""
-    def at(path, _):
-        node = specs
-        for key in path.split("."):
-            node = node[key] if isinstance(node, dict) else (
-                node[int(key)] if isinstance(node, list) else getattr(node, key))
-        return node
-    return at
 
 
 class _Calls:
@@ -105,7 +132,7 @@ def sharding(rank: int, world: int, out) -> None:
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import get_config
-    from repro_torch.core.model_quant import quantize_lm
+    from repro_torch.core.model_quant import quantize_lm, quantize_vggt
     from repro_torch.core.precision import PrecisionPlan
     from repro_torch.core.quantize import QTensor, pack_int4, unpack_int4
     from repro_torch.kernels import ops
@@ -216,19 +243,98 @@ def sharding(rank: int, world: int, out) -> None:
             with implicit_replication():
                 tree_s = fp if case == "fp" else sh.distribute_tree(qp, mesh)
                 got = _prefill_decode(qcfg, tree_s, ftoks[:, :6], nxt,
-                                      sh.distribute_tree(cache, mesh, _spec_at(specs)))
+                                      sh.distribute_tree(cache, mesh, sh.spec_at(specs)))
         res["decode"][case] = {"want": want, "got": got.full_tensor()}
-    for case, seq in (("seq", True), ("plain", None)):
-        cache = lm.init_cache(qcfg, 4, 8)
-        if seq:
-            cache = sh.distribute_tree(cache, mesh, _spec_at(
-                sh.cache_pspecs(qcfg, cache, mesh, seq_axis_shard=True)))
-        try:
-            with torch.no_grad(), implicit_replication():
-                _prefill_decode(qcfg, fp, ftoks[:, :6], nxt, cache)
-            res["decode"][case] = None
-        except (NotImplementedError, TypeError) as e:
-            res["decode"][case] = str(e)
+    # a cache sharded on its sequence decodes as the unsharded one; a plain
+    # cache is refused
+    cache = lm.init_cache(qcfg, 4, 8)
+    cache = sh.distribute_tree(cache, mesh, sh.spec_at(
+        sh.cache_pspecs(qcfg, cache, mesh, seq_axis_shard=True)))
+    with torch.no_grad(), implicit_replication():
+        got = _prefill_decode(qcfg, fp, ftoks[:, :6], nxt, cache)
+    res["decode"]["seq"] = {"want": res["decode"]["fp"]["want"], "got": got.full_tensor()}
+    try:
+        with torch.no_grad(), implicit_replication():
+            _prefill_decode(qcfg, fp, ftoks[:, :6], nxt, lm.init_cache(qcfg, 4, 8))
+        res["decode"]["plain"] = None
+    except (NotImplementedError, TypeError) as e:
+        res["decode"]["plain"] = str(e)
+
+    # (3c) decode through the sequence-sharded caches: GQA, MLA and jamba,
+    # fp and W4A8, a 6-token prefill and 3 decode steps against one device
+    t0 = time.perf_counter()
+    res["seq_decode"] = {}
+    for arch in SEQ_ARCHS:
+        cfg = get_config(arch)
+        raw_a = lm.init_params(cfg, torch.Generator().manual_seed(0))
+        toks_a = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 9)))
+        for tree in ("fp", "w4a8"):
+            p = raw_a if tree == "fp" else quantize_lm(
+                cfg, raw_a, PrecisionPlan(default="w4a8", use_kernel=True))
+            with torch.no_grad():
+                want = _decode_steps(cfg, p, toks_a, lm.init_cache(cfg, 4, 16), 6)
+            ps = sh.distribute_tree(p, mesh)
+            for mode, flags in SEQ_CACHES.items():
+                cache = lm.init_cache(cfg, 4, 16)
+                cache = sh.distribute_tree(cache, mesh, sh.spec_at(
+                    sh.cache_pspecs(cfg, cache, mesh, **flags)))
+                # the reference's decode cells: a batch-1-style replicated
+                # token for seq_axis_shard, the batch over data otherwise
+                tspec = (None, None) if mode == "seq_axis" else (sh.batch_axes(mesh), None)
+                with torch.no_grad(), implicit_replication():
+                    got = _decode_steps(cfg, ps, sh.distribute_tree(
+                        toks_a, mesh, lambda path, x: tspec), cache, 6)
+                res["seq_decode"][(arch, tree, mode)] = {"want": want, "got": got}
+    res["times"]["seq_decode"] = time.perf_counter() - t0
+
+    # (3d) vggt on every placement of the reference's vggt cells: the serve
+    # forward (fp, W4A8 with the flash emulation and with the two-stage
+    # kernel) and a train step (remat, AdamW), against one device
+    t0 = time.perf_counter()
+    res["vggt"] = {}
+    vcfg = get_config("vggt-1b-smoke")
+    vraw = vggt.init_params(vcfg, torch.Generator().manual_seed(0))
+    for shape in VGGT_SHAPES:
+        data = {k: torch.as_tensor(v) for k, v in vggt_inputs(*shape, vcfg.d_model).items()}
+        for tree in VGGT_TREES + ("train",):
+            cfg = vcfg.with_(attn_impl="two_stage") if tree.endswith("two_stage") else vcfg
+            p = vraw if tree in ("fp", "train") else quantize_vggt(
+                cfg, vraw, PrecisionPlan(default="w4a8", use_kernel=True))
+            if tree == "train":
+                step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3), loss_fn=lambda q, b: (
+                    vggt.reconstruction_loss(cfg, q, b, remat=True)))
+                p1, _, m1 = step(vggt.init_params(cfg, torch.Generator().manual_seed(0)),
+                                 adamw.init(vraw), data)
+                want = {"loss": float(m1["loss"]), "params": tree_paths(p1)}
+            else:
+                with torch.no_grad():
+                    want = vggt.forward(cfg, p, data["patches"])
+            for name, (bspec, aspec) in VGGT_SPECS.items():
+                act = None if aspec is None else sh.NamedSharding(mesh, aspec)
+                batch_s = {k: sh.distribute_tree(v, mesh, lambda path, x: bspec[:x.ndim])
+                           for k, v in data.items()}
+                with implicit_replication():
+                    if tree == "train":
+                        params = vggt.init_params(cfg, torch.Generator().manual_seed(0))
+                        opt = adamw.init(params)
+                        opt_s = adamw.AdamWState(
+                            step=distribute_tensor(opt.step, mesh, sh.placements(mesh, ())),
+                            m=sh.distribute_tree(opt.m, mesh), v=sh.distribute_tree(opt.v, mesh))
+                        step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3),
+                                               loss_fn=lambda q, b, act=act: (
+                            vggt.reconstruction_loss(cfg, q, b, remat=True, act_sharding=act)))
+                        p2, _, m2 = step(sh.distribute_tree(params, mesh), opt_s, batch_s)
+                        loss = m2["loss"]
+                        got = {"loss": float(loss.full_tensor()), "params": tree_paths(
+                            sh.full_tensor(p2))}
+                    else:
+                        with torch.no_grad():
+                            heads = vggt.forward(cfg, sh.distribute_tree(p, mesh),
+                                                 batch_s["patches"], act_sharding=act)
+                        got = {k: heads[k].full_tensor() for k in ("pose", "depth", "points")}
+                res["vggt"][(shape, tree, name)] = {
+                    "want": want if tree == "train" else {k: want[k] for k in got}, "got": got}
+    res["times"]["vggt"] = time.perf_counter() - t0
 
     # (4) one row-parallel W4 site alone: the two nibble runs, exact ints
     x, w = row_site_inputs()
