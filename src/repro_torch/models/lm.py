@@ -33,6 +33,7 @@ from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
+from repro_torch.obs import trace
 from repro_torch.tree import tree_index, tree_stack
 
 __all__ = [
@@ -302,30 +303,32 @@ def _apply_layer(cfg: ModelConfig, lp: dict, kind: str, fk: str, x: torch.Tensor
     # the raw residual stream and let the kernel run the norm statistics
     h = x if F.carries_norm(lp["mixer"]) else L.norm(lp["mixer_norm"], x)
     new_cache = None
-    if kind == "rwkv":
-        out, wkv, tshift = R.rwkv_time_mix(lp["mixer"], cfg, h, state=cache, mode=mode)
-    elif kind == "mamba":
-        out, st = S.mamba_mixer(lp["mixer"], cfg, h, state=cache, mode=mode)
-        new_cache = st if cache is not None else None
-    else:
-        attend = A.mla_attention if cfg.mla else A.gqa_attention
-        out, kv_new = attend(lp["mixer"], cfg, h, causal=True, positions=positions, cache=cache,
-                             mode=mode, pad_lens=pad_lens)
-        new_cache = kv_new if cache is not None else None
+    with trace.part("mixer", kind=kind):
+        if kind == "rwkv":
+            out, wkv, tshift = R.rwkv_time_mix(lp["mixer"], cfg, h, state=cache, mode=mode)
+        elif kind == "mamba":
+            out, st = S.mamba_mixer(lp["mixer"], cfg, h, state=cache, mode=mode)
+            new_cache = st if cache is not None else None
+        else:
+            attend = A.mla_attention if cfg.mla else A.gqa_attention
+            out, kv_new = attend(lp["mixer"], cfg, h, causal=True, positions=positions,
+                                 cache=cache, mode=mode, pad_lens=pad_lens)
+            new_cache = kv_new if cache is not None else None
     if "ls1" in lp:
         out = out * lp["ls1"].to(out.dtype)
     x = x + out
     h = x if F.carries_norm(lp["ffn"]) else L.norm(lp["ffn_norm"], x)
-    if kind == "rwkv":
-        out, cshift = R.rwkv_channel_mix(lp["ffn"], cfg, h,
-                                         prev=cache.cshift if cache is not None else None)
-        if cache is not None:
-            new_cache = R.RWKVState(tshift=tshift.to(torch.float32),
-                                    cshift=cshift.to(torch.float32), wkv=wkv)
-    elif fk == "moe":
-        out = F.moe_ffn(lp["ffn"], cfg, h, token_mask=token_mask)
-    else:
-        out = F.dense_ffn(lp["ffn"], cfg.act, h)
+    with trace.part("ffn", kind=fk):
+        if kind == "rwkv":
+            out, cshift = R.rwkv_channel_mix(lp["ffn"], cfg, h,
+                                             prev=cache.cshift if cache is not None else None)
+            if cache is not None:
+                new_cache = R.RWKVState(tshift=tshift.to(torch.float32),
+                                        cshift=cshift.to(torch.float32), wkv=wkv)
+        elif fk == "moe":
+            out = F.moe_ffn(lp["ffn"], cfg, h, token_mask=token_mask)
+        else:
+            out = F.dense_ffn(lp["ffn"], cfg.act, h)
     if "ls2" in lp:
         out = out * lp["ls2"].to(out.dtype)
     return x + out, new_cache
@@ -438,11 +441,12 @@ def forward(
                     new_blocks[name] = full
             x = L.constrain(x, act_sharding)
 
-    x = L.norm(params["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bld,vd->blv", x, params["embed"]["w"].to(x.dtype))
-    else:
-        logits = L.dense(params["lm_head"], x)
+    with trace.part("lm_head"):
+        x = L.norm(params["final_norm"], x)
+        if cfg.tie_embeddings:
+            logits = torch.einsum("bld,vd->blv", x, params["embed"]["w"].to(x.dtype))
+        else:
+            logits = L.dense(params["lm_head"], x)
     new_cache = None
     if cache is not None:
         new_cache = {"prefix": new_prefix, "blocks": new_blocks, "pos": pos0 + lq}

@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.obs import trace
 from repro_torch.tree import tree_index, tree_leaves, tree_stack
 
 __all__ = ["N_POSE", "init_params", "token_mask", "forward", "reconstruction_loss"]
@@ -81,10 +82,12 @@ def init_params(
 def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_mask=None) -> torch.Tensor:
     # fused sites absorb their pre-norm (unified-datapath prologue)
     h = x if F.carries_norm(p["attn"]) else L.norm(p["attn_norm"], x)
-    out, _ = A.gqa_attention(p["attn"], cfg, h, causal=False, mode="full", kv_mask=kv_mask)
+    with trace.part("attn"):
+        out, _ = A.gqa_attention(p["attn"], cfg, h, causal=False, mode="full", kv_mask=kv_mask)
     x = x + out * p["ls1"].to(out.dtype) if "ls1" in p else x + out
     h = x if F.carries_norm(p["ffn"]) else L.norm(p["ffn_norm"], x)
-    out = F.dense_ffn(p["ffn"], cfg.act, h)
+    with trace.part("ffn"):
+        out = F.dense_ffn(p["ffn"], cfg.act, h)
     x = x + out * p["ls2"].to(out.dtype) if "ls2" in p else x + out
     return x
 
@@ -146,6 +149,10 @@ def forward(
 
     Returns dict with pose [B,S,9], depth [B,S,P], points [B,S,P,3],
     conf [B,S,P], tokens [B,S,T,d].
+
+    Traced (inside a ``parts=True`` span, ``obs.trace``): an ``attn`` and
+    an ``ffn`` part per block (labels ``kind``, frame or global, and
+    ``pair``), and the ``heads`` part.
     """
     b, s, p_, d = patch_embeds.shape
     ns = cfg.n_special_tokens
@@ -157,24 +164,27 @@ def forward(
     fmask = None if tmask is None else tmask.reshape(b * s, t)
     gmask = None if tmask is None else tmask.reshape(b, s * t)
 
-    def pair(gp, xc):
+    def pair(gi, gp, xc):
         xc = _block(gp["frame"], cfg, L.reshape(xc, (b * s, t, d)), kv_mask=fmask)  # frame-wise
+        trace.label_parts(kind="frame", pair=gi)
         xc = _block(gp["global"], cfg, L.reshape(xc, (b, s * t, d)), kv_mask=gmask)  # global
+        trace.label_parts(kind="global", pair=gi)
         return L.constrain(L.reshape(xc, (b, s, t, d)), act_sharding)
 
     blocks = params["blocks"]
     for gi in range(tree_leaves(blocks)[0].shape[0]):
-        x = L.remat(functools.partial(pair, tree_index(blocks, gi)), remat)(x)
-    x = L.norm(params["final_norm"], x)
+        x = L.remat(functools.partial(pair, gi, tree_index(blocks, gi)), remat)(x)
+    with trace.part("heads"):
+        x = L.norm(params["final_norm"], x)
 
-    cam_tok = x[:, :, 0, :]  # [B, S, d]
-    ch = params["camera_head"]
-    pose = L.dense(ch["fc2"], torch.tanh(L.dense(ch["fc1"], cam_tok).float()).to(x.dtype))
+        cam_tok = x[:, :, 0, :]  # [B, S, d]
+        ch = params["camera_head"]
+        pose = L.dense(ch["fc2"], torch.tanh(L.dense(ch["fc1"], cam_tok).float()).to(x.dtype))
 
-    patch_tok = x[:, :, ns:, :]
-    dh = params["dpt_head"]
-    feat = L.gelu(L.dense(dh["fc1"], patch_tok).float()).to(x.dtype)
-    out = L.dense(dh["fc2"], feat).float()
+        patch_tok = x[:, :, ns:, :]
+        dh = params["dpt_head"]
+        feat = L.gelu(L.dense(dh["fc1"], patch_tok).float()).to(x.dtype)
+        out = L.dense(dh["fc2"], feat).float()
     return {
         "pose": pose.float(),
         "points": out[..., :3],

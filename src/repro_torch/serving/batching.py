@@ -621,6 +621,19 @@ class ServeStats:
 
 
 _REQ_IDS = itertools.count(1)  # process-unique request ids for span chains
+LOOP_THREAD = "serve-loop"  # the async server's poll loop (``serving.server``)
+FLUSH_REASONS = ("full", "deadline", "drain", "sync", "sla", "join")
+
+
+def emit_flush(reason: str, reqs: list, rows: int) -> None:
+    """One ``flush`` span event for a group released to an engine call:
+    why (``FLUSH_REASONS``), the rows taken, the oldest request's wait,
+    and whether the poll loop or a caller's thread released it."""
+    if obs_trace.current() is None:
+        return
+    obs_trace.emit("flush", reason=reason, rows=rows,
+                   wait_s=time.perf_counter() - min(r.t_enqueue for r in reqs),
+                   loop=threading.current_thread().name == LOOP_THREAD)
 
 
 @dataclasses.dataclass
@@ -712,7 +725,8 @@ class MicroBatchQueue:
     execute the coalesced requests and ``_deliver`` each one's result.
     ``add`` auto-flushes a group the moment it reaches ``max_batch``
     items; ``poll`` flushes groups whose oldest request has waited past
-    ``max_wait_s`` (the async server drives this on a timer).
+    ``max_wait_s`` (the async server drives this on a timer).  Each
+    release emits a ``flush`` event (``emit_flush``) with its reason.
     """
 
     def __init__(
@@ -734,7 +748,7 @@ class MicroBatchQueue:
         q = self._queues.setdefault(key, [])
         q.append((req, size))
         if size >= self.max_batch or sum(s for _, s in q) >= self.max_batch:
-            self.flush_group(key)
+            self.flush_group(key, "full")
         return req
 
     def poll(self) -> int:
@@ -747,13 +761,13 @@ class MicroBatchQueue:
             if q and now - q[0][0].t_enqueue >= self.max_wait_s
         ]
         for key in due:
-            self.flush_group(key)
+            self.flush_group(key, "deadline")
         return len(due)
 
     def flush(self) -> None:
         """Flush every pending group."""
         for key in [k for k, q in self._queues.items() if q]:
-            self.flush_group(key)
+            self.flush_group(key, "drain")
 
     def evict_expired(
         self, now: Optional[float] = None, stats: Optional[SchedulerStats] = None
@@ -802,7 +816,10 @@ class MicroBatchQueue:
             q.clear()
         return n
 
-    def flush_group(self, key: Hashable) -> None:
+    def flush_group(self, key: Hashable, reason: str = "sync") -> None:
+        """Run the group's queued requests, ``max_batch`` items a call;
+        ``reason`` is why (``FLUSH_REASONS``; "sync": a caller waits for
+        one request)."""
         q = self._queues.get(key, [])
         # priority-ordered admission: higher priority first, FIFO within a
         # level (stable sort on enqueue order keeps coalescing fair)
@@ -816,6 +833,7 @@ class MicroBatchQueue:
                 r, s = q.pop(0)
                 take.append(r)
                 n += s
+            emit_flush(reason, take, n)
             try:
                 self._run(key, take)
             except Exception as e:

@@ -233,39 +233,48 @@ class PrefillRunner:
         self.eng = eng
 
     def run(self, reqs: list[LMRequest], L: int, tier: str) -> PrefillResult:
+        """One wave: a ``prefill.call`` span (labels ``rows`` and ``tokens``:
+        the real rows and prompt tokens) with ``assemble``, ``init_cache``,
+        ``model`` and ``readback`` children."""
+        n_real = sum(r.prompts.shape[0] for r in reqs)
+        n_prompt_toks = sum(r.prompts.shape[0] * r.prompts.shape[1] for r in reqs)
+        with obs_trace.span("prefill.call", rows=n_real, tokens=n_prompt_toks, tier=tier):
+            return self._call(reqs, L, tier, n_real, n_prompt_toks)
+
+    def _call(self, reqs: list[LMRequest], L: int, tier: str, n_real: int,
+              n_prompt_toks: int) -> PrefillResult:
         eng = self.eng
         if eng._injector is not None:
             eng._injector.sleep("prefill")
         params = eng.tier_params(tier)
         dev = eng.device
-        n_real = sum(r.prompts.shape[0] for r in reqs)
         bb = eng.batch_bucket(n_real)
 
-        parts, pads, n_prompt_toks = [], [], 0
-        for r in reqs:
-            x = r.prompts
-            pad = L - x.shape[1]
-            if pad:
-                x = torch.nn.functional.pad(x, (pad, 0))  # LEFT pad (see module doc)
-            parts.append(x)
-            pads += [pad] * x.shape[0]
-            n_prompt_toks += r.prompts.shape[0] * r.prompts.shape[1]
-        # only real length padding needs the masked variant — batch-slack
-        # rows are garbage in, garbage out and get sliced off regardless
-        masked = any(p > 0 for p in pads)
-        real_pads = list(pads)
-        if n_real < bb:
-            parts.append(torch.zeros((bb - n_real, L), dtype=torch.long, device=dev))
-            pads += [L] * (bb - n_real)
-        toks = torch.cat(parts, dim=0)
-        pad_lens = torch.tensor(pads, dtype=torch.long, device=dev)
+        with obs_trace.span("assemble"):
+            parts, pads = [], []
+            for r in reqs:
+                x = r.prompts
+                pad = L - x.shape[1]
+                if pad:
+                    x = torch.nn.functional.pad(x, (pad, 0))  # LEFT pad (see module doc)
+                parts.append(x)
+                pads += [pad] * x.shape[0]
+            # only real length padding needs the masked variant — batch-slack
+            # rows are garbage in, garbage out and get sliced off regardless
+            masked = any(p > 0 for p in pads)
+            real_pads = list(pads)
+            if n_real < bb:
+                parts.append(torch.zeros((bb - n_real, L), dtype=torch.long, device=dev))
+                pads += [L] * (bb - n_real)
+            toks = torch.cat(parts, dim=0)
+            pad_lens = torch.tensor(pads, dtype=torch.long, device=dev)
 
         pbucket = PrefillBucket(bb, L, tier)
         eng._note_first_use(pbucket, masked)
-        cache = lm.init_cache(eng.cfg, bb, eng.max_len, device=dev)
+        with obs_trace.span("init_cache"):
+            cache = lm.init_cache(eng.cfg, bb, eng.max_len, device=dev)
         t0 = time.perf_counter()
-        with obs_trace.span("prefill", emit_event=False, bucket=str(pbucket)), \
-                torch.inference_mode():
+        with obs_trace.span("model", parts=True, bucket=str(pbucket)), torch.inference_mode():
             logits, cache = lm.forward(eng.cfg, params, toks, cache=cache, mode="prefill",
                                        pad_lens=pad_lens if masked else None)
             lg_last = logits[:, -1]
@@ -293,7 +302,8 @@ class PrefillRunner:
                 i0 += b
         # per-row finiteness feeds the numeric quarantine: a NaN/Inf row
         # fails only its own request; batch-slack rows are garbage by design
-        ok_rows = torch.isfinite(lg_last).all(dim=-1)[:n_real].cpu().numpy()
+        with obs_trace.span("readback"):
+            ok_rows = torch.isfinite(lg_last).all(dim=-1)[:n_real].cpu().numpy()
         return PrefillResult(cache=cache, logits_last=lg_last, pad_lens=pad_lens,
                              pads=real_pads, n_real=n_real, bb=bb, L=L, masked=masked,
                              ok_rows=ok_rows)
@@ -460,12 +470,13 @@ class DecodeRunner:
 
     # -- admission -------------------------------------------------------
 
-    def admit(self, reqs: list[LMRequest], L: int) -> list[LMRequest]:
+    def admit(self, reqs: list[LMRequest], L: int, reason: str) -> list[LMRequest]:
         """Admit as many of the wave's requests as fit (free slots plus
         ladder growth room; an oversize wave is allowed onto an idle
         runner, as the bucket engine runs an oversize group alone).
         Returns the admitted requests, already prefilled and — for
-        multi-step requests — installed into decode slots."""
+        multi-step requests — installed into decode slots.  ``reason``:
+        why the scheduler released the wave (``batching.FLUSH_REASONS``)."""
         eng = self.eng
         was_running = self.active_rows > 0
         budget = self._free_rows()
@@ -485,6 +496,7 @@ class DecodeRunner:
         if not take:
             return []
 
+        batching.emit_flush(reason, take, rows)
         for r in take:
             obs_trace.emit("admit", request=r.req_id, tier=self.tier, prompt_len=L,
                            mid_decode=was_running)
@@ -606,7 +618,8 @@ class DecodeRunner:
         # extra host round trip
         toks, oks = [], []
         t0 = time.perf_counter()
-        with obs_trace.span("decode_burst", emit_event=False, bucket=str(bucket)), \
+        with obs_trace.span("decode_burst", bucket=str(bucket), steps=n,
+                            active=len(self.active), width=self.width), \
                 torch.inference_mode():
             for i in range(n):
                 tok, self.cache, ok = eng._slot_step(
@@ -616,9 +629,9 @@ class DecodeRunner:
                 toks.append(tok)
                 oks.append(ok)
             out = torch.cat([torch.stack(toks), torch.stack(oks).long()]).cpu().numpy()
+            if eng.device.type == "cuda":  # the readback synchronized
+                obs_trace.anchor()
         dt = time.perf_counter() - t0
-        obs_trace.emit("decode_burst", dur_s=dt, bucket=str(bucket), steps=n,
-                       active=len(self.active), width=self.width)
 
         ds = eng.stats.bucket(bucket)
         ds.calls += n
@@ -775,7 +788,7 @@ class Scheduler:
             # group full: serve it to completion synchronously (the bucket
             # engine's auto-flush contract)
             targets = [r for r in self._pending if (r.tier, r.L) == group]
-            self.drain(targets=targets, only_group=group)
+            self.drain(targets=targets, only_group=group, reason="full")
 
     def poll(self) -> int:
         """One bounded scheduling turn: evict expired requests, admit due
@@ -789,10 +802,11 @@ class Scheduler:
         return admitted
 
     def drain(self, targets: Optional[list[LMRequest]] = None,
-              only_group: Optional[tuple] = None) -> None:
+              only_group: Optional[tuple] = None, reason: str = "drain") -> None:
         """Force-admit and step until ``targets`` (or everything) is done.
         Deadlines still apply — an expired request resolves with
-        ``DeadlineExceeded``, which counts as done."""
+        ``DeadlineExceeded``, which counts as done.  ``reason`` labels the
+        waves it releases (``batching.FLUSH_REASONS``)."""
         while True:
             if targets is not None and all(r.ready for r in targets):
                 return
@@ -800,7 +814,7 @@ class Scheduler:
                 return
             now = time.perf_counter()
             self.evict_expired(now)
-            n_adm = self.admit(now, force=True, only_group=only_group)
+            n_adm = self.admit(now, force=True, only_group=only_group, reason=reason)
             n_steps = sum(r.run_steps(self.eng.decode_steps_per_poll)
                           for r in self._runners.values())
             if not n_adm and not n_steps:
@@ -822,17 +836,20 @@ class Scheduler:
             r.t_enqueue,
         ))
 
-    def _due(self, wave: list[LMRequest], runner: DecodeRunner, now: float) -> bool:
+    def _due(self, wave: list[LMRequest], runner: DecodeRunner, now: float) -> Optional[str]:
+        """Why the wave is due now (a ``batching.FLUSH_REASONS`` entry), or None."""
         if sum(r.prompts.shape[0] for r in wave) >= self.eng.max_batch:
-            return True
+            return "full"
         if now - min(r.t_enqueue for r in wave) >= self.eng.max_wait_s:
-            return True
+            return "deadline"
         if any(r.deadline_s is not None for r in wave):
-            return True  # SLA traffic admits immediately
-        return runner.active_rows > 0  # join the running batch
+            return "sla"  # SLA traffic admits immediately
+        return "join" if runner.active_rows > 0 else None  # join the running batch
 
     def admit(self, now: float, force: bool = False,
-              only_group: Optional[tuple] = None) -> int:
+              only_group: Optional[tuple] = None, reason: str = "drain") -> int:
+        """Admit every due wave (with ``force``, every wave, released for
+        ``reason``); returns the requests admitted."""
         if not self._pending:
             return 0
         admitted = 0
@@ -847,7 +864,8 @@ class Scheduler:
             wave = [q for q in self._order(self._pending)
                     if (q.tier, q.L) == group and not q.ready]
             runner = self.runner(r.tier)
-            if not force and not self._due(wave, runner, now):
+            why = reason if force else self._due(wave, runner, now)
+            if why is None:
                 continue
             inj = self.eng._injector
             if inj is not None:
@@ -860,7 +878,7 @@ class Scheduler:
                     wave.remove(q)
                 if not wave:
                     continue
-            taken = runner.admit(wave, r.L)
+            taken = runner.admit(wave, r.L, why)
             admitted += len(taken)
             for q in taken:
                 self._pending.remove(q)
@@ -1050,8 +1068,10 @@ class Engine:
             return quantize_lm(self.cfg, self._raw, policy)
 
     def _sync(self) -> None:
+        """Wait for the device, and anchor the trace's device intervals there."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            obs_trace.anchor()
 
     # ---- tiers -----------------------------------------------------------
 
@@ -1370,7 +1390,7 @@ class Engine:
                         seeds=None if greedy else _draw_seeds(generator, prompts.shape[0]))
         self._sched.add(req)
         if not req.ready:
-            self._sched.drain(targets=[req], only_group=(tier, L))
+            self._sched.drain(targets=[req], only_group=(tier, L), reason="sync")
         return np.asarray(req.result())
 
     # ---- bucket-mode micro-batch execution -------------------------------
@@ -1411,7 +1431,8 @@ class Engine:
             if self._injector is not None:
                 self._injector.sleep("decode")
             t0 = time.perf_counter()
-            with obs_trace.span("decode_burst", emit_event=False, bucket=str(dbucket)), \
+            with obs_trace.span("decode_burst", bucket=str(dbucket), steps=n_steps - 1,
+                                active=len(reqs), width=bb), \
                     torch.inference_mode():
                 for step_i in range(n_steps - 1):
                     logits, cache = lm.decode_step(self.cfg, params, tok, cache,
@@ -1429,6 +1450,8 @@ class Engine:
                     tok = self._next_token(lg, greedy, generator)
                     out.append(tok)
                 res = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+                if self.device.type == "cuda":  # the readback synchronized
+                    obs_trace.anchor()
             dt = time.perf_counter() - t0
             for r in reqs:
                 obs_trace.emit("decode", request=r.req_id, tier=tier, steps=r.n_steps - 1,

@@ -59,7 +59,7 @@ from typing import Any, Optional
 from repro_torch import obs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serving.batching import PendingRequest, ServerStopped, ServingEngine
+from repro_torch.serving.batching import LOOP_THREAD, PendingRequest, ServerStopped, ServingEngine
 
 __all__ = ["AsyncServer"]
 
@@ -156,11 +156,13 @@ class AsyncServer:
     @contextlib.contextmanager
     def _engine_lock(self):
         """The engine lock for every caller but the poll loop, counted in
-        ``_waiting`` until it is held, so that the loop yields it."""
+        ``_waiting`` until it is held (a ``lock_wait`` span), so that the
+        loop yields it."""
         with self._waiting_lock:
             self._waiting += 1
         try:
-            self._lock.acquire()
+            with obs_trace.span("lock_wait"):
+                self._lock.acquire()
         finally:
             with self._waiting_lock:
                 self._waiting -= 1
@@ -183,7 +185,7 @@ class AsyncServer:
             # instead of being resurrected by a clear()
             self._stop = stop = threading.Event()
             self._thread = threading.Thread(
-                target=self._loop, args=(stop,), name="serve-loop", daemon=True
+                target=self._loop, args=(stop,), name=LOOP_THREAD, daemon=True
             )
             self._thread.start()
         if self.metrics_port is not None and self._http is None:
@@ -258,19 +260,24 @@ class AsyncServer:
         """Thread-safe ``engine.enqueue(...)``; returns the pending
         request with a waiter attached (an auto-flush may already have
         delivered it).  Raises :class:`ServerStopped` once the poll loop
-        has failed permanently (``max_loop_failures`` strikes)."""
+        has failed permanently (``max_loop_failures`` strikes).
+
+        Traced as a ``submit`` span (label ``req``: the request id) whose
+        children are the ``lock_wait`` and any engine call it ran."""
         if self._failed:
             raise ServerStopped(
                 f"server loop failed permanently after "
                 f"{self.max_loop_failures} consecutive poll failures "
                 f"(last error: {self.last_error!r})"
             )
-        with self._engine_lock():
+        with obs_trace.span("submit") as sp, self._engine_lock():
             req = self.engine.enqueue(*args, **kwargs)
             if not req.ready:
                 # attached under the lock so the loop's delivery can never
                 # race past an unobserved event
                 req._event = threading.Event()
+            if sp is not None:
+                sp.labels["req"] = req.req_id
         return req
 
     def result(self, req: PendingRequest, timeout: float | None = None) -> Any:

@@ -360,12 +360,20 @@ class VGGTEngine:
     # ---- micro-batch execution -------------------------------------------
 
     def _run(self, key: tuple[str, int, int], reqs: list[PendingRequest]) -> None:
+        """One micro-batch: a ``vggt.call`` span (label ``scenes``: the real
+        scenes) with ``assemble``, ``model``, ``readback`` and ``deliver``
+        children."""
         tier, frames, p_bucket = key
+        n_real = sum(r.scenes.shape[0] for r in reqs)
+        with obs_trace.span("vggt.call", scenes=n_real, tier=tier):
+            self._call(tier, frames, p_bucket, n_real, reqs)
+
+    def _call(self, tier: str, frames: int, p_bucket: int, n_real: int,
+              reqs: list[PendingRequest]) -> None:
         for r in reqs:
             obs_trace.emit("admit", request=r.req_id, tier=tier, frames=frames,
                            patches=p_bucket, mid_decode=False)
         params = self.tier_params(tier)
-        n_real = sum(r.scenes.shape[0] for r in reqs)
         bucket = self.bucket_for(n_real, frames, p_bucket, tier)
         d = reqs[0].scenes.shape[-1]
         dtype = reqs[0].scenes.dtype
@@ -376,39 +384,40 @@ class VGGTEngine:
         inj = self._injector
         if inj is not None:
             inj.sleep("prefill")  # the forward is VGGT's prefill stage
-        parts, mask_parts = [], []
-        for r in reqs:
-            x = r.scenes
-            if inj is not None:
-                v = inj.activation("scene", r.req_id)
-                if v is not None:  # poison one input element of this scene
-                    x = x.clone()
-                    x[0, 0, 0, 0] += v
-            if x.shape[2] < bucket.patches:  # pad the patch dim (masked)
-                x = torch.nn.functional.pad(x, (0, 0, 0, bucket.patches - x.shape[2]))
-            parts.append(x)
-            if masked:
-                m = torch.zeros((x.shape[0], frames, bucket.patches), dtype=torch.bool,
-                                device=self.device)
-                m[:, :, : r.n_patches] = True
-                mask_parts.append(m)
-        if n_real < bucket.batch:  # pad the batch dim with empty scenes
-            slack = bucket.batch - n_real
-            parts.append(torch.zeros((slack, frames, bucket.patches, d), dtype=dtype,
-                                     device=self.device))
-            if masked:
-                mask_parts.append(torch.ones((slack, frames, bucket.patches), dtype=torch.bool,
-                                             device=self.device))
-        x = torch.cat(parts, dim=0)
+        with obs_trace.span("assemble"):
+            parts, mask_parts = [], []
+            for r in reqs:
+                x = r.scenes
+                if inj is not None:
+                    v = inj.activation("scene", r.req_id)
+                    if v is not None:  # poison one input element of this scene
+                        x = x.clone()
+                        x[0, 0, 0, 0] += v
+                if x.shape[2] < bucket.patches:  # pad the patch dim (masked)
+                    x = torch.nn.functional.pad(x, (0, 0, 0, bucket.patches - x.shape[2]))
+                parts.append(x)
+                if masked:
+                    m = torch.zeros((x.shape[0], frames, bucket.patches), dtype=torch.bool,
+                                    device=self.device)
+                    m[:, :, : r.n_patches] = True
+                    mask_parts.append(m)
+            if n_real < bucket.batch:  # pad the batch dim with empty scenes
+                slack = bucket.batch - n_real
+                parts.append(torch.zeros((slack, frames, bucket.patches, d), dtype=dtype,
+                                         device=self.device))
+                if masked:
+                    mask_parts.append(torch.ones((slack, frames, bucket.patches),
+                                                 dtype=torch.bool, device=self.device))
+            x = torch.cat(parts, dim=0)
+            mask = torch.cat(mask_parts, dim=0) if masked else None
         self._note_first_use(bucket, masked)
 
         t0 = time.perf_counter()
-        with obs_trace.span("forward", emit_event=False, bucket=str(bucket)), \
-                torch.inference_mode():
-            mask = torch.cat(mask_parts, dim=0) if masked else None
+        with obs_trace.span("model", parts=True, bucket=str(bucket)), torch.inference_mode():
             out = vggt_mod.forward(self.cfg, params, x, patch_mask=mask)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+                obs_trace.anchor()
         dt = time.perf_counter() - t0
 
         bs = self.stats.bucket(bucket)
@@ -424,28 +433,30 @@ class VGGTEngine:
         # per-request finiteness over the real (unpadded) outputs, reduced on
         # the device and read in one transfer: a non-finite scene batch
         # fails only its own request
-        oks, i0 = [], 0
-        for r in reqs:
-            b = r.scenes.shape[0]
-            ok = torch.ones((), dtype=torch.bool, device=self.device)
-            for k in ("pose", "points", "depth", "conf"):
-                a = out[k][i0 : i0 + b]
-                if k != "pose":
-                    a = a[:, :, : r.n_patches]
-                ok = ok & torch.isfinite(a).all()
-            oks.append(ok)
-            i0 += b
-        okh = torch.stack(oks).cpu().tolist()
+        with obs_trace.span("readback"):
+            oks, i0 = [], 0
+            for r in reqs:
+                b = r.scenes.shape[0]
+                ok = torch.ones((), dtype=torch.bool, device=self.device)
+                for k in ("pose", "points", "depth", "conf"):
+                    a = out[k][i0 : i0 + b]
+                    if k != "pose":
+                        a = a[:, :, : r.n_patches]
+                    ok = ok & torch.isfinite(a).all()
+                oks.append(ok)
+                i0 += b
+            okh = torch.stack(oks).cpu().tolist()
 
-        i0 = 0
-        ns = self.cfg.n_special_tokens
-        for idx, r in enumerate(reqs):
-            b = r.scenes.shape[0]
-            if okh[idx]:
-                r._deliver(_slice_result(out, i0, b, r.n_patches, ns))
-            else:
-                self._numeric_fault(r)
-            i0 += b
+        with obs_trace.span("deliver"):
+            i0 = 0
+            ns = self.cfg.n_special_tokens
+            for idx, r in enumerate(reqs):
+                b = r.scenes.shape[0]
+                if okh[idx]:
+                    r._deliver(_slice_result(out, i0, b, r.n_patches, ns))
+                else:
+                    self._numeric_fault(r)
+                i0 += b
 
 
 def _slice_result(out: dict, i0: int, b: int, n_patches: int, ns: int) -> dict:

@@ -1409,3 +1409,59 @@ def test_tensor_parallel_sites_on_local_shards_at_qwen3_14b_widths(dev, m):
     torch.cuda.synchronize()
     assert log.by_name() == {"two_stage_attention": 1 + m}
     assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+def test_span_device_interval_holds_exactly_its_kernels(dev):
+    """Under ``torch.profiler``, a span's device interval (anchored after
+    the synchronize) holds exactly the kernels its body launched, with
+    edges within 50 us of the first kernel's start and the last's end.  Ten
+    launches before the span keep the stream busy, so its entry waits on
+    the device, not on the host.  The profiler's timeline is put on the
+    host clock by its marks after the first (the first carries the
+    profiler's first-call cost, ~0.3 ms)."""
+    import statistics
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+
+    a = torch.randn((2048, 2048), device=dev) / 45.0
+    prev = trace.install(trace.Tracer())
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):  # cuBLAS, the profiler's paths and the event pool warm
+                with trace.span("warm"):
+                    a @ a
+            torch.cuda.synchronize()
+            trace.anchor()
+            hosts = []
+            for _ in range(4):
+                hosts.append(time.perf_counter())
+                with torch.profiler.record_function("span-test.mark"):
+                    pass
+            x = a
+            for _ in range(10):  # before
+                x = x @ a
+            with trace.span("body"):
+                for _ in range(3):
+                    x = x @ a
+            x = x @ a  # after
+            torch.cuda.synchronize()
+            trace.anchor()
+        (ev,) = [e for e in trace.current().recent() if e.phase == "body"]
+    finally:
+        trace.install(prev)
+    events = prof.events()
+    marks = sorted(e.time_range.start for e in events if e.name == "span-test.mark")
+    offset = statistics.median(m / 1e6 - h for m, h in list(zip(marks, hosts))[1:])
+    ks = sorted((e.time_range.start / 1e6 - offset, e.time_range.end / 1e6 - offset)
+                for e in events if e.device_type == DeviceType.CUDA
+                and e.name not in ("body", "warm", "span-test.mark"))
+    lo, hi = ev.t + ev.dev_start_s, ev.t + ev.dev_end_s
+    assert ks and len(ks) % 17 == 0, (lo, hi, ks)  # 3 warm, 14 matmuls: the same kernels each
+    k = len(ks) // 17
+    inside = [kk for kk in ks if lo <= kk[0] <= hi]
+    assert inside == ks[13 * k:16 * k], (lo, hi, ks[12 * k:])
+    assert abs(inside[0][0] - lo) < 50e-6 and abs(inside[-1][1] - hi) < 50e-6, (lo, hi, inside)
